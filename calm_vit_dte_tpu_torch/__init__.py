@@ -13,10 +13,14 @@ Layer map (bottom-up), module for module the same as the JAX package's:
             masked attention (dispatches to the kernel on a CUDA tensor)
   kernels/  CUDA C++ kernels written for Hopper (csrc/*.cu) with their
             ctypes wrappers and plain PyTorch versions
-  models/   VMLA layer, CALM Block, EncoderDecoder8, ViT wrapper
+  models/   VMLA layer, CALM Block, EncoderDecoder8, ViT wrapper (eval and
+            training forward)
   data/     eval preprocessing (center crop + normalize) on the device
-  compat/   weight carry from the JAX package's pytrees
-  utils/    named configs, device selection
+  train/    losses, fused AdamW and schedules, TrainState, the train and
+            eval steps (hoisted spectral-norm pre-pass, microbatches,
+            activation checkpointing that keeps the attention outputs)
+  compat/   weight and optimizer-state carry from the JAX package's pytrees
+  utils/    named configs, device selection, checkpointing with kept tensors
   serve.py  Predictor: frozen eval-normalized weights, classify/reconstruct
 
 Every entry point takes `device=` and defaults to "cuda"; without a card it

@@ -1,5 +1,6 @@
 """Weight carry: the JAX package's (params, sn_state) pytrees -> the port's
-state_dict.
+state_dict, its fused-AdamW state -> the port's optimizer state, and the
+port's parameters back into a JAX-keyed tree of numpy arrays.
 
 Counterpart of calm_vit_dte_tpu/compat/torch_export.py, whose renaming
 (`_rename_back`) is copied here: the port's modules carry the reference's
@@ -13,6 +14,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from calm_vit_dte_tpu_torch.train.optim import AdamWState
 
 
 def _rename_back(path: list[str]) -> list[str]:
@@ -47,29 +50,37 @@ def _rename_back(path: list[str]) -> list[str]:
     return out
 
 
+def _param_name(path: list[str]) -> str:
+    """The port's parameter name of the JAX params leaf at `path`."""
+    name = path[-1]
+    suffix = {"w": "weight_orig", "b": "bias", "scale": "weight",
+              "inv_freq": "inv_freq"}.get(name)
+    if suffix is not None:
+        return ".".join(_rename_back(path[:-1]) + [suffix])
+    if name in ("ls_att", "ls_mlp"):
+        return ".".join(_rename_back(path))
+    raise KeyError(f"unmapped param leaf {'.'.join(path)}")
+
+
+def _leaves(tree: dict, path: list[str] | None = None):
+    """(path, leaf) pairs in JAX's flattening order: dict keys sorted."""
+    path = path or []
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _leaves(tree[k], path + [k])
+        else:
+            yield path + [k], tree[k]
+
+
+def _tensor(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
 def state_dict_from_jax(params: dict,
                         sn_state: dict) -> dict[str, torch.Tensor]:
     """Flatten the JAX (params, sn_state) into the port's fp32 state_dict."""
-    sd: dict[str, torch.Tensor] = {}
-
-    def tensor(x) -> torch.Tensor:
-        return torch.from_numpy(np.array(x, dtype=np.float32))
-
-    def walk_params(node, path):
-        if not isinstance(node, dict):
-            name = path[-1]
-            prefix = ".".join(_rename_back(path[:-1]))
-            suffix = {"w": "weight_orig", "b": "bias", "scale": "weight",
-                      "inv_freq": "inv_freq"}.get(name)
-            if suffix is not None:
-                sd[f"{prefix}.{suffix}"] = tensor(node)
-            elif name in ("ls_att", "ls_mlp"):
-                sd[".".join(_rename_back(path))] = tensor(node)
-            else:
-                raise KeyError(f"unmapped param leaf {'.'.join(path)}")
-            return
-        for k, v in node.items():
-            walk_params(v, path + [k])
+    sd = {_param_name(path): _tensor(leaf) for path, leaf in _leaves(params)}
+    tensor = _tensor
 
     def walk_state(node, path):
         if isinstance(node, dict) and "u" in node and "v" in node:
@@ -80,6 +91,40 @@ def state_dict_from_jax(params: dict,
         for k, v in node.items():
             walk_state(v, path + [k])
 
-    walk_params(params, [])
     walk_state(sn_state, [])
     return sd
+
+
+def adamw_state_from_jax(params: dict, count, mu, nu, model) -> AdamWState:
+    """The JAX package's FusedAdamWState (count and the flat fp32 mu/nu over
+    `ravel_pytree(params)`) as the port's AdamWState for `model`, moments
+    ordered like `model.parameters()` and on its device."""
+    mu, nu = np.asarray(mu, np.float32), np.asarray(nu, np.float32)
+    by_name, at = {}, 0
+    for path, leaf in _leaves(params):
+        shape = np.shape(leaf)
+        n = int(np.prod(shape))
+        by_name[_param_name(path)] = (mu[at:at + n].reshape(shape),
+                                      nu[at:at + n].reshape(shape))
+        at += n
+    if at != mu.size or at != nu.size:
+        raise ValueError(f"moments hold {mu.size} values, params {at}")
+    moments = [by_name[name] for name, _ in model.named_parameters()]
+    dev = next(model.parameters()).device
+    return AdamWState(count=int(count), notfinite=0, gnorm=0.0,
+                      mu=[_tensor(m).to(dev) for m, _ in moments],
+                      nu=[_tensor(n).to(dev) for _, n in moments])
+
+
+def params_to_jax(model, params: dict) -> dict:
+    """`model`'s parameters as numpy arrays in a tree keyed like the JAX
+    `params` (which only lends its structure)."""
+    named = {k: v.detach().cpu().numpy()
+             for k, v in model.named_parameters()}
+    out: dict = {}
+    for path, _ in _leaves(params):
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = named[_param_name(path)]
+    return out

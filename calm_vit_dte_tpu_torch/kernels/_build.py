@@ -3,7 +3,8 @@
 Each `csrc/<name>.cu` is compiled on its own into
 `build/torch_kernels/lib<name>.so` (beside the package, under the repo's
 git-ignored `build/`), for sm_90a, with a plain C interface. A library is
-built at first use and rebuilt when its source is newer; nothing is compiled
+built at first use and rebuilt when its source (or a shared `csrc/*.cuh`
+header) is newer; nothing is compiled
 when a module is imported. `build()` starts one nvcc per source at once, so
 building every kernel costs the time of the slowest one.
 """
@@ -40,8 +41,10 @@ def _paths(name: str) -> tuple[Path, Path, Path]:
 
 
 def _stale(name: str) -> bool:
+    """Missing, or older than its source or any shared header."""
     src, lib, _ = _paths(name)
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    newest = max(f.stat().st_mtime for f in [src, *CSRC.glob("*.cuh")])
+    return not lib.exists() or lib.stat().st_mtime < newest
 
 
 def build(names: list[str]) -> dict[str, str]:

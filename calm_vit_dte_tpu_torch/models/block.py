@@ -6,8 +6,11 @@ JAX counterpart: calm_vit_dte_tpu/models/block.py (reference
 Vi_Tools_CNN_less_V2.py:317-403). The first block tokenizes an NHWC image
 (B, H, W, 3) into rows (B, H, W*3); the axial transpose views (B, S, 3S) as
 (B, S, S, 3) and swaps the spatial axes. The conv residual works on that
-NHWC view directly: on the card it is one kernel launch at every S
-(kernels/conv_residual.py), on the CPU the F.conv2d chain.
+NHWC view directly: at eval on the card it is one kernel launch at every S
+(kernels/conv_residual.py), on the CPU the F.conv2d chain. In training it is
+the F.conv2d chain with torch autograd on every device, as the JAX package
+trains on its plain conv chain by default; the fused kernel has no backward
+yet.
 """
 
 from __future__ import annotations
@@ -17,7 +20,10 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
-from calm_vit_dte_tpu_torch.kernels.conv_residual import fused_conv_residual
+from calm_vit_dte_tpu_torch.kernels.conv_residual import (
+    fused_conv_residual,
+    fused_conv_residual_plain,
+)
 from calm_vit_dte_tpu_torch.models.vmla import VMLA, VMLAConfig
 from calm_vit_dte_tpu_torch.nn.conv import SNConv2d
 from calm_vit_dte_tpu_torch.ops.latent_state import LatentState
@@ -89,7 +95,9 @@ class ConvResidual(nn.ModuleDict):
         b, s, _ = x_seq.shape
         img = x_seq.reshape(b, s, s, 3).to(dtype).contiguous()  # NHWC
         c1, c2, c3 = self["0"], self["2"], self["4"]
-        y = fused_conv_residual(
+        conv = (fused_conv_residual_plain if self.training
+                else fused_conv_residual)
+        y = conv(
             img,
             c1.normalized_weight().reshape(CONV_HIDDEN, 3), c1.bias,
             c2.normalized_weight().permute(2, 3, 1, 0).reshape(
@@ -123,12 +131,12 @@ class Block(nn.Module):
     def forward(self, x: torch.Tensor, esm: LatentState | None = None,
                 dsm: LatentState | None = None,
                 csm: LatentState | None = None, *, dtype=torch.float32,
-                use_mask: bool = True) -> torch.Tensor:
+                use_mask: bool = True,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        kw = dict(dtype=dtype, use_mask=use_mask, generator=generator)
         xq = tokenize_image(x) if self.cfg.is_first_block else x
-        xq = self.encoder(xq, latent=esm, dtype=dtype, use_mask=use_mask)
-        xkv = self.decoder(axial_transpose(xq), latent=dsm, dtype=dtype,
-                           use_mask=use_mask)
+        xq = self.encoder(xq, latent=esm, **kw)
+        xkv = self.decoder(axial_transpose(xq), latent=dsm, **kw)
         xkv = axial_transpose(xkv)
-        x = self.cross(xq, input_kv=xkv, latent=csm, dtype=dtype,
-                       use_mask=use_mask)
+        x = self.cross(xq, input_kv=xkv, latent=csm, **kw)
         return x + self.proj(x, dtype)

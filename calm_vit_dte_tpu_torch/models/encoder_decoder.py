@@ -4,7 +4,9 @@ JAX counterpart: calm_vit_dte_tpu/models/encoder_decoder.py (reference
 Vi_Tools_CNN_less_V2.py:407-533). Three encoder blocks step dim/seq down by
 3*step each, two bottleneck blocks keep the shape, three decoder blocks step
 back up; long U-Net skips; final LayerNorm. One shared "sum" latent
-accumulator threads through all cross layers and yields the KL term.
+accumulator threads through all cross layers and yields the KL term. With
+`remat` each Block is one activation-checkpoint segment (utils/remat.py): the
+backward replays the Block's cheap chain around the saved attention outputs.
 Encoder8 and CALMLatentDiffusion are not ported yet.
 """
 
@@ -18,6 +20,7 @@ from torch import nn
 from calm_vit_dte_tpu_torch.models.block import Block, BlockConfig
 from calm_vit_dte_tpu_torch.nn.norm import LayerNorm
 from calm_vit_dte_tpu_torch.ops.latent_state import LatentState
+from calm_vit_dte_tpu_torch.utils import remat as rm
 
 
 @dataclass(frozen=True)
@@ -89,14 +92,44 @@ class EncoderDecoder8(nn.Module):
         self.ln_final = LayerNorm(cfg.final_dim)
 
     def forward(self, x: torch.Tensor, *, dtype=torch.float32,
-                use_mask: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
-        """x: NHWC image (B, H, W, 3). Returns (tokens (B,S,3S), kl)."""
+                use_mask: bool = True,
+                generator: torch.Generator | None = None,
+                remat: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+        """x: NHWC image (B, H, W, 3). Returns (tokens (B,S,3S), kl).
+        `generator` feeds the training-mode noise; `remat` checkpoints each
+        Block (training, on pre-normalized weights: a replayed power
+        iteration would update u/v twice)."""
         esm = LatentState(mode="sum") if self.cfg.force_reduce else None
         dsm = LatentState(mode="sum") if self.cfg.force_reduce else None
         csm = LatentState(mode="sum")
+        states = [s for s in (esm, dsm, csm) if s is not None]
+        any_sn_layer = self.block_bottle_neck_1.proj["0"]
+        if remat and any_sn_layer.weight_prenormalized is None:
+            raise ValueError("remat needs pre-normalized weights "
+                             "(nn.spectral_norm.prenormalized_scope)")
 
         def run(block: Block, x: torch.Tensor) -> torch.Tensor:
-            return block(x, esm, dsm, csm, dtype=dtype, use_mask=use_mask)
+            if not remat:
+                return block(x, esm, dsm, csm, dtype=dtype,
+                             use_mask=use_mask, generator=generator)
+            # The latent accumulators are the segment's only mutable state:
+            # their tensors go in and come out as arguments, their counters
+            # are reset to the segment's start on every run.
+            start = [s.carry() for s in states]
+
+            def segment(x, *tensors):
+                for i, s in enumerate(states):
+                    s.set_carry(tuple(tensors[3 * i:3 * i + 3])
+                                + start[i][3:])
+                y = block(x, esm, dsm, csm, dtype=dtype, use_mask=use_mask,
+                          generator=generator)
+                return (y, *(t for s in states for t in s.carry()[:3]))
+
+            y, *tensors = rm.checkpoint(
+                segment, x, *(t for c in start for t in c[:3]))
+            for i, s in enumerate(states):
+                s.set_carry(tuple(tensors[3 * i:3 * i + 3]) + s.carry()[3:])
+            return y
 
         skips = []
         for block in self.encoder_blocks:

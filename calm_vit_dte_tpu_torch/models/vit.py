@@ -71,9 +71,14 @@ class ViT(nn.Module):
                 "2": SNLinear(d * 2, cfg.out_features, generator=generator)})
 
     def forward(self, x: torch.Tensor, *, dtype=torch.float32,
-                use_mask: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+                use_mask: bool = True,
+                generator: torch.Generator | None = None,
+                remat: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+        """`generator` feeds the training-mode noise; `remat` checkpoints
+        each Block of the backbone (see EncoderDecoder8.forward)."""
         x = x.to(dtype)
-        feats, kl = self.autoencoder(x, dtype=dtype, use_mask=use_mask)
+        feats, kl = self.autoencoder(x, dtype=dtype, use_mask=use_mask,
+                                     generator=generator, remat=remat)
         if self.cfg.generate:
             return feats + self.proj(feats, dtype), kl
         pooled = feats.mean(dim=1)  # AdaptiveAvgPool1d over the sequence

@@ -1,4 +1,4 @@
-"""VMLA ("Variational Multi-Head Latent Attention") layer, eval forward.
+"""VMLA ("Variational Multi-Head Latent Attention") layer.
 
 JAX counterpart: calm_vit_dte_tpu/models/vmla.py (reference
 Vi_Tools_CNN_less_V2.py:98-315). A pre-LN attention layer with an optional
@@ -11,9 +11,12 @@ is spectral-normed.
 
 Submodules carry the reference's names (ln_q, t_encoder_q, q_proj,
 linear_mask.0/2, mlp.0/3, ...), so reference and golden state dicts load
-with load_state_dict. This slice ports the eval forward only; training
-(reparameterization noise, dropout, power iteration per step) comes with
-the trainer.
+with load_state_dict. In training mode the bottleneck samples z = mu + eps *
+sigma (noise from the caller's generator or an injected source), dropout
+follows `out_proj`, and each spectral-normed layer runs its power iteration
+unless the train step handed it a pre-normalized weight. The projections
+have one form (merged per-layer F.linear, then the head split); the JAX
+package's training/eval choice between two forms was a TPU measurement.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from calm_vit_dte_tpu_torch.ops.attention import masked_rope_attention
 from calm_vit_dte_tpu_torch.ops.latent_state import LatentState
 from calm_vit_dte_tpu_torch.ops.rope import RoPE
 from calm_vit_dte_tpu_torch.ops.variational import (
+    dropout,
     reparameterize,
     softplus_var,
 )
@@ -49,6 +53,7 @@ class VMLAConfig:
     t_force_reduce: bool = False
     use_mlp: bool = True
     is_cross: bool = False
+    dropout: float = 0.0
 
     @property
     def reduce(self) -> bool:
@@ -144,12 +149,12 @@ class VMLA(nn.Module):
     def forward(self, input_q: torch.Tensor,
                 input_kv: torch.Tensor | None = None,
                 latent: LatentState | None = None, *, dtype=torch.float32,
-                use_mask: bool = True) -> torch.Tensor:
-        """Eval forward of one layer: (B, S, dim1) -> (B, S', dim2)."""
-        if self.training:
-            raise NotImplementedError(
-                "the VMLA training forward is not ported yet; call .eval()")
+                use_mask: bool = True,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """One layer: (B, S, dim1) -> (B, S', dim2). `generator` feeds the
+        training-mode noise (unused at eval)."""
         cfg = self.cfg
+        training = self.training
         residual = input_q
         xq = self.ln_q(input_q, dtype)
         xkv = xq if input_kv is None else self.ln_kv(input_kv, dtype)
@@ -164,8 +169,10 @@ class VMLA(nn.Module):
                                                                       dim=-1)
             var_zq = softplus_var(var_zq_raw)
             var_zkv = softplus_var(var_zkv_raw)
-            zq = reparameterize(mean_zq, var_zq, training=False)
-            zkv = reparameterize(mean_zkv, var_zkv, training=False)
+            zq = reparameterize(mean_zq, var_zq, training=training,
+                                generator=generator)
+            zkv = reparameterize(mean_zkv, var_zkv, training=training,
+                                 generator=generator)
             if latent is not None:
                 zq, zkv = latent.update(zq, zkv, mean_zq, var_zq,
                                         mean_zkv, var_zkv)
@@ -202,6 +209,7 @@ class VMLA(nn.Module):
         b, _, s, _ = attn.shape
         x = attn.transpose(1, 2).reshape(b, s, -1)
         x = self.out_proj(x, dtype) * self.ls_att.to(dtype)
+        x = dropout(x, cfg.dropout, training=training, generator=generator)
 
         if residual.shape != x.shape:
             if cfg.seq_len_new != cfg.seq_length:

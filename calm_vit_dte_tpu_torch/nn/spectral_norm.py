@@ -10,12 +10,15 @@ torch.nn.utils.spectral_norm (old API) and the JAX package:
 Each layer holds `weight_orig` (parameter) and `weight_u`/`weight_v`
 (buffers), torch's own names, so reference state dicts load as they are. The
 buffers are explicit rather than torch's forward hook so that
-`normalize_tree` can normalize every layer in one batched pass and `freeze`
-can pin the eval-mode weights once for serving (the JAX package's hoisted
+`normalize_tree` can normalize every layer in one batched pass, `freeze`
+can pin the eval-mode weights once for serving, and the train step can run
+the model on weights normalized once per step (the JAX package's hoisted
 pre-pass, `normalize_tree` + `prenormalized_scope`).
 """
 
 from __future__ import annotations
+
+from contextlib import contextmanager
 
 import torch
 from torch import nn
@@ -64,12 +67,18 @@ class SpectralNormed(nn.Module):
             "weight_v", normalized_normal((weight[0].numel(),), generator))
         # fp32 w/sigma pinned by freeze(); not part of the state dict.
         self.register_buffer("weight_frozen", None, persistent=False)
+        # w/sigma handed in by prenormalized_scope() for the current step.
+        self.weight_prenormalized: torch.Tensor | None = None
 
     def normalized_weight(self) -> torch.Tensor:
-        """w / sigma in fp32. In training mode this runs one power iteration
-        and updates the u/v buffers in place (torch's hook semantics)."""
+        """w / sigma in fp32: the frozen or pre-normalized weight where one
+        is set; otherwise computed here, and in training mode that runs one
+        power iteration and updates the u/v buffers in place (torch's hook
+        semantics)."""
         if self.weight_frozen is not None:
             return self.weight_frozen
+        if self.weight_prenormalized is not None:
+            return self.weight_prenormalized
         w, u, v = spectral_normalize(self.weight_orig, self.weight_u,
                                      self.weight_v, training=self.training)
         if self.training:
@@ -79,16 +88,19 @@ class SpectralNormed(nn.Module):
         return w
 
 
-@torch.no_grad()
 def normalize_tree(model: nn.Module, *,
                    training: bool) -> dict[SpectralNormed, torch.Tensor]:
     """Normalize every spectral-normed weight of `model` in one pre-pass.
 
     Weights are batched by their (out, in) 2-D shape, so ~150 per-layer
     power iterations become a handful of batched einsums. In training mode
-    the u/v buffers are updated in place. Returns {layer: w/sigma (fp32)}.
-    Per-weight math is that of spectral_normalize up to fp32 reduction
-    order.
+    the u/v buffers are updated in place (once per call: the train step
+    calls this once per step, not once per microbatch). Returns
+    {layer: w/sigma (fp32)}. With grad enabled the returned weights are graph
+    tensors: u and v are constants and sigma = u^T W v carries the gradient
+    back to `weight_orig`, so one backward through them is the pre-pass's
+    pull-back. Per-weight math is that of spectral_normalize up to fp32
+    reduction order.
     """
     groups: dict[tuple[int, int], list[SpectralNormed]] = {}
     for m in model.modules():
@@ -103,11 +115,12 @@ def normalize_tree(model: nn.Module, *,
         us = torch.stack([m.weight_u for m in mods])
         vs = torch.stack([m.weight_v for m in mods])
         if training:
-            vs = _l2n(torch.einsum("noi,no->ni", ws, us))
-            us = _l2n(torch.einsum("noi,ni->no", ws, vs))
-            for m, u, v in zip(mods, us, vs):
-                m.weight_u.copy_(u)
-                m.weight_v.copy_(v)
+            with torch.no_grad():
+                vs = _l2n(torch.einsum("noi,no->ni", ws, us))
+                us = _l2n(torch.einsum("noi,ni->no", ws, vs))
+                for m, u, v in zip(mods, us, vs):
+                    m.weight_u.copy_(u)
+                    m.weight_v.copy_(v)
         sigma = torch.einsum("no,noi,ni->n", us, ws, vs)
         wn = ws / sigma[:, None, None]
         for m, w in zip(mods, wn):
@@ -115,8 +128,23 @@ def normalize_tree(model: nn.Module, *,
     return out
 
 
+@contextmanager
+def prenormalized_scope(weights: dict[SpectralNormed, torch.Tensor]):
+    """Inside this scope each layer of `weights` uses the given w/sigma and
+    runs no power iteration of its own (the JAX package's scope of the same
+    name, which makes `spectral_normalize` a no-op on a normalized tree)."""
+    for m, w in weights.items():
+        m.weight_prenormalized = w
+    try:
+        yield
+    finally:
+        for m in weights:
+            m.weight_prenormalized = None
+
+
 def freeze(model: nn.Module) -> None:
     """Pin every layer's eval-mode w/sigma (stored u, v unchanged): serving
     never updates u/v, so sigma is computed once instead of per forward."""
-    for m, w in normalize_tree(model, training=False).items():
-        m.weight_frozen = w
+    with torch.no_grad():
+        for m, w in normalize_tree(model, training=False).items():
+            m.weight_frozen = w

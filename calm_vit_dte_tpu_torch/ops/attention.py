@@ -10,7 +10,9 @@ fp32 softmax. Scale is 1/sqrt(D).
 Dispatch has no TPU tile or VMEM logic: both entry points go through
 kernels/axial_attention.fused_rope_attention, which launches the CUDA kernel
 on a CUDA tensor and runs the plain version (`_attention_core` after an
-explicit rotate/concat) on a CPU tensor.
+explicit rotate/concat) on a CPU tensor. Both are differentiable in q, k, v,
+the mask weights and, through `rope_tables`, the learned frequencies: the
+backward is the wrapper's backward kernel (plain version on the CPU).
 """
 
 from __future__ import annotations

@@ -56,6 +56,16 @@ class LatentState:
                 return self.zq_sum / self.count, self.zkv_sum / self.count
         return self.zq_sum, self.zkv_sum
 
+    def carry(self) -> tuple:
+        """The whole state, (zq_sum, zkv_sum, kl_sum, count, kl_count): what
+        a checkpointed segment takes in and hands back."""
+        return (self.zq_sum, self.zkv_sum, self.kl_sum, self.count,
+                self.kl_count)
+
+    def set_carry(self, carry: tuple) -> None:
+        (self.zq_sum, self.zkv_sum, self.kl_sum, self.count,
+         self.kl_count) = carry
+
     def kl_loss(self) -> torch.Tensor:
         if self.kl_count == 0:
             return torch.zeros((), dtype=torch.float32)

@@ -58,8 +58,9 @@ class Predictor:
         """A model initialized from `seed`, its spectral-norm power iteration
         converged before the eval weights are frozen."""
         _, model = create_vit(config, seed=seed, device=device)
-        for _ in range(WARMUP_POWER_ITERATIONS):
-            normalize_tree(model, training=True)
+        with torch.no_grad():
+            for _ in range(WARMUP_POWER_ITERATIONS):
+                normalize_tree(model, training=True)
         return cls(model, crop=get_config(config).crop, dtype=dtype,
                    config_name=config)
 

@@ -14,15 +14,29 @@ from calm_vit_dte_tpu_torch.models.vit import ViTConfig
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """The fields this slice reads; the trainer's hyperparameters join when
-    the trainer is ported."""
+    """The fields the serving path and the train step read; the trainer
+    shell's (dataset, checkpoint, logging, mesh) join when it is ported."""
     name: str
     model: ViTConfig
     task: str  # 'cls' | 'reg'
     global_batch_size: int
     epochs: int
+    lr: float = 3.1e-3
+    weight_decay: float = 0.02
+    beta1: float = 0.9
+    beta2: float = 0.98
+    clip_norm: float = 1.0
+    eta_min: float = 1e-6
+    kl_weight: float = 0.1
+    init_seed: int = 0
     image_size: int = 256             # host decode/resize target
     crop: int = 224
+    remat: bool = True                # activation checkpointing in backprop
+    schedule: str = "cosine-epoch"    # or 'steplr' (single-node run)
+    lr_step_size: int = 5             # StepLR step_size (epochs)
+    lr_gamma: float = 0.1             # StepLR gamma
+    decoupled_wd: bool = True         # AdamW; False = torch Adam coupled L2
+    microbatch: int = 1               # grad-accumulation splits per step
 
 
 def _vit_224(generate: bool, out_features: int) -> ViTConfig:
@@ -46,12 +60,13 @@ def _register(cfg: TrainConfig) -> TrainConfig:
 
 _register(TrainConfig(
     name="tiny-cls", model=TINY_VIT, task="cls", global_batch_size=16,
-    epochs=2, image_size=56, crop=48))
+    epochs=2, image_size=56, crop=48, remat=False))
 
 _register(TrainConfig(
     name="tiny-reg",
     model=replace(TINY_VIT, out_features=144, generate=True),
-    task="reg", global_batch_size=16, epochs=2, image_size=56, crop=48))
+    task="reg", global_batch_size=16, epochs=2, image_size=56, crop=48,
+    remat=False))
 
 # The flagship: ImageNet-1k 224px classification (42.58M parameters).
 _register(TrainConfig(

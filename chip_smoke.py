@@ -8,14 +8,22 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases, each fatal on failure (any exception exits non-zero):
   1. probe   card name and count, `nvidia-smi` name/power limit, nvcc,
              whether triton imports;
-  2. build   both CUDA kernels with nvcc for sm_90a, in parallel, printing
-             the ptxas register/shared-memory/spill lines;
+  2. build   the CUDA kernels with nvcc for sm_90a, one nvcc per source in
+             parallel, printing each source's register and spill figures
+             from ptxas (the full log stays in build/torch_kernels/);
   3. check   every kernel against its plain PyTorch version at every shape
-             the flagship forward gives it (B=8): fp32 at rtol 2e-4 /
-             atol 2e-5 (the per-layer eval limit of
+             the flagship gives it (B=8). Forward kernels: fp32 at rtol 2e-4
+             / atol 2e-5 (the per-layer eval limit of
              tests/test_parity_torch.py), and in bf16 the kernel's max-abs
              error against the fp32 plain version must be at most twice the
-             plain bf16 version's;
+             plain bf16 version's; the attention forward also with no rope
+             half (Dr = 0), with and without the mask. Attention backward:
+             all 13 gradients, fp32 within 1e-4 of each gradient's largest
+             value (tighter than the 5e-3 of bench.py's kernel-vs-oracle
+             check; nothing in the kernel is atomic), bf16 by the same
+             twice-the-plain rule, at every flagship shape and at Dr = 0,
+             with and without the mask; and the autograd Function against
+             torch autograd of the plain forward;
   4. serve   the flagship through the user's entry points:
              Predictor.fresh("imagenet-cls-224").classify on 128 uint8
              256x256 images in bf16, with exactly 24 attention and 8 conv
@@ -24,11 +32,24 @@ Phases, each fatal on failure (any exception exits non-zero):
              atol 2e-4 and KL at rtol 1e-3 (tests/test_parity_full224.py's
              limits); one imagenet-reg-224 reconstruct (24 + 9 launches,
              outputs in [0, 1]);
-  5. time    each kernel and its plain version at every flagship shape at
-             B=128 bf16 with CUDA events, beside its roofline bound, and
-             classify images/s and peak memory at B=128 bf16;
-  6. trace   one classify forward under torch.profiler: device busy share
-             and the device kernels that take the most time.
+  5. train   imagenet-cls-224 at full width and depth through
+             make_train_step: bf16, B=128, remat, fresh weights from seed 0,
+             a repeated synthetic uint8 batch with soft labels. Loss finite
+             at every step and lower at the last than the first, grad_norm
+             finite and nonzero, u/v changed, every parameter's first-step
+             gradient nonzero, exactly 24 forward + 24 backward attention
+             launches and no fused-conv launch per step, then an eval step
+             with 24 + 8; one fp32 step on 2 images card vs CPU under the
+             same injected noise (loss rtol 2e-4; gradients per leaf rtol
+             5e-3, atol 2e-4 of the leaf's largest value, the limits of
+             tests/test_parity_grad.py);
+  6. time    each kernel and its plain version at every flagship shape at
+             B=128 bf16 with CUDA events, beside its roofline bound;
+             classify images/s and peak memory at B=128 bf16; ms per
+             training step, images/s and peak memory;
+  7. trace   one classify forward and one training step under
+             torch.profiler: device busy share, the device kernels that take
+             the most time, the attention kernels' share of the step.
 
 Every fp32 comparison runs with torch.backends.cuda.matmul.allow_tf32 and
 torch.backends.cudnn.allow_tf32 both False, so the plain versions' products
@@ -36,14 +57,17 @@ and convolutions are true fp32.
 
 Output: human-readable lines, then the card's `nvidia-smi` name and power
 limit, then one JSON line {"kernels": [...]}, and last
-{"ok": true, "device": {...}}. No single PyTorch call computes either fused
-function, so each kernel's library_ms is null.
+{"ok": true, "device": {...}}. No single PyTorch call computes any of the
+fused functions (scaled_dot_product_attention has no head-coupled learned
+mask and returns no mask or table gradients), so each kernel's library_ms is
+null.
 """
 
 from __future__ import annotations
 
 import copy
 import json
+import re
 import subprocess
 import sys
 import time
@@ -91,15 +115,26 @@ def attn_inputs(torch, b, s, dc, dr, dv, device, dtype, seed):
 
     qc = n(b, H, s, dc, scale=0.3) if dc else None
     kc = n(b, H, s, dc, scale=0.3) if dc else None
-    qr, kr = n(b, H, s, dr, scale=0.3), n(b, H, s, dr, scale=0.3)
+    qr = n(b, H, s, dr, scale=0.3) if dr else None
+    kr = n(b, H, s, dr, scale=0.3) if dr else None
     v = n(b, H, s, dv, scale=0.3)
-    inv = RoPE(dr).inv_freq.detach().to(device)
-    cq, sq = rope_tables(inv, s)
-    ck, sk = rope_tables(inv * 1.1, s)
+    cq = sq = ck = sk = None
+    if dr:
+        inv = RoPE(dr).inv_freq.detach().to(device)
+        cq, sq = rope_tables(inv, s)
+        ck, sk = rope_tables(inv * 1.1, s)
     f32 = torch.float32
     return (qc, qr, kc, kr, v, cq, sq, ck, sk,
             n(2 * s, s, scale=0.05, dt=f32), n(2 * s, scale=0.05, dt=f32),
             n(s, 2 * s, scale=0.05, dt=f32), n(s, scale=0.05, dt=f32))
+
+
+def grad_like(torch, b, s, dv, device, dtype, seed):
+    """An output gradient (B, H, S, Dv) for the attention backward."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(
+        (rng.standard_normal((b, H, s, dv)) * 0.3).astype(np.float32)).to(
+        device=device, dtype=dtype)
 
 
 def conv_inputs(torch, b, s, device, dtype, seed):
@@ -131,6 +166,21 @@ def attn_bound(b, s, dc, dr, dv, itemsize):
     return nbytes / PEAK_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
 
 
+def attn_bwd_bound(b, s, dc, dr, dv, itemsize):
+    """Reads q, k, v, g, the tables and the mask weights; writes dq in the
+    compute type, dk and dv in fp32, and the table and weight gradients;
+    three times the forward's operations (recompute, and two products per
+    forward product)."""
+    d = dc + dr
+    small = 4 * s * dr * 4 + (2 * s * 2 * s + 3 * s) * 4
+    nbytes = (b * H * s * (2 * d + 2 * dv) * itemsize   # q, k, v, g
+              + b * H * s * d * itemsize                 # dq
+              + b * H * s * (d + dv) * 4                 # dk, dv
+              + 2 * small)                               # read and written
+    flops = 3 * (2 * b * H * s * s * (d + dv) + 4 * b * s * s * 2 * s)
+    return nbytes / PEAK_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+
+
 def conv_bound(b, s, itemsize):
     nbytes = 2 * b * s * s * 3 * itemsize + (96 + 32 + 288 + 32 + 96 + 3) * 4
     flops = 2 * b * s * s * 32 * 15
@@ -155,6 +205,55 @@ def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
+def norm_err(a, b) -> float:
+    """max |a - b| over max |b|."""
+    return max_err(a, b) / max(float(b.float().abs().max()), 1e-30)
+
+
+GRAD_NAMES = ("dqc", "dqr", "dkc", "dkr", "dv", "dcos_q", "dsin_q", "dcos_k",
+              "dsin_k", "dw1", "db1", "dw2", "db2")
+BWD_FP32_LIMIT = 1e-4   # of each gradient's largest value
+
+
+def check_attention_bwd(torch, ka, args, g, scale, use_mask):
+    """The backward kernel against its plain version on the same inputs
+    (fp32 `args`, `g`): fp32 within BWD_FP32_LIMIT, bf16 at most twice the
+    plain bf16 version's error against the fp32 plain version. Returns
+    (worst fp32 normalised error, worst fp32 absolute error, worst bf16
+    kernel error, the plain bf16 error of that gradient)."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    kw = dict(scale=scale, use_mask=use_mask)
+    got = ka.fused_rope_attention_bwd(g, *args, dtype=f32, **kw)
+    ref = ka.fused_rope_attention_bwd_plain(g, *args, dtype=f32, **kw)
+    torch.cuda.synchronize()
+    a16, g16 = cast(torch, args, bf16), g.to(bf16)
+    k16 = ka.fused_rope_attention_bwd(g16, *a16, dtype=bf16, **kw)
+    p16 = ka.fused_rope_attention_bwd_plain(g16, *a16, dtype=bf16, **kw)
+    r16 = ka.fused_rope_attention_bwd_plain(
+        g16.float(), *cast(torch, a16, f32), dtype=f32, **kw)
+    worst = [0.0, 0.0, 0.0, 0.0]
+    for name, x, y, k, p, r in zip(GRAD_NAMES, got, ref, k16, p16, r16):
+        if (x is None) != (y is None) or (k is None) != (y is None):
+            raise AssertionError(f"{name}: kernel and plain version disagree "
+                                 "on which gradients exist")
+        if x is None:
+            continue
+        if x.shape != y.shape or x.dtype != y.dtype or k.dtype != p.dtype:
+            raise AssertionError(f"{name}: shape or dtype differs")
+        e32, e_k, e_p = norm_err(x, y), norm_err(k, r), norm_err(p, r)
+        if not e32 <= BWD_FP32_LIMIT:
+            raise AssertionError(f"{name}: fp32 error {e32:.3e} of the "
+                                 f"largest value > {BWD_FP32_LIMIT}")
+        if not e_k <= 2 * e_p + 1e-6:
+            raise AssertionError(f"{name}: bf16 kernel error {e_k:.3e} > 2 x "
+                                 f"plain bf16 {e_p:.3e}")
+        worst[0] = max(worst[0], e32)
+        worst[1] = max(worst[1], max_err(x, y))
+        if e_k >= worst[2]:
+            worst[2], worst[3] = e_k, e_p
+    return tuple(worst)
+
+
 def main() -> int:
     if not (ROOT / "calm_vit_dte_tpu_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository "
@@ -171,7 +270,20 @@ def main() -> int:
     from calm_vit_dte_tpu_torch.kernels import _build
     from calm_vit_dte_tpu_torch.kernels import axial_attention as ka
     from calm_vit_dte_tpu_torch.kernels import conv_residual as kc
-    from calm_vit_dte_tpu_torch.serve import Predictor
+    from calm_vit_dte_tpu_torch.data.augment import eval_preprocess
+    from calm_vit_dte_tpu_torch.models.factory import create_vit
+    from calm_vit_dte_tpu_torch.nn.spectral_norm import normalize_tree
+    from calm_vit_dte_tpu_torch.ops.variational import noise_override
+    from calm_vit_dte_tpu_torch.serve import (
+        WARMUP_POWER_ITERATIONS,
+        Predictor,
+    )
+    from calm_vit_dte_tpu_torch.train.optim import make_optimizer
+    from calm_vit_dte_tpu_torch.train.state import create_train_state
+    from calm_vit_dte_tpu_torch.train.step import (
+        make_eval_step,
+        make_train_step,
+    )
     from calm_vit_dte_tpu_torch.utils.configs import get_config
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -202,13 +314,17 @@ def main() -> int:
 
     # 2. build
     t0 = time.time()
-    logs = _build.build(["axial_attention", "conv_residual"])
-    log(f"[build] both kernels built in {time.time() - t0:.1f} s "
+    logs = _build.build(["axial_attention", "axial_attention_bwd",
+                         "conv_residual"])
+    log(f"[build] {len(logs)} sources built in {time.time() - t0:.1f} s "
         f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
     for src, text in logs.items():
-        for line in text.splitlines():
-            if any(k in line for k in ("Compiling entry", "Used", "spill")):
-                log(f"[build] {src}: {line.strip()[:160]}")
+        regs = [int(x) for x in re.findall(r"Used (\d+) registers", text)]
+        spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores",
+                                             text)]
+        log(f"[build] {src}: {len(regs)} kernel instantiations, "
+            f"{min(regs)}-{max(regs)} registers, largest spill "
+            f"{max(spills)} bytes")
 
     # 3. kernel vs plain at every flagship shape
     cfg = get_config("imagenet-cls-224")
@@ -266,6 +382,87 @@ def main() -> int:
         log(f"[check] conv S={s}: fp32 max err {max_err(out, ref):.3e}; "
             f"bf16 err kernel {e_k:.3e} vs plain {e_p:.3e}")
 
+    # The attention kernels with no rope half (Dr = 0: the function of the
+    # JAX package's `_make_fused`), which `ops.attention.masked_attention`
+    # reaches; and the backward at every flagship shape and at Dr = 0.
+    no_rope_shapes = [(224, 56, 0, 56), (80, 20, 0, 20)]
+    per_no_rope: dict[tuple, dict] = {}
+    for i, (s, dc, dr, dv) in enumerate(no_rope_shapes):
+        args = attn_inputs(torch, CHECK_BATCH, s, dc, dr, dv, dev, f32,
+                           seed=400 + i)
+        worst32 = worst16 = worst_p = 0.0
+        for use_mask in (True, False):
+            kw = dict(scale=1.0 / dc ** 0.5, use_mask=use_mask)
+            out = ka.fused_rope_attention(*args, dtype=f32, **kw)
+            ref = ka.fused_rope_attention_plain(*args, dtype=f32, **kw)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(out, ref, rtol=2e-4, atol=2e-5)
+            a16 = cast(torch, args, bf16)
+            p16 = ka.fused_rope_attention_plain(*a16, dtype=bf16, **kw)
+            ref16 = ka.fused_rope_attention_plain(*cast(torch, a16, f32),
+                                                  dtype=f32, **kw)
+            e_p = max_err(p16, ref16)
+            for tc in (False, True):
+                e_k = max_err(ka._launch(*a16, dtype=bf16, tensor_cores=tc,
+                                         **kw), ref16)
+                if not e_k <= 2 * e_p:
+                    raise AssertionError(
+                        f"attention S={s} Dr=0 use_mask={use_mask} "
+                        f"tensor_cores={tc}: bf16 kernel error {e_k} > 2 x "
+                        f"plain bf16 {e_p}")
+                worst16, worst_p = max(worst16, e_k), max(worst_p, e_p)
+            worst32 = max(worst32, max_err(out, ref))
+        per_no_rope[(s, dc, dr, dv)] = {
+            "fp32_err": worst32, "bf16_err": worst16,
+            "plain_bf16_err": worst_p}
+        log(f"[check] attention S={s} D={dc} Dr=0 (mask on and off): fp32 "
+            f"max err {worst32:.3e}; bf16 err kernels {worst16:.3e}, plain "
+            f"{worst_p:.3e}")
+
+    per_bwd: dict[tuple, dict] = {}
+    bwd_shapes = sorted(attn_shapes, reverse=True) + no_rope_shapes
+    for i, (s, dc, dr, dv) in enumerate(bwd_shapes):
+        args = attn_inputs(torch, CHECK_BATCH, s, dc, dr, dv, dev, f32,
+                           seed=500 + i)
+        g = grad_like(torch, CHECK_BATCH, s, dv, dev, f32, seed=600 + i)
+        scale = 1.0 / (dc + dr) ** 0.5
+        n0 = ka.fused_rope_attention_bwd.launches
+        with_mask = check_attention_bwd(torch, ka, args, g, scale, True)
+        no_mask = check_attention_bwd(torch, ka, args, g, scale, False)
+        if ka.fused_rope_attention_bwd.launches != n0 + 4:
+            raise AssertionError("the backward wrapper did not count its "
+                                 "launches")
+        per_bwd[(s, dc, dr, dv)] = {
+            "fp32_err": max(with_mask[1], no_mask[1]),
+            "fp32_norm_err": max(with_mask[0], no_mask[0]),
+            "bf16_err": with_mask[2], "plain_bf16_err": with_mask[3]}
+        log(f"[check] attention backward S={s} Dc={dc} Dr={dr} Dv={dv}: "
+            f"fp32 worst gradient error {with_mask[0]:.3e} of its largest "
+            f"value (mask off {no_mask[0]:.3e}); bf16 worst {with_mask[2]:.3e}"
+            f" vs plain {with_mask[3]:.3e} (mask off {no_mask[2]:.3e} vs "
+            f"{no_mask[3]:.3e})")
+
+    # The autograd Function (both kernels) against torch autograd of the
+    # plain forward: an independent check of the backward's formulas.
+    s, dc, dr, dv = 80, 10, 10, 20
+    args = attn_inputs(torch, 2, s, dc, dr, dv, dev, f32, seed=700)
+    g = grad_like(torch, 2, s, dv, dev, f32, seed=701)
+
+    def autograd_of(fn):
+        leaves = [a.clone().requires_grad_() for a in args]
+        fn(*leaves, scale=1.0 / (dc + dr) ** 0.5, dtype=f32).backward(g)
+        return [a.grad for a in leaves]
+
+    worst = max(norm_err(x, y) for x, y in zip(
+        autograd_of(ka.fused_rope_attention),
+        autograd_of(ka.fused_rope_attention_plain)))
+    if not worst <= BWD_FP32_LIMIT:
+        raise AssertionError(f"Function vs autograd of the plain forward: "
+                             f"worst gradient error {worst:.3e}")
+    log(f"[check] attention Function vs torch autograd of the plain forward "
+        f"(S={s}, Dc={dc}, Dr={dr}): worst gradient error {worst:.3e} of its "
+        "largest value")
+
     # 4. the main path through the user's entry points
     rng = np.random.default_rng(0)
     images = rng.integers(0, 256, (TIME_BATCH, cfg.image_size,
@@ -320,35 +517,214 @@ def main() -> int:
         raise AssertionError("reconstruct: bad shape or values outside [0,1]")
     del reg
 
-    # 5. timing at B=128 bf16
-    attn_rows, conv_rows = [], []
-    for i, (s, dc, dr, dv) in enumerate(sorted(attn_shapes, reverse=True)):
+    # 5. the training path: a trainer that takes a few steps
+    TRAIN_STEPS = 6
+    soft = rng.random((TIME_BATCH, cfg.model.out_features)).astype(np.float32)
+    soft[np.arange(TIME_BATCH), rng.integers(0, cfg.model.out_features,
+                                             TIME_BATCH)] += 50.0
+    train_batch = {"image": images,
+                   "label": soft / soft.sum(-1, keepdims=True)}
+
+    def preprocess(generator, batch):
+        # The training augmentations are not ported yet: center crop and
+        # normalize on the device, as serving does.
+        return {"image": eval_preprocess(batch["image"], crop=cfg.crop),
+                "label": batch["label"]}
+
+    def optimizer():
+        # The config's lr belongs to its global batch of 1936; one card at
+        # B=128 takes it scaled linearly with the batch.
+        return make_optimizer(
+            base_lr=cfg.lr * TIME_BATCH / cfg.global_batch_size,
+            weight_decay=cfg.weight_decay, b1=cfg.beta1,
+            b2=cfg.beta2, epochs=cfg.epochs, steps_per_epoch=1000,
+            clip_norm=cfg.clip_norm, eta_min=cfg.eta_min,
+            schedule=cfg.schedule, decoupled_wd=cfg.decoupled_wd)
+
+    def counts():
+        return {"attention_fwd": ka.fused_rope_attention.launches,
+                "attention_bwd": ka.fused_rope_attention_bwd.launches,
+                "conv": kc.fused_conv_residual.launches}
+
+    def zero_counts():
+        ka.fused_rope_attention.launches = 0
+        ka.fused_rope_attention_bwd.launches = 0
+        kc.fused_conv_residual.launches = 0
+
+    _, model = create_vit("imagenet-cls-224", seed=cfg.init_seed,
+                          device="cuda")
+    with torch.no_grad():   # converge u/v as Predictor.fresh does
+        for _ in range(WARMUP_POWER_ITERATIONS):
+            normalize_tree(model, training=True)
+    start_model = copy.deepcopy(model)
+    tx = optimizer()
+    state = create_train_state(model, tx, seed=0)
+    train_step = make_train_step(cfg.model, tx, "cls", dtype=bf16,
+                                 remat=cfg.remat, preprocess=preprocess,
+                                 microbatches=1)
+    uv0 = {k: v.clone() for k, v in model.named_buffers()
+           if k.endswith(("weight_u", "weight_v"))}
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    train_losses, step_ms = [], []
+    for i in range(TRAIN_STEPS):
+        before = counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, train_batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        m = {k: float(v) for k, v in metrics.items()}
+        train_losses.append(m["loss"])
+        per_step = {k: v - before[k] for k, v in counts().items()}
+        log(f"[train] step {i}: loss {m['loss']:.6f}, grad_norm "
+            f"{m['grad_norm']:.4f}, kl {m['kl']:.6f}, accuracy "
+            f"{m['accuracy']:.4f}, {step_ms[-1]:.1f} ms, launches {per_step}")
+        if per_step != {"attention_fwd": 24, "attention_bwd": 24, "conv": 0}:
+            raise AssertionError(
+                f"expected 24 forward + 24 backward attention launches and "
+                f"no fused-conv launch per training step, got {per_step}")
+        if not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
+                and m["grad_norm"] > 0 and np.isfinite(m["kl"])):
+            raise AssertionError(f"step {i}: non-finite loss, kl or "
+                                 f"grad_norm, or zero grad_norm: {m}")
+        if i == 0:
+            dead = [k for k, p_ in model.named_parameters()
+                    if p_.grad is None or not torch.isfinite(p_.grad).all()
+                    or float(p_.grad.abs().max()) == 0.0]
+            if dead:
+                raise AssertionError(f"parameters with no, non-finite or "
+                                     f"zero first-step gradient: {dead}")
+            n_params = sum(p_.numel() for p_ in model.parameters())
+            log(f"[train] every one of {len(list(model.parameters()))} "
+                f"parameter tensors ({n_params / 1e6:.2f}M values) has a "
+                "finite nonzero gradient, inv_freq of both RoPEs and the "
+                "mask MLP included")
+    train_launches = counts()
+    train_peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    if not train_losses[-1] < train_losses[0]:
+        raise AssertionError(f"loss did not fall on a repeated batch: "
+                             f"{train_losses}")
+    if state.step != TRAIN_STEPS or state.opt_state.count != TRAIN_STEPS:
+        raise AssertionError("a training step was skipped")
+    unchanged = [k for k, v in model.named_buffers()
+                 if k in uv0 and torch.equal(v, uv0[k])]
+    if unchanged:
+        raise AssertionError(f"u/v buffers not updated: {unchanged[:5]}")
+    steady_ms = float(np.mean(step_ms[1:]))
+    train_img_s = TIME_BATCH / steady_ms * 1e3
+    log(f"[train] B={TIME_BATCH} bf16 remat={cfg.remat} microbatches=1: "
+        f"{steady_ms:.1f} ms per step (steps 1-{TRAIN_STEPS - 1}; first "
+        f"{step_ms[0]:.1f}), {train_img_s:.2f} images/s, peak memory "
+        f"{train_peak_gib:.3f} GiB, on {name} ({smi})")
+
+    zero_counts()
+    ev = make_eval_step(cfg.model, "cls", dtype=bf16)(
+        state, {"image": eval_preprocess(
+            torch.from_numpy(images).to(dev), crop=cfg.crop),
+            "label": train_batch["label"].argmax(-1)})
+    eval_launches = counts()
+    log(f"[train] eval step on the trained state: {int(ev['correct'])} of "
+        f"{int(ev['total'])} correct, kl {float(ev['kl']):.6f}, launches "
+        f"{eval_launches}")
+    if eval_launches != {"attention_fwd": 24, "attention_bwd": 0, "conv": 8}:
+        raise AssertionError(f"eval step: expected 24 + 8 launches, got "
+                             f"{eval_launches}")
+    if not torch.isfinite(ev["kl"]):
+        raise AssertionError("eval step: non-finite KL")
+
+    # One fp32 step on 2 images, card vs CPU: same weights, same injected
+    # noise (call n draws from numpy seed 1000 + n on both).
+    class NoiseSeq:
+        def __init__(self):
+            self.i = 0
+
+        def __call__(self, shape):
+            self.i += 1
+            return np.random.default_rng(999 + self.i).standard_normal(
+                shape).astype(np.float32)
+
+    small = {k: v[:2] for k, v in train_batch.items()}
+    sides = {}
+    for side, remat in (("cuda", True), ("cpu", False)):
+        m_side = copy.deepcopy(start_model).to(side)
+        tx_side = optimizer()
+        step_side = make_train_step(cfg.model, tx_side, "cls", dtype=f32,
+                                    remat=remat, preprocess=preprocess)
+        t0 = time.perf_counter()
+        with noise_override(NoiseSeq()):
+            _, m = step_side(create_train_state(m_side, tx_side, seed=0),
+                             small)
+        sides[side] = ({k: float(v) for k, v in m.items()},
+                       {k: p_.grad.cpu() for k, p_ in
+                        m_side.named_parameters()})
+        log(f"[train] fp32 step on 2 images on {side} (remat={remat}): "
+            f"{sides[side][0]}, {time.perf_counter() - t0:.1f} s")
+        del m_side
+    (m_gpu, g_gpu), (m_cpu, g_cpu) = sides["cuda"], sides["cpu"]
+    np.testing.assert_allclose(m_gpu["loss"], m_cpu["loss"], rtol=2e-4)
+    np.testing.assert_allclose(m_gpu["grad_norm"], m_cpu["grad_norm"],
+                               rtol=2e-3)
+    worst = ("", 0.0)
+    for k, want in g_cpu.items():
+        top = max(float(want.abs().max()), 1e-12)
+        torch.testing.assert_close(g_gpu[k], want, rtol=5e-3,
+                                   atol=2e-4 * top, msg=lambda m_, k=k:
+                                   f"gradient of {k}: {m_}")
+        worst = max(worst, (k, max_err(g_gpu[k], want) / top),
+                    key=lambda t: t[1])
+    log(f"[train] fp32 card vs CPU: loss {m_gpu['loss']:.6f} vs "
+        f"{m_cpu['loss']:.6f}; {len(g_cpu)} gradient leaves within rtol 5e-3 "
+        f"/ atol 2e-4 of each leaf's largest value; worst {worst[0]} at "
+        f"{worst[1]:.3e} of its largest value")
+    del sides, g_gpu, g_cpu, start_model
+
+    # 6. timing at B=128 bf16. The shapes with Dr = 0 are not on the
+    # flagship's path (launches 0): they time the `_make_fused` case.
+    attn_rows, bwd_rows, conv_rows = [], [], []
+    timed = [(shape, attn_shapes[shape], per_attn[shape])
+             for shape in sorted(attn_shapes, reverse=True)]
+    timed += [(shape, 0, per_no_rope[shape]) for shape in no_rope_shapes]
+    for i, ((s, dc, dr, dv), launches, errs) in enumerate(timed):
         args = attn_inputs(torch, TIME_BATCH, s, dc, dr, dv, dev, bf16,
                            seed=200 + i)
+        g = grad_like(torch, TIME_BATCH, s, dv, dev, bf16, seed=250 + i)
         kw = dict(scale=1.0 / (dc + dr) ** 0.5, dtype=bf16)
         plain = cuda_ms(torch,
                         lambda: ka.fused_rope_attention_plain(*args, **kw),
                         3, warmup=1)
         by_path = {tc: cuda_ms(torch, lambda: ka._launch(
-            *args, use_mask=True, tensor_cores=tc, **kw), 10)
+            *args, use_mask=True, tensor_cores=tc, **kw), 5)
             for tc in (False, True)}
         served = ka.uses_tensor_cores(bf16, s, dc + dr)
         ms = by_path[served]
         t_bytes, t_ops = attn_bound(TIME_BATCH, s, dc, dr, dv, 2)
-        row = dict(S=s, Dc=dc, Dr=dr, Dv=dv,
-                   launches=attn_shapes[(s, dc, dr, dv)], ms=ms,
+        row = dict(S=s, Dc=dc, Dr=dr, Dv=dv, launches=launches, ms=ms,
                    plain_ms=plain, bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
                    tensor_cores=served, cuda_core_ms=by_path[False],
-                   tensor_core_ms=by_path[True],
-                   **per_attn[(s, dc, dr, dv)])
+                   tensor_core_ms=by_path[True], **errs)
         attn_rows.append(row)
         log(f"[time] attention S={s} Dc={dc} Dr={dr} Dv={dv}: kernel "
             f"{ms:.4f} ms ({'tensor' if served else 'CUDA'} cores; CUDA-core"
             f" {by_path[False]:.4f}, tensor-core {by_path[True]:.4f}), plain "
             f"{plain:.4f} ms, bound {row['bound_ms']:.4f} ms "
             f"({row['bound_by']}), {row['bound_ms'] / ms:.1%} of bound")
-        del args
+        ms = cuda_ms(torch, lambda: ka.fused_rope_attention_bwd(
+            g, *args, **kw), 3, warmup=1)
+        plain = cuda_ms(torch, lambda: ka.fused_rope_attention_bwd_plain(
+            g, *args, **kw), 2, warmup=1)
+        t_bytes, t_ops = attn_bwd_bound(TIME_BATCH, s, dc, dr, dv, 2)
+        row = dict(S=s, Dc=dc, Dr=dr, Dv=dv, launches=launches, ms=ms,
+                   plain_ms=plain, bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   **per_bwd[(s, dc, dr, dv)])
+        bwd_rows.append(row)
+        log(f"[time] attention backward S={s} Dc={dc} Dr={dr} Dv={dv}: "
+            f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
+            f"{row['bound_ms'] / ms:.1%} of bound")
+        del args, g
     for s in sorted(conv_sizes, reverse=True):
         args = conv_inputs(torch, TIME_BATCH, s, dev, bf16, seed=300 + s)
         ms = cuda_ms(torch, lambda: kc.fused_conv_residual(*args,
@@ -380,7 +756,7 @@ def main() -> int:
         f"({elapsed / reps * 1e3:.2f} ms per call), peak memory "
         f"{peak_gib:.3f} GiB, on {name} ({smi})")
 
-    # 6. trace one classify forward: device time by kernel name, busy share
+    # 7. trace one classify forward: device time by kernel name, busy share
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -396,6 +772,39 @@ def main() -> int:
         f"profiler: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
         f"({busy_ms / wall_ms:.1%}), {sum(e.count for e in events)} device "
         f"kernels")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
+        log(f"[trace] {e.self_device_time_total / 1e3:9.3f} ms "
+            f"{e.count:5d}x  {e.key[:100]}")
+
+    # ... and one training step: the attention kernels' share of the step.
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = train_step(state, train_batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type.name == "CUDA"]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+
+    def device_ms(*needles):
+        return sum(e.self_device_time_total for e in events
+                   if any(n in e.key for n in needles)) / 1e3
+
+    fwd_ms = device_ms("rope_attention_fwd")
+    bwd_ms = device_ms("rope_attention_bwd", "xty_kernel",
+                       "reduce_leading_kernel")
+    train_trace = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+                   "attention_fwd_ms": fwd_ms, "attention_bwd_ms": bwd_ms,
+                   "attention_share_of_busy": (fwd_ms + bwd_ms) / busy_ms}
+    log(f"[trace] one training step B={TIME_BATCH} bf16 under the profiler: "
+        f"wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
+        f"({busy_ms / wall_ms:.1%}), {sum(e.count for e in events)} device "
+        f"kernels; attention forward kernels {fwd_ms:.2f} ms, backward "
+        f"kernels {bwd_ms:.2f} ms (main {device_ms('rope_attention_bwd'):.2f}"
+        f", weight grads {device_ms('xty_kernel'):.2f}, reductions "
+        f"{device_ms('reduce_leading_kernel'):.2f}): "
+        f"{(fwd_ms + bwd_ms) / busy_ms:.1%} of device busy time")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
         log(f"[trace] {e.self_device_time_total / 1e3:9.3f} ms "
             f"{e.count:5d}x  {e.key[:100]}")
@@ -419,17 +828,48 @@ def main() -> int:
 
     kernels = [
         summary("fused_rope_attention_fwd", ka.SOURCE, ka.REPLACES,
-                attn_rows, main_launches["attention"]),
+                attn_rows, main_launches["attention"]
+                + train_launches["attention_fwd"]
+                + eval_launches["attention_fwd"]),
+        summary("fused_rope_attention_bwd", ka.BWD_SOURCE, ka.BWD_REPLACES,
+                bwd_rows, train_launches["attention_bwd"]),
         summary("fused_conv_residual_fwd", kc.SOURCE, kc.REPLACES,
-                conv_rows, main_launches["conv"]),
+                conv_rows, main_launches["conv"] + eval_launches["conv"]),
     ]
+    kernels[0]["launches_by_path"] = {
+        "classify": main_launches["attention"],
+        f"train_{TRAIN_STEPS}_steps": train_launches["attention_fwd"],
+        "eval_step": eval_launches["attention_fwd"]}
+    kernels[0]["no_rope_case_replaces"] = \
+        "calm_vit_dte_tpu/kernels/axial_attention.py:530"
+    kernels[1]["launches_by_path"] = {
+        f"train_{TRAIN_STEPS}_steps": train_launches["attention_bwd"]}
+    kernels[1]["no_rope_case_replaces"] = ka.BWD_REPLACES_NO_ROPE
+    kernels[2]["launches_by_path"] = {
+        "classify": main_launches["conv"],
+        f"train_{TRAIN_STEPS}_steps": train_launches["conv"],
+        "eval_step": eval_launches["conv"]}
+    for k in kernels:
+        if k["launches"] < 1:
+            raise AssertionError(f"{k['name']} was not launched on the main "
+                                 "path")
     log("[time] kernels' ms, plain_ms and bound_ms are per flagship "
-        f"forward at B={TIME_BATCH} bf16 (each shape's time x its launches)"
-        "; max_abs_err is the fp32 kernel-vs-plain error at B=8")
+        f"forward (or per training step's backward) at B={TIME_BATCH} bf16: "
+        "each shape's time x its launches per forward; launches counts the "
+        "main-path runs (launches_by_path); max_abs_err is the fp32 "
+        "kernel-vs-plain error at B=8; per_shape rows with launches 0 (Dr = "
+        "0) are off the flagship's path and in no sum")
     log(f"[done] {time.time() - t_start:.1f} s")
     log(json.dumps({"classify": {"batch": TIME_BATCH, "dtype": "bfloat16",
                                  "images_per_s": img_s,
-                                 "peak_mem_gib": peak_gib}}))
+                                 "peak_mem_gib": peak_gib},
+                    "train": {"batch": TIME_BATCH, "dtype": "bfloat16",
+                              "remat": cfg.remat, "microbatches": 1,
+                              "ms_per_step": steady_ms,
+                              "first_step_ms": step_ms[0],
+                              "images_per_s": train_img_s,
+                              "peak_mem_gib": train_peak_gib,
+                              "losses": train_losses, "trace": train_trace}}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -100,6 +100,117 @@ def test_rope_attention_kernel_bf16_error(cuda_device, s, dc, dr,
     assert err <= 2 * (plain.float() - ref).abs().max()
 
 
+def _attention_inputs(rng, device, b, s, dc, dr, dtype):
+    """The 13 inputs of the fused attention plus an output gradient; q, k, v
+    and g in `dtype`, tables and mask weights fp32."""
+    d = dc + dr
+
+    def n(*shape, scale=0.3, dt=dtype):
+        return _normal(rng, device, *shape, scale=scale).to(dt)
+
+    tables = [None] * 4
+    if dr:
+        inv = 1.0 / (10000.0 ** (torch.arange(
+            0, dr, 2, dtype=torch.float32, device=device) / dr))
+        tables = [*rope_tables(inv, s), *rope_tables(inv * 1.1, s)]
+    f32 = torch.float32
+    args = [n(b, H, s, dc) if dc else None, n(b, H, s, dr) if dr else None,
+            n(b, H, s, dc) if dc else None, n(b, H, s, dr) if dr else None,
+            n(b, H, s, d), *tables, n(2 * s, s, scale=0.05, dt=f32),
+            n(2 * s, scale=0.05, dt=f32), n(s, 2 * s, scale=0.05, dt=f32),
+            n(s, scale=0.05, dt=f32)]
+    return args, n(b, H, s, d)
+
+
+GRAD_NAMES = ("dqc", "dqr", "dkc", "dkr", "dv", "dcos_q", "dsin_q", "dcos_k",
+              "dsin_k", "dw1", "db1", "dw2", "db2")
+# Every flagship attention shape (S, Dc, Dr), with and without content
+# halves, and the no-rope case (Dr = 0) of the `_make_fused` kernels.
+BWD_SHAPES = [(224, 28, 28), (224, 0, 56), (176, 22, 22), (176, 0, 44),
+              (128, 16, 16), (128, 0, 32), (80, 10, 10), (80, 0, 20),
+              (224, 56, 0), (80, 20, 0)]
+
+
+def _norm_err(got, want):
+    """max |got - want| over max |want|."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,dc,dr", BWD_SHAPES)
+@pytest.mark.parametrize("use_mask", [True, False])
+def test_rope_attention_bwd_kernel_matches_plain(cuda_device, s, dc, dr,
+                                                 use_mask):
+    """fp32: all 13 gradients within 1e-4 of the output's largest value (the
+    sums run in another order than torch's; nothing is atomic, so the kernel
+    gives the same bits on every run)."""
+    rng = np.random.default_rng(s + dc)
+    args, g = _attention_inputs(rng, cuda_device, 2, s, dc, dr,
+                                torch.float32)
+    kw = dict(scale=1.0 / math.sqrt(dc + dr), dtype=torch.float32,
+              use_mask=use_mask)
+    n0 = ka.fused_rope_attention_bwd.launches
+    got = ka.fused_rope_attention_bwd(g, *args, **kw)
+    again = ka.fused_rope_attention_bwd(g, *args, **kw)
+    torch.cuda.synchronize()
+    assert ka.fused_rope_attention_bwd.launches == n0 + 2
+    want = ka.fused_rope_attention_bwd_plain(g, *args, **kw)
+    for name, x, y, z in zip(GRAD_NAMES, got, want, again):
+        assert (x is None) == (y is None), name
+        if x is None:
+            continue
+        assert x.shape == y.shape and x.dtype == y.dtype, name
+        assert _norm_err(x, y) <= 1e-4, name
+        assert torch.equal(x, z), f"{name} differs between two runs"
+    if not use_mask:
+        assert all(x is None for x in got[9:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,dc,dr", BWD_SHAPES)
+def test_rope_attention_bwd_kernel_bf16_error(cuda_device, s, dc, dr):
+    """bf16: each gradient's error against the fp32 plain version is at most
+    twice the bf16 plain version's (same rounding points)."""
+    rng = np.random.default_rng(s + dr)
+    bf16, f32 = torch.bfloat16, torch.float32
+    args, g = _attention_inputs(rng, cuda_device, 2, s, dc, dr, bf16)
+    scale = 1.0 / math.sqrt(dc + dr)
+    got = ka.fused_rope_attention_bwd(g, *args, scale=scale, dtype=bf16)
+    plain = ka.fused_rope_attention_bwd_plain(g, *args, scale=scale,
+                                              dtype=bf16)
+    ref = ka.fused_rope_attention_bwd_plain(
+        g.float(), *[a if a is None else a.float() for a in args],
+        scale=scale, dtype=f32)
+    for name, x, y, r in zip(GRAD_NAMES, got, plain, ref):
+        if x is None:
+            continue
+        assert x.dtype == y.dtype, name
+        assert _norm_err(x, r) <= 2 * _norm_err(y, r) + 1e-6, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,dc,dr", [(80, 10, 10), (80, 20, 0)])
+def test_rope_attention_function_matches_autograd(cuda_device, s, dc, dr):
+    """The autograd Function (forward and backward kernels) against torch
+    autograd of the plain forward: an independent check of the formulas."""
+    rng = np.random.default_rng(s)
+    args, g = _attention_inputs(rng, cuda_device, 2, s, dc, dr,
+                                torch.float32)
+    kw = dict(scale=1.0 / math.sqrt(dc + dr), dtype=torch.float32)
+
+    def grads(fn):
+        leaves = [None if a is None else a.clone().requires_grad_()
+                  for a in args]
+        fn(*leaves, **kw).backward(g)
+        return [None if a is None else a.grad for a in leaves]
+
+    for name, x, y in zip(GRAD_NAMES, grads(ka.fused_rope_attention),
+                          grads(ka.fused_rope_attention_plain)):
+        if x is not None:
+            assert _norm_err(x, y) <= 1e-4, name
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("s", [80, 224])
 def test_conv_residual_kernel_matches_plain(cuda_device, s):

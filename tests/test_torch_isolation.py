@@ -9,6 +9,7 @@ import sys
 import pytest
 import torch
 
+from calm_vit_dte_tpu_torch.models.factory import create_vit
 from calm_vit_dte_tpu_torch.serve import Predictor
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -34,6 +35,8 @@ def test_port_imports_no_jax():
     assert "calm_vit_dte_tpu_torch.serve" in report["imported"]
     assert "calm_vit_dte_tpu_torch.kernels.axial_attention" in \
         report["imported"]
+    for name in ("step", "state", "optim", "losses"):
+        assert f"calm_vit_dte_tpu_torch.train.{name}" in report["imported"]
     leaked = [m for m in report["modules"]
               if m.split(".")[0].startswith("jax")
               or m == "calm_vit_dte_tpu"
@@ -46,3 +49,14 @@ def test_default_device_raises_without_cuda():
         pytest.skip("a CUDA device is present: the default device is valid")
     with pytest.raises(RuntimeError, match="cuda"):
         Predictor.fresh("tiny-cls")
+
+
+def test_training_model_defaults_to_the_card():
+    """The train step runs where the model's parameters are; the model
+    factory puts them on the card unless the caller passes device="cpu"."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="cuda"):
+        create_vit("tiny-cls")
+    _, model = create_vit("tiny-cls", device="cpu")
+    assert next(model.parameters()).device.type == "cpu"
