@@ -77,6 +77,34 @@ _register(TrainConfig(
     name="imagenet-reg-224", model=_vit_224(True, 672), task="reg",
     global_batch_size=1824, epochs=65))
 
+# The reference's single-node hyperparameters (CALM_ViT_V2.py:151-152, 183,
+# 186): torch Adam with COUPLED L2 and betas (0.9, 0.999), StepLR(5, 0.1),
+# batch 100, 5 epochs.
+_register(TrainConfig(
+    name="single-node-cls", model=_vit_224(False, 1000), task="cls",
+    global_batch_size=100, epochs=5, beta2=0.999, schedule="steplr",
+    lr_step_size=5, lr_gamma=0.1, decoupled_wd=False))
+
+# EncoderDecoder_8 at its 256px defaults (Vi_Tools_CNN_less_V2.py:407-421).
+_register(TrainConfig(
+    name="imagenet-cls-256",
+    model=ViTConfig(heads=12, seq_length=256, in_features=768, dim_step=48,
+                    mean_var_hidden=192, seq_len_step=16, seq_len_reduce=128,
+                    out_features=1000, force_reduce=False, generate=False),
+    task="cls", global_batch_size=1536, epochs=65, image_size=292, crop=256))
+
+# 1024px classification (935.57M parameters): axial attention at S=1024,
+# head dims up to 256. Its attention runs the hires kernels
+# (kernels/hires_attention.py); one 80 GB card holds its training state.
+_register(TrainConfig(
+    name="hires-cls-1024",
+    model=ViTConfig(heads=12, seq_length=1024, in_features=3072,
+                    dim_step=192, mean_var_hidden=768, seq_len_step=64,
+                    seq_len_reduce=256, out_features=1000,
+                    force_reduce=False, generate=False),
+    task="cls", global_batch_size=64, epochs=65, image_size=1168,
+    crop=1024))
+
 
 def get_config(name: str, **overrides) -> TrainConfig:
     if name not in CONFIGS:

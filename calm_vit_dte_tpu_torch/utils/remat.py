@@ -7,22 +7,32 @@ which would launch the fused attention forward kernel a second time per
 layer and draw fresh reparameterization noise. `checkpoint` here wraps it:
 inside the segment, `replayed(compute)` computes and records a tensor on the
 first run and hands the recorded tensor back, in order, on the replay. The
-attention wrapper records its outputs that way (so the replay only rebuilds
-the autograd graph around them), and the variational ops their noise and
-dropout masks (so the replay sees the first run's draws).
+attention wrappers record their outputs that way (so the replay only
+rebuilds the autograd graph around them; the long-sequence attention records
+its output with its softmax and mask residuals, a tuple), and the
+variational ops their noise and dropout masks (so the replay sees the first
+run's draws).
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, TypeVar
 
 import torch
 from torch.utils.checkpoint import checkpoint as _torch_checkpoint
 
 
+Recorded = TypeVar("Recorded", torch.Tensor, tuple)
+
+
+def _detach(x):
+    return tuple(t.detach() for t in x) if isinstance(x, tuple) \
+        else x.detach()
+
+
 class _Saved:
     def __init__(self):
-        self.tensors: list[torch.Tensor] = []
+        self.tensors: list = []
         self.recorded = False
         self.next = 0
 
@@ -30,20 +40,21 @@ class _Saved:
 _ACTIVE: _Saved | None = None
 
 
-def replayed(compute: Callable[[], torch.Tensor]) -> torch.Tensor:
+def replayed(compute: Callable[[], Recorded]) -> Recorded:
     """`compute()` outside a checkpointed segment and on its first run; the
-    first run's tensor (a detached alias) on the replay. Call it only from
-    code that produces a tensor autograd should treat as a constant, or from
-    inside an autograd Function's forward."""
+    first run's result (detached aliases) on the replay. The result is a
+    tensor or a tuple of tensors. Call it only from code that produces
+    tensors autograd should treat as constants, or from inside an autograd
+    Function's forward."""
     saved = _ACTIVE
     if saved is None:
         return compute()
     if saved.recorded:
-        out = saved.tensors[saved.next].detach()
+        out = _detach(saved.tensors[saved.next])
         saved.next += 1
         return out
     out = compute()
-    saved.tensors.append(out.detach())
+    saved.tensors.append(_detach(out))
     return out
 
 

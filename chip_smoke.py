@@ -49,7 +49,23 @@ Phases, each fatal on failure (any exception exits non-zero):
              training step, images/s and peak memory;
   7. trace   one classify forward and one training step under
              torch.profiler: device busy share, the device kernels that take
-             the most time, the attention kernels' share of the step.
+             the most time, the attention kernels' share of the step;
+  8. hires   hires-cls-1024 (S up to 1024, head dims up to 256), after the
+             flagship's trainer is freed: the four hires kernels
+             (kernels/hires_attention.py) against their plain versions at
+             every hires shape at B=2 (fp32 forward rtol 2e-4 / atol 2e-5,
+             fp32 backward within 1e-4 of each output's largest value, bf16
+             at most twice the plain bf16 error; the forward-only kernel with
+             the mask off, kernels 1-3 with zero mask weights; the autograd
+             Function against torch autograd of the plain forward);
+             Predictor.fresh("hires-cls-1024").classify on 8 uint8 1168x1168
+             images (exactly 24 forward-only + 8 conv launches, no rope
+             kernel), fp32 logits card vs CPU on 1 image; five bf16 training
+             steps at B=8 with remat (24 + 24 + 24 hires launches and 24
+             weight-grad reductions each, loss lower at the end, every
+             gradient finite and nonzero), an eval step (24 forward-only),
+             one traced step, one fp32 step on 1 image card vs CPU; each
+             kernel and its plain version timed at B=8 bf16.
 
 Every fp32 comparison runs with torch.backends.cuda.matmul.allow_tf32 and
 torch.backends.cudnn.allow_tf32 both False, so the plain versions' products
@@ -59,8 +75,8 @@ Output: human-readable lines, then the card's `nvidia-smi` name and power
 limit, then one JSON line {"kernels": [...]}, and last
 {"ok": true, "device": {...}}. No single PyTorch call computes any of the
 fused functions (scaled_dot_product_attention has no head-coupled learned
-mask and returns no mask or table gradients), so each kernel's library_ms is
-null.
+mask and returns no mask, residual or table gradients), so each kernel's
+library_ms is null.
 """
 
 from __future__ import annotations
@@ -254,6 +270,559 @@ def check_attention_bwd(torch, ka, args, g, scale, use_mask):
     return tuple(worst)
 
 
+HIRES_BATCH = 8          # hires-cls-1024: serving, training and timing
+HIRES_CHECK_BATCH = 2
+HIRES_TRAIN_STEPS = 5
+HIRES_OUT_NAMES = ("dq", "dssum", "dw1", "db1", "dw2", "db2", "dk", "dv")
+
+
+def hires_inputs(torch, b, s, d, dv, device, dtype, seed, zero_mask=False):
+    """q, k (B,H,S,D), v (B,H,S,Dv) in `dtype` (rotated and concatenated
+    already: the hires route does that in torch) and fp32 mask weights
+    scaled so that the scores, the mask's hidden layer and m are of order
+    one (zeros with `zero_mask`, the route's use_mask=False)."""
+    rng = np.random.default_rng(seed)
+
+    def n(*shape, scale, dt=torch.float32):
+        return torch.from_numpy(
+            (rng.standard_normal(shape) * scale).astype(np.float32)).to(
+            device=device, dtype=dt)
+
+    w = [n(2 * s, s, scale=0.2 / s ** 0.5), n(2 * s, scale=0.1),
+         n(s, 2 * s, scale=(2 * s) ** -0.5), n(s, scale=0.1)]
+    if zero_mask:
+        w = [torch.zeros_like(t) for t in w]
+    return [n(b, H, s, d, scale=0.3, dt=dtype), n(b, H, s, d, scale=0.3,
+                                                  dt=dtype),
+            n(b, H, s, dv, scale=0.3, dt=dtype), *w]
+
+
+def hires_bounds(b, s, d, dv, itemsize):
+    """(bytes ms, operations ms) of the four hires kernels at one shape:
+    each input read once, each output written once; the operations of the
+    products each kernel forms (the mask MLP included)."""
+    mlp = 4 * b * s ** 3                       # one (B*S, S) x (S, 2S) product
+    qkvo = b * H * s * (2 * d + 2 * dv) * itemsize
+    weights = (2 * s * 2 * s + 3 * s) * 4
+    sq = b * s * s * 4                          # an fp32 (B, S, S) residual
+    vec = b * H * s * 4                         # lse or delta
+    work = {
+        "fwd_only": (qkvo + weights,
+                     2 * b * H * s * s * (d + dv) + 2 * mlp),
+        "fwd_res": (qkvo + weights + sq + vec,
+                    2 * b * H * s * s * (d + dv) + 2 * mlp),
+        "dq": (qkvo + weights + sq + 2 * vec       # q k v g; m lse delta
+               + b * H * s * d * itemsize          # dq
+               + sq + weights,                     # dssum; weight grads
+               2 * b * H * s * s * (2 * d + dv) + 5 * mlp),
+        "dkv": (qkvo + b * H * s * (d + dv) * itemsize + 2 * sq + 2 * vec,
+                4 * b * H * s * s * (d + dv)),
+    }
+    return {k: (nb / PEAK_BYTES * 1e3, fl / PEAK_BF16_FLOPS * 1e3)
+            for k, (nb, fl) in work.items()}
+
+
+def hires_bwd(kh, args, g, res, scale, dtype, plain):
+    """Both backward passes: (dq, dssum, dw1, db1, dw2, db2, dk, dv)."""
+    q, k, v, w1, b1, w2, _ = args
+    o, m, lse = res
+    delta = (g.float() * o.float()).sum(-1)
+    kw = dict(scale=scale, dtype=dtype)
+    dq_fn = kh.hires_dq_plain if plain else kh.hires_dq
+    dkv_fn = kh.hires_dkv_plain if plain else kh.hires_dkv
+    out = dq_fn(q, k, v, g, m, lse, delta, w1, b1, w2, **kw)
+    return out + dkv_fn(q, k, v, g, m, lse, delta, out[1], **kw)
+
+
+def check_hires_shape(torch, ka, kh, s, d, dv, seed, zero_mask=False):
+    """Kernels 1-4 against their plain versions at B=HIRES_CHECK_BATCH:
+    fp32 forward (o, m, lse; kernel 4 with the mask on and off) at rtol 2e-4
+    / atol 2e-5, fp32 backward within BWD_FP32_LIMIT of each output's
+    largest value, bf16 at most twice the plain bf16 version's error.
+    Returns the worst errors."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    dev = torch.device("cuda")
+    scale = 1.0 / d ** 0.5
+    args = hires_inputs(torch, HIRES_CHECK_BATCH, s, d, dv, dev, f32, seed,
+                        zero_mask)
+    g = grad_like(torch, HIRES_CHECK_BATCH, s, dv, dev, f32, seed + 1)
+    kw32, kw16 = dict(scale=scale, dtype=f32), dict(scale=scale, dtype=bf16)
+    worst = {"fwd_res": 0.0, "fwd_only": 0.0, "dq": 0.0, "dkv": 0.0,
+             "bwd_norm": 0.0, "bf16_ratio": 0.0}
+
+    def bf16_ok(what, got, plain, ref):
+        e_k, e_p = norm_err(got, ref), norm_err(plain, ref)
+        if not e_k <= 2 * e_p + 1e-6:
+            raise AssertionError(f"hires {what} S={s} D={d}: bf16 kernel "
+                                 f"error {e_k:.3e} > 2 x plain {e_p:.3e}")
+        if e_p > 1e-6:   # where plain bf16 equals plain fp32, no ratio
+            worst["bf16_ratio"] = max(worst["bf16_ratio"], e_k / e_p)
+
+    res = kh.hires_fwd_res(*args, **kw32)
+    res_p = kh.hires_fwd_res_plain(*args, **kw32)
+    torch.cuda.synchronize()
+    for x, y in zip(res, res_p):
+        torch.testing.assert_close(x, y, rtol=2e-4, atol=2e-5)
+        worst["fwd_res"] = max(worst["fwd_res"], max_err(x, y))
+    for use_mask in (True, False):
+        out = kh.fused_attention_forward(*args, use_mask=use_mask, **kw32)
+        ref = ka.attention_core(*args, use_mask=use_mask, **kw32)
+        torch.testing.assert_close(out, ref, rtol=2e-4, atol=2e-5)
+        worst["fwd_only"] = max(worst["fwd_only"], max_err(out, ref))
+    got = hires_bwd(kh, args, g, res_p, scale, f32, plain=False)
+    want = hires_bwd(kh, args, g, res_p, scale, f32, plain=True)
+    for name, x, y in zip(HIRES_OUT_NAMES, got, want):
+        e = norm_err(x, y)
+        if not e <= BWD_FP32_LIMIT:
+            raise AssertionError(f"hires {name} S={s} D={d}: fp32 error "
+                                 f"{e:.3e} of the largest value")
+        worst["bwd_norm"] = max(worst["bwd_norm"], e)
+        key = "dkv" if name in ("dk", "dv") else "dq"
+        worst[key] = max(worst[key], max_err(x, y))
+
+    a16 = cast(torch, args, bf16)
+    a32 = cast(torch, a16, f32)
+    g16 = g.to(bf16)
+    k16 = kh.hires_fwd_res(*a16, **kw16)
+    p16 = kh.hires_fwd_res_plain(*a16, **kw16)
+    r32 = kh.hires_fwd_res_plain(*a32, **kw32)
+    for what, x, y, r in zip(("o", "m", "lse"), k16, p16, r32):
+        bf16_ok(what, x, y, r)
+    for use_mask in (True, False):
+        ref = ka.attention_core(*a32, use_mask=use_mask, **kw32)
+        bf16_ok("forward-only", kh.fused_attention_forward(
+            *a16, use_mask=use_mask, **kw16),
+            ka.attention_core(*a16, use_mask=use_mask, **kw16), ref)
+    k16 = hires_bwd(kh, a16, g16, p16, scale, bf16, plain=False)
+    b16 = hires_bwd(kh, a16, g16, p16, scale, bf16, plain=True)
+    r32 = hires_bwd(kh, a32, g16.float(), p16, scale, f32, plain=True)
+    for name, x, y, r in zip(HIRES_OUT_NAMES, k16, b16, r32):
+        bf16_ok(name, x, y, r)
+    return worst
+
+
+class NoiseSeq:
+    """Injected training noise: call n draws standard normals from numpy
+    seed 999 + n, the same on the card and on the CPU."""
+
+    def __init__(self):
+        self.i = 0
+
+    def __call__(self, shape):
+        self.i += 1
+        return np.random.default_rng(999 + self.i).standard_normal(
+            shape).astype(np.float32)
+
+
+def hires_phases(torch, name, smi):
+    """hires-cls-1024 (S up to 1024, head dims up to 256) through the hires
+    attention route: check every kernel at every hires shape, serve, train,
+    time and trace. Returns (kernel summaries, metrics)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from calm_vit_dte_tpu_torch.data.augment import eval_preprocess
+    from calm_vit_dte_tpu_torch.kernels import axial_attention as ka
+    from calm_vit_dte_tpu_torch.kernels import conv_residual as kc
+    from calm_vit_dte_tpu_torch.kernels import hires_attention as kh
+    from calm_vit_dte_tpu_torch.models.factory import create_vit
+    from calm_vit_dte_tpu_torch.nn.spectral_norm import normalize_tree
+    from calm_vit_dte_tpu_torch.ops.variational import noise_override
+    from calm_vit_dte_tpu_torch.serve import (
+        WARMUP_POWER_ITERATIONS,
+        Predictor,
+    )
+    from calm_vit_dte_tpu_torch.train.optim import make_optimizer
+    from calm_vit_dte_tpu_torch.train.state import create_train_state
+    from calm_vit_dte_tpu_torch.train.step import (
+        make_eval_step,
+        make_train_step,
+    )
+    from calm_vit_dte_tpu_torch.utils.configs import get_config
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    dev = torch.device("cuda")
+    cfg = get_config("hires-cls-1024")
+    attn_shapes, conv_sizes = flagship_shapes(cfg.model)
+    # The rotation and the content++rope concat run in torch on this route,
+    # so the kernels see (S, D = Dc + Dr, Dv).
+    kernel_shapes: dict[tuple, int] = {}
+    for (s, dc, dr, dv), n in attn_shapes.items():
+        kernel_shapes[(s, dc + dr, dv)] = kernel_shapes.get(
+            (s, dc + dr, dv), 0) + n
+    log(f"[hires] attention shapes (S, Dc, Dr, Dv): launches = {attn_shapes}"
+        f"; kernel shapes (S, D, Dv) = {kernel_shapes}; conv S: launches = "
+        f"{conv_sizes}")
+
+    # check: every kernel at every hires shape, and with zero mask weights.
+    t0 = time.time()
+    worst: dict[tuple, dict] = {}
+    for i, (s, dc, dr, dv) in enumerate(sorted(attn_shapes, reverse=True)):
+        w = check_hires_shape(torch, ka, kh, s, dc + dr, dv, seed=800 + 2 * i)
+        key = (s, dc + dr, dv)
+        worst[key] = {k: max(v, worst.get(key, {}).get(k, 0.0))
+                      for k, v in w.items()}
+        log(f"[hires check] S={s} Dc={dc} Dr={dr} Dv={dv}: fp32 max err "
+            f"fwd_res {w['fwd_res']:.3e}, fwd_only {w['fwd_only']:.3e}, dq "
+            f"pass {w['dq']:.3e}, dkv pass {w['dkv']:.3e}, backward worst "
+            f"{w['bwd_norm']:.3e} of the largest value; bf16 worst "
+            f"{w['bf16_ratio']:.3f} x the plain bf16 error")
+    s, d, dv = min(kernel_shapes)
+    w = check_hires_shape(torch, ka, kh, s, d, dv, seed=850, zero_mask=True)
+    log(f"[hires check] S={s} D={d} with zero mask weights (the route's "
+        f"use_mask=False): backward worst {w['bwd_norm']:.3e}, bf16 worst "
+        f"{w['bf16_ratio']:.3f} x plain")
+    args = hires_inputs(torch, 2, s, d, dv, dev, f32, seed=860)
+    g = grad_like(torch, 2, s, dv, dev, f32, seed=861)
+
+    def autograd_of(fn):
+        leaves = [a.clone().requires_grad_() for a in args]
+        fn(*leaves, scale=d ** -0.5, dtype=f32).backward(g)
+        return [a.grad for a in leaves]
+
+    fn_err = max(norm_err(x, y) for x, y in zip(
+        autograd_of(kh.fused_hires_attention),
+        autograd_of(lambda *a, **k: ka.attention_core(*a, use_mask=True,
+                                                      **k))))
+    if not fn_err <= BWD_FP32_LIMIT:
+        raise AssertionError(f"hires Function vs autograd of the plain "
+                             f"forward: {fn_err:.3e}")
+    log(f"[hires check] Function vs torch autograd of the plain forward (S="
+        f"{s}, D={d}): worst gradient error {fn_err:.3e} of its largest "
+        f"value; checks took {time.time() - t0:.1f} s")
+    del args, g
+
+    def counts():
+        return {"fwd_res": kh.fused_hires_attention.launches,
+                "dq": kh.hires_dq.launches,
+                "weight_grads": kh.hires_weight_grads.launches,
+                "dkv": kh.hires_dkv.launches,
+                "fwd_only": kh.fused_attention_forward.launches,
+                "rope_fwd": ka.fused_rope_attention.launches,
+                "rope_bwd": ka.fused_rope_attention_bwd.launches,
+                "conv": kc.fused_conv_residual.launches}
+
+    def zero_counts():
+        kh.fused_hires_attention.launches = kh.hires_dq.launches = 0
+        kh.hires_weight_grads.launches = kh.hires_dkv.launches = 0
+        kh.fused_attention_forward.launches = 0
+        ka.fused_rope_attention.launches = 0
+        ka.fused_rope_attention_bwd.launches = 0
+        kc.fused_conv_residual.launches = 0
+
+    none = dict.fromkeys(counts(), 0)
+
+    # serve: Predictor.fresh(...).classify, uint8 1168 x 1168 -> 1024 crop.
+    rng = np.random.default_rng(10)
+    images = rng.integers(0, 256, (HIRES_BATCH, cfg.image_size,
+                                   cfg.image_size, 3), dtype=np.uint8)
+    t0 = time.time()
+    pred = Predictor.fresh("hires-cls-1024", seed=0, device="cuda")
+    log(f"[hires serve] Predictor.fresh: {time.time() - t0:.1f} s")
+    zero_counts()
+    labels, probs = pred.classify(images)
+    serve_counts = counts()
+    want = dict(none, fwd_only=24, conv=8)
+    log(f"[hires serve] classify B={HIRES_BATCH} bf16: launches "
+        f"{serve_counts}, top-5 of image 0 {labels[0].tolist()}")
+    if serve_counts != want:
+        raise AssertionError(f"hires classify: expected {want}, got "
+                             f"{serve_counts}")
+    if labels.shape != (HIRES_BATCH, 5) or not np.isfinite(probs).all():
+        raise AssertionError("hires classify: bad shape or non-finite")
+    p32 = Predictor(pred.model, crop=cfg.crop, dtype=f32)
+    l_gpu, kl_gpu = p32.predict(images[:1])
+    t0 = time.perf_counter()
+    p_cpu = Predictor(copy.deepcopy(pred.model).cpu(), crop=cfg.crop,
+                      dtype=f32)
+    l_cpu, kl_cpu = p_cpu.predict(images[:1])
+    cpu_s = time.perf_counter() - t0
+    torch.testing.assert_close(l_gpu.cpu(), l_cpu, rtol=2e-3, atol=2e-4)
+    torch.testing.assert_close(kl_gpu.cpu(), kl_cpu, rtol=1e-3, atol=0.0)
+    log(f"[hires serve] fp32 card vs CPU logits (1 image): max abs diff "
+        f"{max_err(l_gpu.cpu(), l_cpu):.3e} (|logits| max "
+        f"{float(l_cpu.abs().max()):.3e}); KL {float(kl_gpu):.6f} vs "
+        f"{float(kl_cpu):.6f}; the CPU forward took {cpu_s:.1f} s")
+    del p_cpu, p32
+    pred.classify(images)   # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reps = 3
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        pred.classify(images)
+    elapsed = time.perf_counter() - t0
+    serve = {"batch": HIRES_BATCH, "dtype": "bfloat16",
+             "images_per_s": reps * HIRES_BATCH / elapsed,
+             "ms_per_call": elapsed / reps * 1e3,
+             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    log(f"[hires time] classify B={HIRES_BATCH} bf16: "
+        f"{serve['images_per_s']:.3f} images/s ({serve['ms_per_call']:.1f} "
+        f"ms per call), peak memory {serve['peak_mem_gib']:.3f} GiB, on "
+        f"{name} ({smi})")
+    del pred
+    torch.cuda.empty_cache()
+
+    # train: make_train_step at full width and depth, bf16, remat, B=8.
+    soft = rng.random((HIRES_BATCH, cfg.model.out_features)).astype(
+        np.float32)
+    soft[np.arange(HIRES_BATCH), rng.integers(0, cfg.model.out_features,
+                                              HIRES_BATCH)] += 50.0
+    batch = {"image": images, "label": soft / soft.sum(-1, keepdims=True)}
+
+    def preprocess(generator, b):
+        # The JAX hires recipe's eval crop (scripts/bench_hires_train.py).
+        return {"image": eval_preprocess(b["image"], crop=cfg.crop),
+                "label": b["label"]}
+
+    def optimizer():
+        # The config's lr at its global batch of 64, scaled to B=8.
+        return make_optimizer(
+            base_lr=cfg.lr * HIRES_BATCH / cfg.global_batch_size,
+            weight_decay=cfg.weight_decay, b1=cfg.beta1, b2=cfg.beta2,
+            epochs=cfg.epochs, steps_per_epoch=1000, clip_norm=cfg.clip_norm,
+            eta_min=cfg.eta_min, schedule=cfg.schedule,
+            decoupled_wd=cfg.decoupled_wd)
+
+    t0 = time.time()
+    _, model = create_vit("hires-cls-1024", seed=cfg.init_seed,
+                          device="cuda")
+    with torch.no_grad():
+        for _ in range(WARMUP_POWER_ITERATIONS):
+            normalize_tree(model, training=True)
+    start_state = {k: v.detach().cpu().clone()
+                   for k, v in model.state_dict().items()}
+    tx = optimizer()
+    state = create_train_state(model, tx, seed=0)
+    train_step = make_train_step(cfg.model, tx, "cls", dtype=bf16,
+                                 remat=cfg.remat, preprocess=preprocess,
+                                 microbatches=1)
+    log(f"[hires train] model, power iterations and optimizer state: "
+        f"{time.time() - t0:.1f} s")
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, step_counts = [], [], None
+    want = dict(none, fwd_res=24, dq=24, weight_grads=24, dkv=24)
+    for i in range(HIRES_TRAIN_STEPS):
+        before = counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        m = {k: float(v) for k, v in metrics.items()}
+        losses.append(m["loss"])
+        step_counts = {k: v - before[k] for k, v in counts().items()}
+        log(f"[hires train] step {i}: loss {m['loss']:.6f}, grad_norm "
+            f"{m['grad_norm']:.4f}, kl {m['kl']:.6f}, {step_ms[-1]:.1f} ms, "
+            f"launches {step_counts}")
+        if step_counts != want:
+            raise AssertionError(f"hires training step: expected {want}, "
+                                 f"got {step_counts}")
+        if not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
+                and m["grad_norm"] > 0):
+            raise AssertionError(f"hires step {i}: {m}")
+        if i == 0:
+            dead = [k for k, p_ in model.named_parameters()
+                    if p_.grad is None or not torch.isfinite(p_.grad).all()
+                    or float(p_.grad.abs().max()) == 0.0]
+            if dead:
+                raise AssertionError(f"hires parameters with no, non-finite "
+                                     f"or zero first-step gradient: {dead}")
+    train_counts = counts()
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"hires loss did not fall: {losses}")
+    steady = float(np.mean(step_ms[1:]))
+    train = {"batch": HIRES_BATCH, "dtype": "bfloat16", "remat": cfg.remat,
+             "microbatches": 1, "ms_per_step": steady,
+             "first_step_ms": step_ms[0],
+             "images_per_s": HIRES_BATCH / steady * 1e3,
+             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+             "losses": losses}
+    log(f"[hires time] training B={HIRES_BATCH} bf16 remat: {steady:.1f} ms "
+        f"per step (steps 1-{HIRES_TRAIN_STEPS - 1}; first "
+        f"{step_ms[0]:.1f}), {train['images_per_s']:.3f} images/s, peak "
+        f"memory {train['peak_mem_gib']:.3f} GiB, on {name} ({smi})")
+
+    zero_counts()
+    ev = make_eval_step(cfg.model, "cls", dtype=bf16)(
+        state, {"image": eval_preprocess(torch.from_numpy(images).to(dev),
+                                         crop=cfg.crop),
+                "label": batch["label"].argmax(-1)})
+    eval_counts = counts()
+    log(f"[hires train] eval step: {int(ev['correct'])} of "
+        f"{int(ev['total'])} correct, launches {eval_counts}")
+    if eval_counts != dict(none, fwd_only=24, conv=8) or not torch.isfinite(
+            ev["kl"]):
+        raise AssertionError(f"hires eval step: {eval_counts}, {ev}")
+
+    # trace one training step: device busy share, the attention kernels'.
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = train_step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type.name == "CUDA"]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+
+    def device_ms(*needles):
+        return sum(e.self_device_time_total for e in events
+                   if any(n_ in e.key for n_ in needles)) / 1e3
+
+    parts = {"forward (hires_attention_kernel)":
+             device_ms("hires_attention_kernel"),
+             "dm/ssum": device_ms("hires_dm_ssum_kernel"),
+             "dq": device_ms("hires_dq_kernel"),
+             "dk/dv": device_ms("hires_dkv_kernel"),
+             "mask-MLP and weight-grad products (strided product)":
+             device_ms("gemm_kernel", "gemm_tc_kernel"),
+             "bias-grad sums": device_ms("colsum_kernel",
+                                         "sum_splits_kernel")}
+    attn_ms = sum(parts.values())
+    trace = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+             "attention_ms": attn_ms, "parts_ms": parts,
+             "attention_share_of_busy": attn_ms / busy_ms}
+    log(f"[hires trace] one training step B={HIRES_BATCH} bf16: wall "
+        f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+        f"({busy_ms / wall_ms:.1%}), {sum(e.count for e in events)} device "
+        f"kernels; hires attention kernels {attn_ms:.1f} ms "
+        f"({attn_ms / busy_ms:.1%} of busy): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()))
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f"[hires trace] {e.self_device_time_total / 1e3:9.3f} ms "
+            f"{e.count:5d}x  {e.key[:100]}")
+    del state, train_step, tx, model, ev
+    torch.cuda.empty_cache()
+
+    # One fp32 step on 1 image, card (remat) vs CPU (no remat), same weights
+    # and injected noise.
+    small = {k: v[:1] for k, v in batch.items()}
+    sides = {}
+    for side, remat in (("cuda", True), ("cpu", False)):
+        t0 = time.perf_counter()
+        _, m_side = create_vit("hires-cls-1024", device=side)
+        m_side.load_state_dict(start_state)
+        tx_side = optimizer()
+        step_side = make_train_step(cfg.model, tx_side, "cls", dtype=f32,
+                                    remat=remat, preprocess=preprocess)
+        with noise_override(NoiseSeq()):
+            _, m = step_side(create_train_state(m_side, tx_side, seed=0),
+                             small)
+        sides[side] = ({k: float(v) for k, v in m.items()},
+                       {k: p_.grad.cpu() for k, p_ in
+                        m_side.named_parameters()})
+        log(f"[hires train] fp32 step on 1 image on {side} (remat={remat}): "
+            f"loss {sides[side][0]['loss']:.6f}, "
+            f"{time.perf_counter() - t0:.1f} s")
+        del m_side, tx_side, step_side
+        torch.cuda.empty_cache()
+    (m_gpu, g_gpu), (m_cpu, g_cpu) = sides["cuda"], sides["cpu"]
+    np.testing.assert_allclose(m_gpu["loss"], m_cpu["loss"], rtol=2e-4)
+    worst_leaf = ("", 0.0)
+    for k, want_g in g_cpu.items():
+        top = max(float(want_g.abs().max()), 1e-12)
+        torch.testing.assert_close(g_gpu[k], want_g, rtol=5e-3,
+                                   atol=2e-4 * top, msg=lambda m_, k=k:
+                                   f"hires gradient of {k}: {m_}")
+        worst_leaf = max(worst_leaf, (k, max_err(g_gpu[k], want_g) / top),
+                         key=lambda t: t[1])
+    log(f"[hires train] fp32 card vs CPU: loss {m_gpu['loss']:.6f} vs "
+        f"{m_cpu['loss']:.6f}; {len(g_cpu)} gradient leaves within rtol "
+        f"5e-3 / atol 2e-4 of each leaf's largest value; worst "
+        f"{worst_leaf[0]} at {worst_leaf[1]:.3e}")
+    del sides, g_gpu, g_cpu, start_state
+
+    # time: each kernel and its plain version at B=8 bf16, per kernel shape.
+    rows = {k: [] for k in ("fwd_res", "dq", "dkv", "fwd_only")}
+    for i, ((s, d, dv), n) in enumerate(sorted(kernel_shapes.items(),
+                                               reverse=True)):
+        args = hires_inputs(torch, HIRES_BATCH, s, d, dv, dev, bf16,
+                            seed=900 + i)
+        g = grad_like(torch, HIRES_BATCH, s, dv, dev, bf16, seed=950 + i)
+        kw = dict(scale=d ** -0.5, dtype=bf16)
+        res = kh.hires_fwd_res_plain(*args, **kw)
+        o, m, lse = res
+        delta = (g.float() * o.float()).sum(-1)
+        q, k, v, w1, b1, w2, _ = args
+        dssum = kh.hires_dq_plain(q, k, v, g, m, lse, delta, w1, b1, w2,
+                                  **kw)[1]
+        calls = {
+            "fwd_res": (lambda: kh.hires_fwd_res(*args, **kw),
+                        lambda: kh.hires_fwd_res_plain(*args, **kw)),
+            "fwd_only": (lambda: kh.fused_attention_forward(*args, **kw),
+                         lambda: ka.attention_core(*args, use_mask=True,
+                                                   **kw)),
+            "dq": (lambda: kh.hires_dq(q, k, v, g, m, lse, delta, w1, b1,
+                                       w2, **kw),
+                   lambda: kh.hires_dq_plain(q, k, v, g, m, lse, delta, w1,
+                                             b1, w2, **kw)),
+            "dkv": (lambda: kh.hires_dkv(q, k, v, g, m, lse, delta, dssum,
+                                         **kw),
+                    lambda: kh.hires_dkv_plain(q, k, v, g, m, lse, delta,
+                                               dssum, **kw)),
+        }
+        bounds = hires_bounds(HIRES_BATCH, s, d, dv, 2)
+        for kname, (kern, plain) in calls.items():
+            ms = cuda_ms(torch, kern, 3, warmup=1)
+            plain_ms = cuda_ms(torch, plain, 2, warmup=1)
+            t_bytes, t_ops = bounds[kname]
+            err = worst[(s, d, dv)]
+            row = dict(S=s, D=d, Dv=dv, launches=n, ms=ms, plain_ms=plain_ms,
+                       bound_ms=max(t_bytes, t_ops),
+                       bound_by="bytes" if t_bytes >= t_ops else "operations",
+                       fp32_err=err[kname], fp32_bwd_norm_err=err["bwd_norm"],
+                       bf16_err_over_plain=err["bf16_ratio"])
+            rows[kname].append(row)
+            log(f"[hires time] {kname} S={s} D={d} Dv={dv} (x{n}): kernel "
+                f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
+                f"{row['bound_ms'] / ms:.2%} of bound")
+        del args, g, res, o, m, lse, delta, dssum, calls, q, k, v
+        torch.cuda.empty_cache()
+
+    per_step = f"train_{HIRES_TRAIN_STEPS}_steps"
+    launches = {
+        "fwd_res": {per_step: train_counts["fwd_res"]},
+        "dq": {per_step: train_counts["dq"],
+               "weight_grad_reductions": train_counts["weight_grads"]},
+        "dkv": {per_step: train_counts["dkv"]},
+        "fwd_only": {"classify": serve_counts["fwd_only"],
+                     "eval_step": eval_counts["fwd_only"]},
+    }
+    meta = {
+        "fwd_res": ("hires_attention_fwd_res", kh.SOURCE,
+                    kh.REPLACES_FWD_RES),
+        "dq": ("hires_attention_dq", kh.BWD_SOURCE, kh.REPLACES_DQ),
+        "dkv": ("hires_attention_dkv", kh.BWD_SOURCE, kh.REPLACES_DKV),
+        "fwd_only": ("hires_attention_fwd_only", kh.SOURCE,
+                     kh.REPLACES_FWD_ONLY),
+    }
+    kernels = []
+    for key, (kname, source, replaces) in meta.items():
+        r = rows[key]
+        t_bytes = sum(x["launches"] * x["bound_ms"] for x in r
+                      if x["bound_by"] == "bytes")
+        t_ops = sum(x["launches"] * x["bound_ms"] for x in r
+                    if x["bound_by"] == "operations")
+        kernels.append({
+            "name": kname, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": sum(launches[key].values()) - launches[key].get(
+                "weight_grad_reductions", 0),
+            "max_abs_err": max(x["fp32_err"] for x in r),
+            "ms": sum(x["launches"] * x["ms"] for x in r),
+            "plain_ms": sum(x["launches"] * x["plain_ms"] for x in r),
+            "bound_ms": t_bytes + t_ops,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None, "launches_by_path": launches[key],
+            "per_shape": r})
+    log("[hires time] hires kernels' ms, plain_ms and bound_ms are per "
+        f"hires-cls-1024 forward (or training step's backward) at "
+        f"B={HIRES_BATCH} bf16; dq includes its weight-grad reduction")
+    return kernels, {"classify": serve, "train": train, "trace": trace}
+
+
 def main() -> int:
     if not (ROOT / "calm_vit_dte_tpu_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository "
@@ -315,7 +884,8 @@ def main() -> int:
     # 2. build
     t0 = time.time()
     logs = _build.build(["axial_attention", "axial_attention_bwd",
-                         "conv_residual"])
+                         "conv_residual", "hires_attention",
+                         "hires_attention_bwd"])
     log(f"[build] {len(logs)} sources built in {time.time() - t0:.1f} s "
         f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
     for src, text in logs.items():
@@ -634,16 +1204,7 @@ def main() -> int:
         raise AssertionError("eval step: non-finite KL")
 
     # One fp32 step on 2 images, card vs CPU: same weights, same injected
-    # noise (call n draws from numpy seed 1000 + n on both).
-    class NoiseSeq:
-        def __init__(self):
-            self.i = 0
-
-        def __call__(self, shape):
-            self.i += 1
-            return np.random.default_rng(999 + self.i).standard_normal(
-                shape).astype(np.float32)
-
+    # noise.
     small = {k: v[:2] for k, v in train_batch.items()}
     sides = {}
     for side, remat in (("cuda", True), ("cpu", False)):
@@ -809,6 +1370,11 @@ def main() -> int:
         log(f"[trace] {e.self_device_time_total / 1e3:9.3f} ms "
             f"{e.count:5d}x  {e.key[:100]}")
 
+    # 8. hires-cls-1024, after the flagship's trainer and predictor are gone.
+    del state, train_step, model, tx, pred
+    torch.cuda.empty_cache()
+    hires_kernels, hires = hires_phases(torch, name, smi)
+
     def summary(kname, source, replaces, rows, launches):
         t_bytes = sum(r["launches"] * r["bound_ms"] for r in rows
                       if r["bound_by"] == "bytes")
@@ -849,6 +1415,7 @@ def main() -> int:
         "classify": main_launches["conv"],
         f"train_{TRAIN_STEPS}_steps": train_launches["conv"],
         "eval_step": eval_launches["conv"]}
+    kernels += hires_kernels
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} was not launched on the main "
@@ -869,7 +1436,8 @@ def main() -> int:
                               "first_step_ms": step_ms[0],
                               "images_per_s": train_img_s,
                               "peak_mem_gib": train_peak_gib,
-                              "losses": train_losses, "trace": train_trace}}))
+                              "losses": train_losses, "trace": train_trace},
+                    "hires-cls-1024": hires}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

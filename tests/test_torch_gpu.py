@@ -228,3 +228,139 @@ def test_conv_residual_kernel_matches_plain(cuda_device, s):
     assert kc.fused_conv_residual.launches == n0 + 1
     ref = kc.fused_conv_residual_plain(*args, dtype=torch.float32)
     torch.testing.assert_close(out, ref, rtol=2e-4, atol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# The long-sequence kernels (kernels/hires_attention.py) at two hires-cls-1024
+# shapes (S, D = Dv): the smallest stage and the widest.
+HIRES_SHAPES = [(448, 112), (1024, 256)]
+HIRES_BWD_NAMES = ("dq", "dssum", "dw1", "db1", "dw2", "db2", "dk", "dv")
+
+
+def _hires_inputs(rng, device, b, s, d, dtype):
+    """q, k, v (B,H,S,D) in `dtype` and the mask weights (fp32), scaled so
+    that scores, the mask hidden layer and m are all of order one."""
+    def n(*shape, scale, dt=torch.float32):
+        return _normal(rng, device, *shape, scale=scale).to(dt)
+
+    return [n(b, H, s, d, scale=0.3, dt=dtype),
+            n(b, H, s, d, scale=0.3, dt=dtype),
+            n(b, H, s, d, scale=0.3, dt=dtype),
+            n(2 * s, s, scale=0.2 / math.sqrt(s)), n(2 * s, scale=0.1),
+            n(s, 2 * s, scale=1 / math.sqrt(2 * s)), n(s, scale=0.1)]
+
+
+def _hires_bwd_all(kh, args, g, m, lse, delta, scale, dtype, plain):
+    q, k, v, w1, b1, w2, _ = args
+    kw = dict(scale=scale, dtype=dtype)
+    dq_fn = kh.hires_dq_plain if plain else kh.hires_dq
+    dkv_fn = kh.hires_dkv_plain if plain else kh.hires_dkv
+    dq, dssum, dw1, db1, dw2, db2 = dq_fn(q, k, v, g, m, lse, delta, w1, b1,
+                                          w2, **kw)
+    dk, dv = dkv_fn(q, k, v, g, m, lse, delta, dssum, **kw)
+    return dq, dssum, dw1, db1, dw2, db2, dk, dv
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,d", HIRES_SHAPES)
+def test_hires_forward_kernels_match_plain(cuda_device, s, d):
+    """The forward with residuals (kernel 1: o, m, lse) and the
+    forward-only kernel (4, mask on and off) against their plain versions:
+    fp32 at rtol 2e-4 / atol 2e-5, bf16 at most twice the plain bf16
+    error."""
+    from calm_vit_dte_tpu_torch.kernels import hires_attention as kh
+
+    rng = np.random.default_rng(s)
+    f32, bf16 = torch.float32, torch.bfloat16
+    args = _hires_inputs(rng, cuda_device, 2, s, d, f32)
+    scale = 1.0 / math.sqrt(d)
+    n1, n4 = kh.fused_hires_attention.launches, \
+        kh.fused_attention_forward.launches
+    got = kh.hires_fwd_res(*args, scale=scale, dtype=f32)
+    want = kh.hires_fwd_res_plain(*args, scale=scale, dtype=f32)
+    for x, y in zip(got, want):
+        torch.testing.assert_close(x, y, rtol=2e-4, atol=2e-5)
+    for use_mask in (True, False):
+        out = kh.fused_attention_forward(*args, scale=scale, dtype=f32,
+                                         use_mask=use_mask)
+        ref = ka.attention_core(*args, scale=scale, dtype=f32,
+                                use_mask=use_mask)
+        torch.testing.assert_close(out, ref, rtol=2e-4, atol=2e-5)
+    torch.cuda.synchronize()
+    assert kh.fused_hires_attention.launches == n1 + 1
+    assert kh.fused_attention_forward.launches == n4 + 2
+
+    a16 = [a.to(bf16) if a.dim() == 4 else a for a in args]
+    a32 = [a.float() for a in a16]
+    k16 = kh.hires_fwd_res(*a16, scale=scale, dtype=bf16)
+    p16 = kh.hires_fwd_res_plain(*a16, scale=scale, dtype=bf16)
+    r32 = kh.hires_fwd_res_plain(*a32, scale=scale, dtype=f32)
+    for x, y, r in zip(k16, p16, r32):
+        assert _norm_err(x, r) <= 2 * _norm_err(y, r) + 1e-6
+    out = kh.fused_attention_forward(*a16, scale=scale, dtype=bf16)
+    plain = ka.attention_core(*a16, scale=scale, dtype=bf16, use_mask=True)
+    assert _norm_err(out, r32[0]) <= 2 * _norm_err(plain, r32[0]) + 1e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,d", HIRES_SHAPES)
+def test_hires_backward_kernels_match_plain(cuda_device, s, d):
+    """The dq pass (kernel 2, with its weight-grad reduction) and the dk/dv
+    pass (kernel 3): fp32 within 1e-4 of each output's largest value, the
+    same bits from two launches, bf16 at most twice the plain bf16 error."""
+    from calm_vit_dte_tpu_torch.kernels import hires_attention as kh
+
+    rng = np.random.default_rng(s + 1)
+    f32, bf16 = torch.float32, torch.bfloat16
+    scale = 1.0 / math.sqrt(d)
+    args = _hires_inputs(rng, cuda_device, 2, s, d, f32)
+    g = _normal(rng, cuda_device, 2, H, s, d, scale=0.3)
+    o, m, lse = kh.hires_fwd_res_plain(*args, scale=scale, dtype=f32)
+    delta = (g * o).sum(-1)
+    n2, n3 = kh.hires_dq.launches, kh.hires_dkv.launches
+    got = _hires_bwd_all(kh, args, g, m, lse, delta, scale, f32, False)
+    again = _hires_bwd_all(kh, args, g, m, lse, delta, scale, f32, False)
+    want = _hires_bwd_all(kh, args, g, m, lse, delta, scale, f32, True)
+    torch.cuda.synchronize()
+    assert kh.hires_dq.launches == n2 + 2 and kh.hires_dkv.launches == n3 + 2
+    for name, x, y, z in zip(HIRES_BWD_NAMES, got, want, again):
+        assert x.shape == y.shape and x.dtype == y.dtype, name
+        assert _norm_err(x, y) <= 1e-4, name
+        assert torch.equal(x, z), f"{name} differs between two runs"
+
+    a16 = [a.to(bf16) if a.dim() == 4 else a for a in args]
+    g16 = g.to(bf16)
+    o16, m16, lse16 = kh.hires_fwd_res_plain(*a16, scale=scale, dtype=bf16)
+    delta16 = (g16.float() * o16.float()).sum(-1)
+    k16 = _hires_bwd_all(kh, a16, g16, m16, lse16, delta16, scale, bf16,
+                         False)
+    p16 = _hires_bwd_all(kh, a16, g16, m16, lse16, delta16, scale, bf16,
+                         True)
+    r32 = _hires_bwd_all(kh, [a.float() for a in a16], g16.float(), m16,
+                         lse16, delta16, scale, f32, True)
+    for name, x, y, r in zip(HIRES_BWD_NAMES, k16, p16, r32):
+        assert x.dtype == y.dtype, name
+        assert _norm_err(x, r) <= 2 * _norm_err(y, r) + 1e-6, name
+
+
+@pytest.mark.gpu
+def test_hires_function_matches_autograd(cuda_device):
+    """`fused_hires_attention` (kernels 1-3) against torch autograd of the
+    plain forward, all seven gradients."""
+    from calm_vit_dte_tpu_torch.kernels import hires_attention as kh
+
+    rng = np.random.default_rng(5)
+    s, d = 448, 112
+    args = _hires_inputs(rng, cuda_device, 2, s, d, torch.float32)
+    g = _normal(rng, cuda_device, 2, H, s, d, scale=0.3)
+    kw = dict(scale=1.0 / math.sqrt(d), dtype=torch.float32)
+
+    def grads(fn):
+        leaves = [a.clone().requires_grad_() for a in args]
+        fn(*leaves, **kw).backward(g)
+        return [a.grad for a in leaves]
+
+    got = grads(kh.fused_hires_attention)
+    want = grads(lambda *a, **k: ka.attention_core(*a, use_mask=True, **k))
+    for name, x, y in zip("q k v w1 b1 w2 b2".split(), got, want):
+        assert _norm_err(x, y) <= 1e-4, name
