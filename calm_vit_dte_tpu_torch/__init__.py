@@ -15,12 +15,17 @@ Layer map (bottom-up), module for module the same as the JAX package's:
             ctypes wrappers and plain PyTorch versions
   models/   VMLA layer, CALM Block, EncoderDecoder8, ViT wrapper (eval and
             training forward)
-  data/     eval preprocessing (center crop + normalize) on the device
+  data/     sharded sampler, threaded loader, augmentation and CutMix/MixUp
+            on the device, the preprocessing callables of the steps
   train/    losses, fused AdamW and schedules, TrainState, the train and
             eval steps (hoisted spectral-norm pre-pass, microbatches,
-            activation checkpointing that keeps the attention outputs)
+            activation checkpointing that keeps the kernels' outputs),
+            checkpoints, sample PNGs, the trainer and its CLIs
+            (train_cls, train_reg)
   compat/   weight and optimizer-state carry from the JAX package's pytrees
-  utils/    named configs, device selection, checkpointing with kept tensors
+  utils/    named configs, device selection, checkpointing with kept
+            tensors, metric logging
+  tools/    profiling on the card (the conv backward's ablation)
   serve.py  Predictor: frozen eval-normalized weights, classify/reconstruct
 
 Every entry point takes `device=` and defaults to "cuda"; without a card it

@@ -6,15 +6,14 @@ JAX counterpart: calm_vit_dte_tpu/models/block.py (reference
 Vi_Tools_CNN_less_V2.py:317-403). The first block tokenizes an NHWC image
 (B, H, W, 3) into rows (B, H, W*3); the axial transpose views (B, S, 3S) as
 (B, S, S, 3) and swaps the spatial axes. The conv residual works on that
-NHWC view directly: at eval on the card it is one kernel launch at every S
-(kernels/conv_residual.py), on the CPU the F.conv2d chain. In training it is
-the F.conv2d chain with torch autograd on every device, as the JAX package
-trains on its plain conv chain by default; the fused kernel has no backward
-yet.
+NHWC view directly; `ConvResidual.forward` picks its formulation as the JAX
+package's `conv_residual_apply` does (kernels/conv_residual.py has the
+kernels).
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import torch
@@ -23,6 +22,7 @@ from torch import nn
 from calm_vit_dte_tpu_torch.kernels.conv_residual import (
     fused_conv_residual,
     fused_conv_residual_plain,
+    fused_conv_residual_train,
 )
 from calm_vit_dte_tpu_torch.models.vmla import VMLA, VMLAConfig
 from calm_vit_dte_tpu_torch.nn.conv import SNConv2d
@@ -91,12 +91,27 @@ class ConvResidual(nn.ModuleDict):
 
     def forward(self, x_seq: torch.Tensor, dtype) -> torch.Tensor:
         """x_seq: (B, S, 3S) row tokens -> conv residual term (B, S, 3S);
-        the JAX package's `conv_residual_apply`."""
+        the JAX package's `conv_residual_apply`.
+
+        CALM_CONV_FUSED, read at each call: unset, eval runs the fused
+        forward kernel and training the F.conv2d chain under torch autograd
+        (the JAX package's default, where its lax chain trained fastest);
+        '1' also trains through the fused kernels
+        (`fused_conv_residual_train`, backward route by CALM_CONV_BWD); '0'
+        runs the F.conv2d chain everywhere. Any other value raises."""
+        mode = os.environ.get("CALM_CONV_FUSED", "")
+        if mode not in ("", "0", "1"):
+            raise ValueError(f"CALM_CONV_FUSED={mode!r}: expected '0' or "
+                             "'1'")
         b, s, _ = x_seq.shape
         img = x_seq.reshape(b, s, s, 3).to(dtype).contiguous()  # NHWC
         c1, c2, c3 = self["0"], self["2"], self["4"]
-        conv = (fused_conv_residual_plain if self.training
-                else fused_conv_residual)
+        if mode == "0" or (self.training and mode == ""):
+            conv = fused_conv_residual_plain
+        elif self.training:
+            conv = fused_conv_residual_train
+        else:
+            conv = fused_conv_residual
         y = conv(
             img,
             c1.normalized_weight().reshape(CONV_HIDDEN, 3), c1.bias,

@@ -14,8 +14,9 @@ from calm_vit_dte_tpu_torch.models.vit import ViTConfig
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """The fields the serving path and the train step read; the trainer
-    shell's (dataset, checkpoint, logging, mesh) join when it is ported."""
+    """Every field of the JAX package's TrainConfig, with its defaults. The
+    port runs on one card: `mesh_model` other than 1 and `tp_min_shard_dim`
+    wait for the parallel slice (train/trainer.py raises on the first)."""
     name: str
     model: ViTConfig
     task: str  # 'cls' | 'reg'
@@ -28,15 +29,26 @@ class TrainConfig:
     clip_norm: float = 1.0
     eta_min: float = 1e-6
     kl_weight: float = 0.1
+    sampler_seed: int = 2006          # reference DistributedSampler seed
     init_seed: int = 0
     image_size: int = 256             # host decode/resize target
     crop: int = 224
+    dataset_root: str = "/dataset/imagenet"
+    checkpoint_dir: str = "checkpoints"
+    warm_start: str | None = None     # optional reference .pth
+    log_every: int = 100              # reference rank-0 print cadence
+    num_workers: int = 5
+    save_samples_dir: str | None = None
     remat: bool = True                # activation checkpointing in backprop
     schedule: str = "cosine-epoch"    # or 'steplr' (single-node run)
     lr_step_size: int = 5             # StepLR step_size (epochs)
     lr_gamma: float = 0.1             # StepLR gamma
     decoupled_wd: bool = True         # AdamW; False = torch Adam coupled L2
     microbatch: int = 1               # grad-accumulation splits per step
+    mesh_model: int = 1               # tensor-parallel axis size
+    tp_min_shard_dim: int = 512       # smallest weight dim sharded under TP
+    epoch_stats_path: str = ""        # one JSONL line per epoch (p50,
+                                      # steps/s, RSS)
 
 
 def _vit_224(generate: bool, out_features: int) -> ViTConfig:
@@ -60,13 +72,14 @@ def _register(cfg: TrainConfig) -> TrainConfig:
 
 _register(TrainConfig(
     name="tiny-cls", model=TINY_VIT, task="cls", global_batch_size=16,
-    epochs=2, image_size=56, crop=48, remat=False))
+    epochs=2, image_size=56, crop=48, dataset_root="synthetic",
+    log_every=10, remat=False))
 
 _register(TrainConfig(
     name="tiny-reg",
     model=replace(TINY_VIT, out_features=144, generate=True),
     task="reg", global_batch_size=16, epochs=2, image_size=56, crop=48,
-    remat=False))
+    dataset_root="synthetic", log_every=10, remat=False))
 
 # The flagship: ImageNet-1k 224px classification (42.58M parameters).
 _register(TrainConfig(
@@ -75,7 +88,7 @@ _register(TrainConfig(
 
 _register(TrainConfig(
     name="imagenet-reg-224", model=_vit_224(True, 672), task="reg",
-    global_batch_size=1824, epochs=65))
+    global_batch_size=1824, epochs=65, save_samples_dir="samples"))
 
 # The reference's single-node hyperparameters (CALM_ViT_V2.py:151-152, 183,
 # 186): torch Adam with COUPLED L2 and betas (0.9, 0.999), StepLR(5, 0.1),

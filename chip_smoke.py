@@ -65,7 +65,28 @@ Phases, each fatal on failure (any exception exits non-zero):
              weight-grad reductions each, loss lower at the end, every
              gradient finite and nonzero), an eval step (24 forward-only),
              one traced step, one fp32 step on 1 image card vs CPU; each
-             kernel and its plain version timed at B=8 bf16.
+             kernel and its plain version timed at B=8 bf16;
+  9. trainer the classification trainer entry point with the fused conv
+             residual in training, after the hires phase frees its memory:
+             the forward that saves h and acc and the recomputing backward
+             (kernels/conv_residual.py) against their plain versions at
+             every flagship conv S at B=8 (fp32 forward rtol 2e-4 / atol
+             2e-5, fp32 backward within 1e-4 of each output's largest value,
+             bf16 at most twice the plain bf16 error, two backward launches
+             and the ablation's FULL bit-identical to the production
+             backward; the Function on both routes against torch autograd of
+             the plain forward); then train_cls.main in process on
+             imagenet-cls-224 at full width and depth, B=128, synthetic
+             data, bf16, remat, six steps, under each conv route (the
+             F.conv2d chain, CALM_CONV_FUSED=1, and =1 with
+             CALM_CONV_BWD=xla): model and batches on the card, loss finite
+             every step, exact launches per step (24 + 24 attention; 8 + 8
+             conv and 8 weight-grad sums on the pallas route, 8 forwards
+             with residuals on the xla route, none on the chain), the
+             checkpoint restored bit for bit and a second main resuming
+             from it; p50 ms per step beside phase 5's bare step; each new
+             kernel and its plain version timed at B=128 bf16 at every conv
+             S, and the ablation's seven variants at S=224.
 
 Every fp32 comparison runs with torch.backends.cuda.matmul.allow_tf32 and
 torch.backends.cudnn.allow_tf32 both False, so the plain versions' products
@@ -75,8 +96,9 @@ Output: human-readable lines, then the card's `nvidia-smi` name and power
 limit, then one JSON line {"kernels": [...]}, and last
 {"ok": true, "device": {...}}. No single PyTorch call computes any of the
 fused functions (scaled_dot_product_attention has no head-coupled learned
-mask and returns no mask, residual or table gradients), so each kernel's
-library_ms is null.
+mask and returns no mask, residual or table gradients; no convolution call
+returns the conv residual's middle activations or its packed weight grads),
+so each kernel's library_ms is null.
 """
 
 from __future__ import annotations
@@ -823,6 +845,404 @@ def hires_phases(torch, name, smi):
     return kernels, {"classify": serve, "train": train, "trace": trace}
 
 
+TRAINER_STEPS = 6
+CONV_BWD_NAMES = ("dx",) + tuple(f"wg[:, {j}]" for j in range(24))
+
+
+def conv_resid_bound(b, s, itemsize):
+    """The forward with residuals: reads x, writes y, h and acc (3 + 3 + 32
+    + 32 values per pixel); the forward's operations."""
+    nbytes = b * s * s * 70 * itemsize + (96 + 32 + 288 + 32 + 96 + 3) * 4
+    flops = 2 * b * s * s * 32 * 15
+    return nbytes / PEAK_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+
+
+def conv_bwd_bound(b, s, itemsize):
+    """The backward: reads x and g, writes dx (3 values per pixel each) and
+    the (32, 24) fp32 weight grads; three times the forward's operations."""
+    nbytes = (b * s * s * 9 * itemsize + (96 + 32 + 288 + 32 + 96) * 4
+              + 32 * 24 * 4)
+    flops = 3 * 2 * b * s * s * 32 * 15
+    return nbytes / PEAK_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+
+
+def check_conv_training_kernels(torch, kc, abl, s, seed):
+    """The forward with residuals and the backward against their plain
+    versions at B=CHECK_BATCH: fp32 forward outputs at rtol 2e-4 / atol
+    2e-5, fp32 backward outputs within BWD_FP32_LIMIT of each one's largest
+    value, bf16 at most twice the plain bf16 error against the fp32 plain
+    version; two backward launches and the ablation's FULL bit-identical to
+    the production backward. Returns the worst errors."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    dev = torch.device("cuda")
+    args = conv_inputs(torch, CHECK_BATCH, s, dev, f32, seed)
+    g = torch.from_numpy((np.random.default_rng(seed + 1).standard_normal(
+        (CHECK_BATCH, s, s, 3)) * 0.5).astype(np.float32)).to(dev)
+    w = args[1:6]
+    worst = {"fwd_resid": 0.0, "bwd": 0.0, "bwd_norm": 0.0,
+             "bf16_ratio": 0.0}
+
+    def bf16_ok(what, got, plain, ref, norm):
+        err = norm_err if norm else max_err
+        e_k, e_p = err(got, ref), err(plain, ref)
+        if not e_k <= 2 * e_p + 1e-6:
+            raise AssertionError(f"conv {what} S={s}: bf16 kernel error "
+                                 f"{e_k:.3e} > 2 x plain {e_p:.3e}")
+        if e_p > 1e-6:
+            worst["bf16_ratio"] = max(worst["bf16_ratio"], e_k / e_p)
+
+    got = kc.conv_residual_fwd_resid(*args, dtype=f32)
+    want = kc.conv_residual_fwd_resid_plain(*args, dtype=f32)
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        torch.testing.assert_close(x, y, rtol=2e-4, atol=2e-5)
+        worst["fwd_resid"] = max(worst["fwd_resid"], max_err(x, y))
+    got = kc.conv_residual_bwd(args[0], g, *w, dtype=f32)
+    want = kc.conv_residual_bwd_plain(args[0], g, *w, dtype=f32)
+    outs = [got[0]] + [got[1][:, j] for j in range(24)]
+    refs = [want[0]] + [want[1][:, j] for j in range(24)]
+    for name, x, y in zip(CONV_BWD_NAMES, outs, refs):
+        e = norm_err(x, y) if float(y.abs().max()) > 0 else max_err(x, y)
+        if not e <= BWD_FP32_LIMIT:
+            raise AssertionError(f"conv backward {name} S={s}: fp32 error "
+                                 f"{e:.3e} of the largest value")
+        worst["bwd_norm"] = max(worst["bwd_norm"], e)
+        worst["bwd"] = max(worst["bwd"], max_err(x, y))
+
+    x16, g16 = args[0].to(bf16), g.to(bf16)
+    a16 = (x16,) + tuple(args[1:])
+    for what, k, p, r in zip(
+            ("y", "h", "acc"), kc.conv_residual_fwd_resid(*a16, dtype=bf16),
+            kc.conv_residual_fwd_resid_plain(*a16, dtype=bf16),
+            kc.conv_residual_fwd_resid_plain(x16.float(), *args[1:],
+                                             dtype=f32)):
+        bf16_ok(what, k, p, r, norm=False)
+    k16 = kc.conv_residual_bwd(x16, g16, *w, dtype=bf16)
+    p16 = kc.conv_residual_bwd_plain(x16, g16, *w, dtype=bf16)
+    r32 = kc.conv_residual_bwd_plain(x16.float(), g16.float(), *w, dtype=f32)
+    for j, name in enumerate(CONV_BWD_NAMES):
+        pick = (lambda t: t[0]) if j == 0 else (lambda t, j=j: t[1][:, j - 1])
+        if float(pick(r32).abs().max()) > 0:
+            bf16_ok(f"backward {name}", pick(k16), pick(p16), pick(r32),
+                    norm=True)
+    again = kc.conv_residual_bwd(x16, g16, *w, dtype=bf16)
+    torch.cuda.synchronize()
+    if not (torch.equal(k16[0], again[0]) and torch.equal(k16[1], again[1])):
+        raise AssertionError(f"conv backward S={s}: two launches differ")
+    if not abl.full_equals_production((x16, g16) + tuple(w)):
+        raise AssertionError(f"ablation FULL S={s} differs from the "
+                             "production backward")
+    return worst
+
+
+def trainer_phase(torch, name, smi, bare):
+    """Phase 9: the classification trainer entry point on imagenet-cls-224
+    with the fused conv residual in training. `bare` is phase 5's
+    make_train_step measurement (same call). Returns (kernel summaries,
+    metrics)."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    from calm_vit_dte_tpu_torch.kernels import axial_attention as ka
+    from calm_vit_dte_tpu_torch.kernels import conv_residual as kc
+    from calm_vit_dte_tpu_torch.models.factory import create_vit
+    from calm_vit_dte_tpu_torch.tools import ablate_conv_bwd as abl
+    from calm_vit_dte_tpu_torch.train import checkpoint as ckpt_mod
+    from calm_vit_dte_tpu_torch.train import train_cls
+    from calm_vit_dte_tpu_torch.train import trainer as trainer_mod
+    from calm_vit_dte_tpu_torch.train.optim import make_optimizer
+    from calm_vit_dte_tpu_torch.train.state import create_train_state
+    from calm_vit_dte_tpu_torch.utils.configs import get_config
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    dev = torch.device("cuda")
+    cfg = get_config("imagenet-cls-224")
+    _, conv_sizes = flagship_shapes(cfg.model)
+    t_phase = time.time()
+
+    # 1. check both new kernels at every flagship conv S, and the Function.
+    t0 = time.time()
+    per_s = {}
+    for i, s in enumerate(sorted(conv_sizes, reverse=True)):
+        per_s[s] = check_conv_training_kernels(torch, kc, abl, s, 1000 + i)
+        w = per_s[s]
+        log(f"[trainer check] conv S={s}: fp32 max err forward with "
+            f"residuals {w['fwd_resid']:.3e}, backward {w['bwd']:.3e} "
+            f"(worst {w['bwd_norm']:.3e} of its largest value); bf16 worst "
+            f"{w['bf16_ratio']:.3f} x the plain bf16 error; backward twice "
+            "and ablation FULL bit-identical")
+    args = conv_inputs(torch, 2, 80, dev, f32, seed=1100)
+    g = torch.from_numpy(np.random.default_rng(1101).standard_normal(
+        (2, 80, 80, 3)).astype(np.float32)).to(dev)
+
+    def autograd_of(fn):
+        leaves = [a.clone().requires_grad_() for a in args]
+        fn(*leaves, dtype=f32).backward(g)
+        return [a.grad for a in leaves]
+
+    want = autograd_of(kc.fused_conv_residual_plain)
+    fn_err = {}
+    for route in ("pallas", "xla"):
+        os.environ["CALM_CONV_BWD"] = route
+        try:
+            fn_err[route] = max(norm_err(x, y) for x, y in zip(
+                autograd_of(kc.fused_conv_residual_train), want))
+        finally:
+            del os.environ["CALM_CONV_BWD"]
+        if not fn_err[route] <= BWD_FP32_LIMIT:
+            raise AssertionError(f"conv Function ({route} route) vs "
+                                 f"autograd of the plain forward: "
+                                 f"{fn_err[route]:.3e}")
+    log(f"[trainer check] conv Function vs torch autograd of the plain "
+        f"forward (S=80): worst gradient error {fn_err['pallas']:.3e} "
+        f"(pallas route), {fn_err['xla']:.3e} (xla route) of its largest "
+        f"value; checks took {time.time() - t0:.1f} s")
+
+    # 2. train through the entry point, three conv routes.
+    counters = {"conv_fwd": kc.fused_conv_residual,
+                "conv_fwd_resid": kc.conv_residual_fwd_resid,
+                "conv_bwd": kc.conv_residual_bwd,
+                "conv_wgrad_sum": kc.conv_weight_grad_sum,
+                "attention_fwd": ka.fused_rope_attention,
+                "attention_bwd": ka.fused_rope_attention_bwd}
+
+    def counts():
+        return {k: c.launches for k, c in counters.items()}
+
+    zero = dict.fromkeys(counters, 0)
+    attention = dict(zero, attention_fwd=24, attention_bwd=24)
+    routes = {
+        "chain": ({}, attention),
+        "pallas": ({"CALM_CONV_FUSED": "1"},
+                   dict(attention, conv_fwd=8, conv_bwd=8, conv_wgrad_sum=8)),
+        "xla": ({"CALM_CONV_FUSED": "1", "CALM_CONV_BWD": "xla"},
+                dict(attention, conv_fwd_resid=8)),
+    }
+    orig_make_step = trainer_mod.make_train_step
+    per_step: list[dict] = []
+    losses: list[float] = []
+
+    def recording_make_step(*a, **k):
+        step = orig_make_step(*a, **k)
+
+        def wrapped(state, batch):
+            if state.device.type != "cuda" or any(
+                    v.device.type != "cuda" for v in batch.values()):
+                raise AssertionError("the trainer's model or batch is not "
+                                     "on the card")
+            before = counts()
+            state, metrics = step(state, batch)
+            per_step.append({k_: v - before[k_] for k_, v in counts().items()})
+            losses.append(float(metrics["loss"]))
+            return state, metrics
+
+        return wrapped
+
+    class Tee(io.StringIO):
+        """Keeps what the trainer prints and passes it on."""
+
+        def __init__(self, real):
+            super().__init__()
+            self.real = real
+
+        def write(self, text):
+            self.real.write(text)
+            return super().write(text)
+
+    def run_main(argv):
+        out = Tee(sys.stdout)
+        with contextlib.redirect_stdout(out):
+            state = train_cls.main(argv)
+        torch.cuda.synchronize()
+        return state, out.getvalue()
+
+    trainer_mod.make_train_step = recording_make_step
+    results = {}
+    route_counts = {}
+    try:
+        for route, (env, want_step) in routes.items():
+            os.environ.update(env)
+            try:
+                with tempfile.TemporaryDirectory() as ckpt:
+                    argv = ["--config", "imagenet-cls-224", "global_batch_size"
+                            f"={TIME_BATCH}", "dataset_root=synthetic",
+                            f"checkpoint_dir={ckpt}", "log_every=1"]
+                    per_step.clear()
+                    losses.clear()
+                    for k_ in counters.values():
+                        k_.launches = 0
+                    torch.cuda.reset_peak_memory_stats()
+                    t0 = time.perf_counter()
+                    state, text = run_main(argv + ["--max-steps",
+                                                   str(TRAINER_STEPS)])
+                    wall = time.perf_counter() - t0
+                    peak = torch.cuda.max_memory_allocated() / 2**30
+                    run_counts = counts()
+                    p50 = float(re.search(r"p50 step: ([0-9.]+)s",
+                                          text).group(1))
+                    if len(per_step) != TRAINER_STEPS or any(
+                            c != want_step for c in per_step):
+                        raise AssertionError(f"trainer {route} route: "
+                                             f"expected {want_step} per "
+                                             f"step, got {per_step}")
+                    if not all(np.isfinite(losses)):
+                        raise AssertionError(f"trainer {route}: losses "
+                                             f"{losses}")
+                    if ckpt_mod.latest_step(ckpt) != TRAINER_STEPS:
+                        raise AssertionError(f"trainer {route}: no "
+                                             "checkpoint at the last step")
+                    first_losses = list(losses)
+                    # The checkpoint restores the state bit for bit.
+                    _, fresh = create_vit("imagenet-cls-224", seed=7,
+                                          device="cuda")
+                    other = create_train_state(fresh, make_optimizer(),
+                                               seed=0)
+                    ckpt_mod.restore_checkpoint(ckpt, other)
+                    saved = state.model.state_dict()
+                    same = all(torch.equal(v, saved[k_]) for k_, v in
+                               other.model.state_dict().items())
+                    same &= all(torch.equal(a, b) for a, b in zip(
+                        other.opt_state.mu + other.opt_state.nu,
+                        state.opt_state.mu + state.opt_state.nu))
+                    same &= (other.step, other.seed, other.opt_state.count) \
+                        == (state.step, state.seed, state.opt_state.count)
+                    if not same:
+                        raise AssertionError(f"trainer {route}: the restored"
+                                             " state differs from the saved")
+                    del fresh, other, state, saved
+                    torch.cuda.empty_cache()
+                    # A second main resumes from the checkpoint.
+                    per_step.clear()
+                    losses.clear()
+                    state, text2 = run_main(argv + ["--max-steps", "1"])
+                    if (f"resumed from step {TRAINER_STEPS}" not in text2
+                            or state.step != TRAINER_STEPS + 1
+                            or per_step != [want_step]
+                            or not np.isfinite(losses[0])):
+                        raise AssertionError(f"trainer {route}: resume "
+                                             f"failed: step {state.step}, "
+                                             f"{per_step}, {losses}")
+                    del state
+                    torch.cuda.empty_cache()
+            finally:
+                for k_ in env:
+                    del os.environ[k_]
+            route_counts[route] = run_counts
+            results[route] = {
+                "ms_per_step_p50": p50 * 1e3,
+                "images_per_s": TIME_BATCH / p50,
+                "wall_s_6_steps_with_setup": wall,
+                "peak_mem_gib": peak, "losses": first_losses,
+                "resumed_loss": losses[0]}
+            log(f"[trainer] {route} route: train_cls.main "
+                f"imagenet-cls-224 B={TIME_BATCH} bf16 remat, "
+                f"{TRAINER_STEPS} steps: p50 {p50 * 1e3:.1f} ms per step, "
+                f"{TIME_BATCH / p50:.2f} images/s; per step {per_step[0]}; "
+                f"losses {[round(x, 4) for x in first_losses]}; peak "
+                f"{peak:.3f} GiB; checkpoint restored bit for bit, resumed "
+                f"at step {TRAINER_STEPS} (loss {losses[0]:.4f}); on {name} "
+                f"({smi})")
+    finally:
+        trainer_mod.make_train_step = orig_make_step
+    log(f"[trainer] bare make_train_step (phase 5, same call): "
+        f"{bare['ms_per_step']:.1f} ms per step, {bare['images_per_s']:.2f} "
+        f"images/s; through the trainer (chain route, same conv): "
+        f"{results['chain']['ms_per_step_p50']:.1f} ms, "
+        f"{results['chain']['images_per_s']:.2f} images/s")
+
+    # 3. time both kernels at every conv S, B=128 bf16, and the ablation.
+    rows = {"fwd_resid": [], "bwd": []}
+    for s in sorted(conv_sizes, reverse=True):
+        args = conv_inputs(torch, TIME_BATCH, s, dev, bf16, seed=1200 + s)
+        g = torch.from_numpy((np.random.default_rng(s).standard_normal(
+            (TIME_BATCH, s, s, 3)) * 0.5).astype(np.float32)).to(dev, bf16)
+        w = args[1:6]
+        calls = {
+            "fwd_resid": (lambda: kc.conv_residual_fwd_resid(*args,
+                                                             dtype=bf16),
+                          lambda: kc.conv_residual_fwd_resid_plain(
+                              *args, dtype=bf16), conv_resid_bound),
+            "bwd": (lambda: kc.conv_residual_bwd(args[0], g, *w, dtype=bf16),
+                    lambda: kc.conv_residual_bwd_plain(args[0], g, *w,
+                                                       dtype=bf16),
+                    conv_bwd_bound)}
+        for key, (kern, plain, bound) in calls.items():
+            ms = cuda_ms(torch, kern, 10)
+            plain_ms = cuda_ms(torch, plain, 2, warmup=1)
+            t_bytes, t_ops = bound(TIME_BATCH, s, 2)
+            row = dict(S=s, launches=conv_sizes[s], ms=ms, plain_ms=plain_ms,
+                       bound_ms=max(t_bytes, t_ops),
+                       bound_by="bytes" if t_bytes >= t_ops else "operations",
+                       fp32_err=per_s[s][key], bf16_err_over_plain=per_s[s][
+                           "bf16_ratio"])
+            rows[key].append(row)
+            log(f"[trainer time] {key} S={s}: kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                f"({row['bound_by']}), {row['bound_ms'] / ms:.2%} of bound")
+        del args, g, w, calls
+        torch.cuda.empty_cache()
+    abl.ablated_bwd.launches = 0
+    ab_args = abl.inputs(TIME_BATCH, 224, dev)
+    ab_rows = abl.run(ab_args, reps=10)
+    ab_launches = abl.ablated_bwd.launches
+    full = next(r for r in ab_rows if r["variant"] == "FULL")
+    for r in ab_rows:
+        log(f"[trainer ablation] {r['variant']:<12} {r['ms']:8.4f} ms per "
+            f"backward (B={TIME_BATCH}, S=224, bf16)")
+    ab_plain = cuda_ms(torch, lambda: kc.conv_residual_bwd_plain(
+        ab_args[0], ab_args[1], *ab_args[2:], dtype=bf16), 2, warmup=1)
+    ab_bytes, ab_ops = conv_bwd_bound(TIME_BATCH, 224, 2)
+    del ab_args
+
+    def summary(kname, source, replaces, r, by_path):
+        t_bytes = sum(x["launches"] * x["bound_ms"] for x in r
+                      if x["bound_by"] == "bytes")
+        t_ops = sum(x["launches"] * x["bound_ms"] for x in r
+                    if x["bound_by"] == "operations")
+        return {"name": kname, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": sum(by_path.values()),
+                "max_abs_err": max(x["fp32_err"] for x in r),
+                "ms": sum(x["launches"] * x["ms"] for x in r),
+                "plain_ms": sum(x["launches"] * x["plain_ms"] for x in r),
+                "bound_ms": t_bytes + t_ops,
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": None, "launches_by_path": by_path,
+                "per_shape": r}
+
+    steps = f"trainer_{TRAINER_STEPS}_steps"
+    kernels = [
+        summary("conv_residual_fwd_resid", kc.SOURCE, kc.REPLACES_FWD_RESID,
+                rows["fwd_resid"],
+                {f"{steps}_xla_route": route_counts["xla"]["conv_fwd_resid"]}),
+        summary("conv_residual_bwd", kc.BWD_SOURCE, kc.REPLACES_BWD,
+                rows["bwd"],
+                {f"{steps}_pallas_route": route_counts["pallas"]["conv_bwd"]}),
+        {"name": "conv_residual_bwd_ablation", "route": "cuda",
+         "source": "calm_vit_dte_tpu_torch/tools/ablate_conv_bwd.py + "
+                   + kc.BWD_SOURCE,
+         "replaces": "scripts/ablate_conv_bwd.py:119",
+         "launches": ab_launches, "max_abs_err": 0.0, "ms": full["ms"],
+         "plain_ms": ab_plain, "bound_ms": max(ab_bytes, ab_ops),
+         "bound_by": "bytes" if ab_bytes >= ab_ops else "operations",
+         "library_ms": None,
+         "launches_by_path": {"ablate_conv_bwd.run": ab_launches},
+         "variants": ab_rows},
+    ]
+    log(f"[trainer] phase 9 took {time.time() - t_phase:.1f} s")
+    log("[trainer time] conv training kernels' ms, plain_ms and bound_ms are "
+        f"per training step (8 launches) at B={TIME_BATCH} bf16; the "
+        "backward includes its ordered weight-grad sum; the ablation row is "
+        "one FULL backward at S=224 (max_abs_err: FULL vs the production "
+        "kernel, bit-identical)")
+    metrics = {"routes": results, "bare_make_train_step": bare,
+               "function_err": fn_err,
+               "conv_fwd_launches_pallas_route":
+               route_counts["pallas"]["conv_fwd"]}
+    return kernels, metrics
+
+
 def main() -> int:
     if not (ROOT / "calm_vit_dte_tpu_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository "
@@ -884,8 +1304,8 @@ def main() -> int:
     # 2. build
     t0 = time.time()
     logs = _build.build(["axial_attention", "axial_attention_bwd",
-                         "conv_residual", "hires_attention",
-                         "hires_attention_bwd"])
+                         "conv_residual", "conv_residual_bwd",
+                         "hires_attention", "hires_attention_bwd"])
     log(f"[build] {len(logs)} sources built in {time.time() - t0:.1f} s "
         f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
     for src, text in logs.items():
@@ -1375,6 +1795,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     hires_kernels, hires = hires_phases(torch, name, smi)
 
+    # 9. the trainer entry point, with the fused conv residual in training.
+    trainer_kernels, trainer = trainer_phase(
+        torch, name, smi, {"ms_per_step": steady_ms,
+                           "images_per_s": train_img_s})
+
     def summary(kname, source, replaces, rows, launches):
         t_bytes = sum(r["launches"] * r["bound_ms"] for r in rows
                       if r["bound_by"] == "bytes")
@@ -1415,7 +1840,11 @@ def main() -> int:
         "classify": main_launches["conv"],
         f"train_{TRAIN_STEPS}_steps": train_launches["conv"],
         "eval_step": eval_launches["conv"]}
-    kernels += hires_kernels
+    kernels[2]["launches_by_path"][
+        f"trainer_{TRAINER_STEPS}_steps_pallas_route"] = \
+        trainer["conv_fwd_launches_pallas_route"]
+    kernels[2]["launches"] += trainer["conv_fwd_launches_pallas_route"]
+    kernels += hires_kernels + trainer_kernels
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} was not launched on the main "
@@ -1437,7 +1866,7 @@ def main() -> int:
                               "images_per_s": train_img_s,
                               "peak_mem_gib": train_peak_gib,
                               "losses": train_losses, "trace": train_trace},
-                    "hires-cls-1024": hires}))
+                    "hires-cls-1024": hires, "trainer": trainer}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -230,6 +230,119 @@ def test_conv_residual_kernel_matches_plain(cuda_device, s):
     torch.testing.assert_close(out, ref, rtol=2e-4, atol=2e-5)
 
 
+def _conv_args(rng, device, b, s, dtype=torch.float32):
+    """x (B,S,S,3) in `dtype`, the fp32 weights, and an output gradient in
+    `dtype`."""
+    return ([_normal(rng, device, b, s, s, 3).to(dtype),
+             _normal(rng, device, 32, 3, scale=0.3),
+             _normal(rng, device, 32, scale=0.1),
+             _normal(rng, device, 3, 3, 32, scale=0.3),
+             _normal(rng, device, 32, scale=0.1),
+             _normal(rng, device, 3, 32, scale=0.2),
+             _normal(rng, device, 3, scale=0.1)],
+            _normal(rng, device, b, s, s, 3, scale=0.5).to(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [80, 224])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_fwd_resid_kernel_matches_plain(cuda_device, s, dtype):
+    """y, h and acc: fp32 at rtol 2e-4 / atol 2e-5; bf16 each within twice
+    the plain bf16 version's error against the fp32 plain version."""
+    args, _ = _conv_args(np.random.default_rng(s + 1), cuda_device, 2, s,
+                         dtype)
+    n0 = kc.conv_residual_fwd_resid.launches
+    got = kc.conv_residual_fwd_resid(*args, dtype=dtype)
+    torch.cuda.synchronize()
+    assert kc.conv_residual_fwd_resid.launches == n0 + 1
+    plain = kc.conv_residual_fwd_resid_plain(*args, dtype=dtype)
+    if dtype == torch.float32:
+        for x, y in zip(got, plain):
+            torch.testing.assert_close(x, y, rtol=2e-4, atol=2e-5)
+        return
+    ref = kc.conv_residual_fwd_resid_plain(args[0].float(), *args[1:],
+                                           dtype=torch.float32)
+    for name, x, y, r in zip(("y", "h", "acc"), got, plain, ref):
+        assert x.dtype == y.dtype == dtype, name
+        assert (x.float() - r).abs().max() <= 2 * (
+            y.float() - r).abs().max(), name
+
+
+def _conv_bwd_outputs(dx, wg):
+    """dx and each of the 24 packed weight-grad columns."""
+    return [("dx", dx)] + [(f"wg[:, {j}]", wg[:, j]) for j in range(24)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [80, 224])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_bwd_kernel_matches_plain(cuda_device, s, dtype):
+    """fp32: dx and every weight-grad column within 1e-4 of its largest
+    value; bf16: within twice the plain bf16 version's error against the
+    fp32 plain version. Each call launches the kernel and the ordered
+    weight-grad sum once."""
+    args, g = _conv_args(np.random.default_rng(s + 2), cuda_device, 2, s,
+                         dtype)
+    w = args[1:6]
+    n0 = kc.conv_residual_bwd.launches
+    n1 = kc.conv_weight_grad_sum.launches
+    got = kc.conv_residual_bwd(args[0], g, *w, dtype=dtype)
+    torch.cuda.synchronize()
+    assert kc.conv_residual_bwd.launches == n0 + 1
+    assert kc.conv_weight_grad_sum.launches == n1 + 1
+    plain = kc.conv_residual_bwd_plain(args[0], g, *w, dtype=dtype)
+    assert got[0].dtype == dtype and got[1].dtype == torch.float32
+    if dtype == torch.float32:
+        for (name, x), (_, y) in zip(_conv_bwd_outputs(*got),
+                                     _conv_bwd_outputs(*plain)):
+            assert _norm_err(x, y) <= 1e-4, name
+        return
+    ref = kc.conv_residual_bwd_plain(args[0].float(), g.float(), *w,
+                                     dtype=torch.float32)
+    for (name, x), (_, y), (_, r) in zip(_conv_bwd_outputs(*got),
+                                         _conv_bwd_outputs(*plain),
+                                         _conv_bwd_outputs(*ref)):
+        assert _norm_err(x, r) <= 2 * _norm_err(y, r) + 1e-6, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_bwd_kernel_deterministic(cuda_device, dtype):
+    """No atomics: two launches give the same bits."""
+    args, g = _conv_args(np.random.default_rng(9), cuda_device, 4, 176,
+                         dtype)
+    one = kc.conv_residual_bwd(args[0], g, *args[1:6], dtype=dtype)
+    two = kc.conv_residual_bwd(args[0], g, *args[1:6], dtype=dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(one[0], two[0]) and torch.equal(one[1], two[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["pallas", "xla"])
+def test_conv_function_matches_autograd(cuda_device, route, monkeypatch):
+    """`fused_conv_residual_train` on both backward routes against torch
+    autograd of the plain forward, all seven gradients, fp32; each route
+    launches its own kernels and no other."""
+    monkeypatch.setenv("CALM_CONV_BWD", route)
+    args, g = _conv_args(np.random.default_rng(11), cuda_device, 2, 80)
+
+    def grads(fn):
+        leaves = [a.clone().requires_grad_() for a in args]
+        fn(*leaves, dtype=torch.float32).backward(g)
+        return [a.grad for a in leaves]
+
+    counters = (kc.fused_conv_residual, kc.conv_residual_fwd_resid,
+                kc.conv_residual_bwd)
+    before = [c.launches for c in counters]
+    got = grads(kc.fused_conv_residual_train)
+    torch.cuda.synchronize()
+    launched = [c.launches - n for c, n in zip(counters, before)]
+    assert launched == ([1, 0, 1] if route == "pallas" else [0, 1, 0])
+    want = grads(kc.fused_conv_residual_plain)
+    for name, x, y in zip("x w1 b1 wd bd w2 b2".split(), got, want):
+        assert _norm_err(x, y) <= 1e-4, name
+
+
 # ---------------------------------------------------------------------------
 # The long-sequence kernels (kernels/hires_attention.py) at two hires-cls-1024
 # shapes (S, D = Dv): the smallest stage and the widest.
@@ -364,3 +477,27 @@ def test_hires_function_matches_autograd(cuda_device):
     want = grads(lambda *a, **k: ka.attention_core(*a, use_mask=True, **k))
     for name, x, y in zip("q k v w1 b1 w2 b2".split(), got, want):
         assert _norm_err(x, y) <= 1e-4, name
+
+
+@pytest.mark.gpu
+def test_train_cls_main_on_the_card_with_fused_conv(cuda_device, tmp_path,
+                                                   monkeypatch):
+    """The trainer CLI on the card, tiny-cls, CALM_CONV_FUSED=1: two steps,
+    8 forward and 8 backward conv launches each (one per Block), a
+    checkpoint, finite loss."""
+    from calm_vit_dte_tpu_torch.train import train_cls
+
+    monkeypatch.setenv("CALM_CONV_FUSED", "1")
+    monkeypatch.delenv("CALM_CONV_BWD", raising=False)
+    counters = (kc.fused_conv_residual, kc.conv_residual_bwd,
+                kc.conv_weight_grad_sum, kc.conv_residual_fwd_resid)
+    before = [c.launches for c in counters]
+    state = train_cls.main(["--config", "tiny-cls", "--max-steps", "2",
+                            f"checkpoint_dir={tmp_path}", "epochs=1",
+                            "dataset_root=synthetic", "num_workers=2"])
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counters, before)] == [16, 16,
+                                                                  16, 0]
+    assert state.step == 2 and state.device.type == "cuda"
+    assert (tmp_path / "step_2.pt").exists()
+    assert all(torch.isfinite(p).all() for p in state.model.parameters())

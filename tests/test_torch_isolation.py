@@ -35,8 +35,12 @@ def test_port_imports_no_jax():
     assert "calm_vit_dte_tpu_torch.serve" in report["imported"]
     assert "calm_vit_dte_tpu_torch.kernels.axial_attention" in \
         report["imported"]
-    for name in ("step", "state", "optim", "losses"):
-        assert f"calm_vit_dte_tpu_torch.train.{name}" in report["imported"]
+    for name in ("train.step", "train.state", "train.optim", "train.losses",
+                 "train.checkpoint", "train.samples", "train.trainer",
+                 "train.train_cls", "train.train_reg", "data.sampler",
+                 "data.loader", "data.augment", "data.mixup",
+                 "data.pipeline", "utils.logging", "tools.ablate_conv_bwd"):
+        assert f"calm_vit_dte_tpu_torch.{name}" in report["imported"]
     leaked = [m for m in report["modules"]
               if m.split(".")[0].startswith("jax")
               or m == "calm_vit_dte_tpu"
