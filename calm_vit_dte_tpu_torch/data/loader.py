@@ -52,8 +52,8 @@ class ImageFolderDataset:
         return len(self.classes)
 
     def load(self, idx: int) -> tuple[np.ndarray, int]:
-        # Pillow is imported here, not with the module: the card's machine
-        # has none, and only a run over real images needs it.
+        # Pillow is imported here, not with the module: only a run over
+        # real images needs it.
         from PIL import Image
 
         path, label = self.samples[idx]

@@ -86,7 +86,21 @@ Phases, each fatal on failure (any exception exits non-zero):
              checkpoint restored bit for bit and a second main resuming
              from it; p50 ms per step beside phase 5's bare step; each new
              kernel and its plain version timed at B=128 bf16 at every conv
-             S, and the ablation's seven variants at S=224.
+             S, and the ablation's seven variants at S=224;
+ 10. serving the (s,h,d)->(h,s,d) relayout kernel (kernels/relayout.py)
+             bit-identical to the transpose at every flagship head split
+             (128, S, 12, D), (S, D) in (224, 56), (176, 44), (128, 32),
+             (80, 20), fp32 and bf16, with its device time (CUDA-graph
+             replay) beside the transpose's and its bytes bound; the layout
+             canaries (tools/canary_probes.run_canaries, the relayout's main
+             path); then phase 9's step-6 checkpoint: Predictor.
+             from_checkpoint, save and load (classify bit-identical), top-1
+             by train/evaluate.py on 256 planted 256x256 PNGs labelled with
+             the checkpoint's own top-1 (>= 0.99; offset by one <= 0.01),
+             int8 and int8-wo (relative logit error < 0.15, top-1 agreement
+             >= 0.75 against bf16, tests/test_quantize.py's limits), every
+             forward exactly 24 attention + 8 conv launches; classify
+             images/s and peak memory at B=128 in bf16, int8 and int8-wo.
 
 Every fp32 comparison runs with torch.backends.cuda.matmul.allow_tf32 and
 torch.backends.cudnn.allow_tf32 both False, so the plain versions' products
@@ -98,7 +112,8 @@ limit, then one JSON line {"kernels": [...]}, and last
 fused functions (scaled_dot_product_attention has no head-coupled learned
 mask and returns no mask, residual or table gradients; no convolution call
 returns the conv residual's middle activations or its packed weight grads),
-so each kernel's library_ms is null.
+so their library_ms is null; the relayout's is the transpose's time
+(x.transpose(1, 2).contiguous(), also its plain version).
 """
 
 from __future__ import annotations
@@ -935,14 +950,16 @@ def check_conv_training_kernels(torch, kc, abl, s, seed):
     return worst
 
 
-def trainer_phase(torch, name, smi, bare):
+def trainer_phase(torch, name, smi, bare, keep_ckpt):
     """Phase 9: the classification trainer entry point on imagenet-cls-224
     with the fused conv residual in training. `bare` is phase 5's
-    make_train_step measurement (same call). Returns (kernel summaries,
-    metrics)."""
+    make_train_step measurement (same call). The chain route's step-6
+    checkpoint is copied into the directory `keep_ckpt` for phase 10.
+    Returns (kernel summaries, metrics)."""
     import contextlib
     import io
     import os
+    import shutil
     import tempfile
 
     from calm_vit_dte_tpu_torch.kernels import axial_attention as ka
@@ -1093,6 +1110,9 @@ def trainer_phase(torch, name, smi, bare):
                     if ckpt_mod.latest_step(ckpt) != TRAINER_STEPS:
                         raise AssertionError(f"trainer {route}: no "
                                              "checkpoint at the last step")
+                    if route == "chain":
+                        shutil.copy(os.path.join(
+                            ckpt, f"step_{TRAINER_STEPS}.pt"), keep_ckpt)
                     first_losses = list(losses)
                     # The checkpoint restores the state bit for bit.
                     _, fresh = create_vit("imagenet-cls-224", seed=7,
@@ -1243,6 +1263,263 @@ def trainer_phase(torch, name, smi, bare):
     return kernels, metrics
 
 
+RELAYOUT_SHAPES = ((224, 56), (176, 44), (128, 32), (80, 20))
+SERVE_IMAGES = 256
+QUANT_REL_LIMIT = 0.15       # tests/test_quantize.py:157-162
+QUANT_AGREE_LIMIT = 0.75
+
+
+def relayout_bound(b, s, d, itemsize):
+    """A copy: each element read once and written once, no operations."""
+    return 2 * b * s * H * d * itemsize / PEAK_BYTES * 1e3
+
+
+def serving_phase(torch, name, smi, ckpt):
+    """Phase 10: the relayout kernel, the layout canaries, and what a user
+    runs after training: serve phase 9's step-6 checkpoint (`ckpt`), save
+    and load it as a serving artifact, evaluate its top-1 on a planted val
+    split, and serve and evaluate it in int8. Returns (the relayout kernel's
+    summary, forward launches by path, metrics)."""
+    import contextlib
+    import io
+    import tempfile
+
+    from PIL import Image
+
+    from calm_vit_dte_tpu_torch.data.loader import ImageFolderDataset
+    from calm_vit_dte_tpu_torch.kernels import axial_attention as ka
+    from calm_vit_dte_tpu_torch.kernels import conv_residual as kc
+    from calm_vit_dte_tpu_torch.kernels import relayout as kr
+    from calm_vit_dte_tpu_torch.serve import Predictor
+    from calm_vit_dte_tpu_torch.tools import canary_probes as canary
+    from calm_vit_dte_tpu_torch.train import evaluate as ev
+    from calm_vit_dte_tpu_torch.utils.configs import get_config
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    dev = torch.device("cuda")
+    t_phase = t = time.time()
+    laps = {}
+
+    def lap(key, t0):
+        laps[key] = time.time() - t0
+        return time.time()
+
+    # 1. the relayout kernel against its plain version: bit-identical at
+    # every flagship head split in both dtypes; device times (CUDA-graph
+    # replay, CUDA events) of the kernel and of the transpose, which is
+    # also the one PyTorch call computing the function.
+    rows = []
+    for i, (s, d) in enumerate(RELAYOUT_SHAPES):
+        x32 = torch.from_numpy(np.random.default_rng(1300 + i).standard_normal(
+            (TIME_BATCH, s, H, d)).astype(np.float32)).to(dev)
+        for dtype in (f32, bf16):
+            x = x32.to(dtype)
+            y = kr.swap_seq_heads(x)
+            torch.cuda.synchronize()
+            if not torch.equal(y, kr.swap_seq_heads_plain(x)):
+                raise AssertionError(f"relayout S={s} D={d} {dtype}: not "
+                                     "bit-identical to the transpose")
+        x = x32.to(bf16)
+        ms = canary.graph_ms(lambda: kr.swap_seq_heads(x))
+        plain = canary.graph_ms(lambda: kr.swap_seq_heads_plain(x))
+        row = dict(S=s, D=d, launches=int((s, d) == RELAYOUT_SHAPES[0]),
+                   ms=ms, plain_ms=plain, library_ms=plain,
+                   bound_ms=relayout_bound(TIME_BATCH, s, d, 2),
+                   bound_by="bytes", fp32_err=0.0, bf16_err=0.0)
+        rows.append(row)
+        log(f"[relayout] (B,S,H,D)=({TIME_BATCH},{s},{H},{d}): bit-identical"
+            f" to the transpose in fp32 and bf16; bf16 device time kernel "
+            f"{ms * 1e3:.2f} us, transpose {plain * 1e3:.2f} us, bound "
+            f"{row['bound_ms'] * 1e3:.2f} us (bytes), "
+            f"{row['bound_ms'] / ms:.1%} of bound")
+        del x32, x, y
+    try:
+        kr.swap_seq_heads(torch.zeros(2, 8, H, 20, device=dev).transpose(1, 2))
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("relayout: a non-contiguous input did not raise")
+    t = lap("relayout", t)
+
+    # 2. the canaries: the relayout kernel's main path.
+    kr.swap_seq_heads.launches = 0
+    canaries, flips = canary.run_canaries()
+    relayout_launches = kr.swap_seq_heads.launches
+    log(f"[canary] {json.dumps(canaries)}")
+    for flip, todo in flips:
+        log(f"[canary] OPPORTUNITY [{flip}]: {todo}")
+    if relayout_launches < 1:
+        raise AssertionError("run_canaries launched no relayout kernel")
+    t = lap("canaries", t)
+
+    # 3. serve the checkpoint; save and load it as a serving artifact.
+    counters = {"attention": ka.fused_rope_attention,
+                "conv": kc.fused_conv_residual}
+    launches = dict.fromkeys(counters, 0)
+
+    def counted(fn, forwards):
+        """Run fn with the counters at 0; exactly 24 attention and 8 conv
+        launches per forward."""
+        for c in counters.values():
+            c.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: c.launches for k, c in counters.items()}
+        want = {"attention": 24 * forwards, "conv": 8 * forwards}
+        if got != want:
+            raise AssertionError(f"{forwards} forwards: expected {want} "
+                                 f"launches, got {got}")
+        for k in launches:
+            launches[k] += got[k]
+        return out
+
+    rng = np.random.default_rng(10)
+    images = rng.integers(0, 256, (SERVE_IMAGES, 256, 256, 3), dtype=np.uint8)
+    halves = (slice(0, TIME_BATCH), slice(TIME_BATCH, SERVE_IMAGES))
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+
+    def logits_of(p):
+        return torch.cat([counted(lambda: p.predict(images[h])[0], 1)
+                          for h in halves]).float()
+
+    t = time.time()
+    pred = Predictor.from_checkpoint(ckpt, "imagenet-cls-224", device="cuda")
+    before = counted(lambda: pred.classify(images[halves[0]]), 1)
+    pred.save(str(root / "artifact"))
+    loaded = Predictor.load(str(root / "artifact"), config="imagenet-cls-224",
+                            device="cuda")
+    after = counted(lambda: loaded.classify(images[halves[0]]), 1)
+    l_before = counted(lambda: pred.predict(images[halves[0]])[0], 1)
+    l_after = counted(lambda: loaded.predict(images[halves[0]])[0], 1)
+    if not (all(np.array_equal(a, b) for a, b in zip(before, after))
+            and torch.equal(l_before, l_after)):
+        raise AssertionError("serve -> save -> load is not bit-identical")
+    del loaded, l_before, l_after
+    log(f"[serving] Predictor.from_checkpoint(step {TRAINER_STEPS}) -> "
+        f"save -> load: classify and logits bit-identical on "
+        f"{TIME_BATCH} images (artifact "
+        f"{(root / 'artifact' / 'weights.pt').stat().st_size / 2**20:.1f} "
+        "MiB)")
+    t = lap("serve_save_load", t)
+
+    # 4. classify rate and peak memory at B=128 per mode, each predictor
+    # alone on the card; the logits of all images, against bf16's.
+    rates, quant, logits = {}, {}, {}
+    for q in (None, "int8", "int8-wo"):
+        key = q or "bfloat16"
+        if q is None:
+            p, pred = pred, None
+        else:
+            p = Predictor.from_checkpoint(ckpt, "imagenet-cls-224",
+                                          quantize=q, device="cuda")
+        batch = images[halves[0]]
+        counted(lambda: p.classify(batch), 1)   # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reps = 5
+        t0 = time.perf_counter()
+        counted(lambda: [p.classify(batch) for _ in range(reps)], reps)
+        elapsed = time.perf_counter() - t0
+        rates[key] = {"images_per_s": reps * TIME_BATCH / elapsed,
+                      "peak_mem_gib": torch.cuda.max_memory_allocated()
+                      / 2**30}
+        logits[key] = logits_of(p)
+        del p
+        torch.cuda.empty_cache()
+        log(f"[int8] classify {key} B={TIME_BATCH}: "
+            f"{rates[key]['images_per_s']:.2f} images/s, peak memory "
+            f"{rates[key]['peak_mem_gib']:.3f} GiB, on {name} ({smi})")
+    base = logits["bfloat16"]
+    t = lap("classify_rates", t)
+
+    # 5. a planted val split: every class directory, labels = the
+    # checkpoint's own bf16 top-1 on the images as the loader decodes them.
+    split = root / "data" / "val"
+    for c in range(1000):
+        (split / f"c{c:04d}").mkdir(parents=True)
+
+    def plant(labels_of):
+        for f in split.glob("*/*.png"):
+            f.unlink()
+        for i, img in enumerate(images):
+            Image.fromarray(img).save(
+                split / f"c{labels_of[i]:04d}" / f"{i:03d}.png",
+                compress_level=1)
+
+    plant(np.zeros(SERVE_IMAGES, int))
+    data = ImageFolderDataset(str(root / "data"), "val")
+    decoded = np.stack([data.load(i)[0] for i in range(SERVE_IMAGES)])
+    if not np.array_equal(decoded, images):
+        raise AssertionError("the loader's decode differs from the images")
+    labels = base.argmax(-1).cpu().numpy()
+    cfg = get_config("imagenet-cls-224", dataset_root=str(root / "data"),
+                     checkpoint_dir=ckpt, global_batch_size=TIME_BATCH)
+
+    def run_eval(quantize=None):
+        out = io.StringIO()
+        stats = {}
+        with contextlib.redirect_stdout(out):
+            acc = counted(lambda: ev.evaluate(cfg, quantize=quantize,
+                                              stats_out=stats),
+                          SERVE_IMAGES // TIME_BATCH)
+        text = out.getvalue()
+        if f"evaluating checkpoint at step {TRAINER_STEPS}" not in text \
+                or f"over {SERVE_IMAGES} images" not in text:
+            raise AssertionError(f"evaluate printed {text!r}")
+        return acc, stats
+
+    evals = {}
+    plant((labels + 1) % 1000)
+    acc_off, _ = run_eval()
+    plant(labels)
+    acc, evals["bfloat16"] = run_eval()
+    log(f"[evaluate] checkpoint at step {TRAINER_STEPS}, {SERVE_IMAGES} "
+        f"planted images, batch {TIME_BATCH}: top-1 {acc:.4f} with its own "
+        f"labels (limit >= 0.99), {acc_off:.4f} with labels offset by one "
+        f"(limit <= 0.01); {int(round(acc * SERVE_IMAGES))} of "
+        f"{SERVE_IMAGES} counted correct")
+    if not (acc >= 0.99 and acc_off <= 0.01):
+        raise AssertionError(f"planted top-1 {acc}, offset {acc_off}")
+    t = lap("evaluate_bf16", t)
+
+    # 6. int8: evaluate (top-1 on the bf16 labels = agreement with bf16)
+    # and the relative logit error against bf16.
+    for q in ("int8", "int8-wo"):
+        agree, evals[q] = run_eval(q)
+        rel = float(torch.linalg.norm(logits[q] - base)
+                    / torch.linalg.norm(base))
+        quant[q] = {"relative_logit_error": rel, "top1_agreement": agree}
+        log(f"[int8] {q}: relative logit error vs bf16 {rel:.4f} (limit "
+            f"< {QUANT_REL_LIMIT}), top-1 agreement {agree:.4f} (limit >= "
+            f"{QUANT_AGREE_LIMIT})")
+        if not (rel < QUANT_REL_LIMIT and agree >= QUANT_AGREE_LIMIT):
+            raise AssertionError(f"{q}: {quant[q]}")
+    for key, stats in evals.items():
+        log(f"[evaluate] stats_out {key}: {stats}")
+    lap("evaluate_int8", t)
+    tmp.cleanup()
+    log(f"[serving] phase 10 took {time.time() - t_phase:.1f} s; seconds by "
+        f"part: { {k: round(v, 1) for k, v in laps.items()} }")
+
+    main_row = rows[0]
+    kernel = {
+        "name": "swap_seq_heads", "route": "cuda", "source": kr.SOURCE,
+        "replaces": kr.REPLACES, "also_replaces": kr.REPLACES_MODULE_PROBE,
+        "launches": relayout_launches, "max_abs_err": 0.0,
+        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+        "bound_ms": main_row["bound_ms"], "bound_by": "bytes",
+        "library_ms": main_row["library_ms"],
+        "launches_by_path": {"run_canaries": relayout_launches},
+        "per_shape": rows}
+    metrics = {"canaries": canaries, "flips": [f for f, _ in flips],
+               "seconds_by_part": laps,
+               "top1_planted": acc, "top1_offset": acc_off,
+               "evaluate_stats": evals, "int8": quant, "classify": rates,
+               "forward_launches": launches}
+    return kernel, launches, metrics
+
+
 def main() -> int:
     if not (ROOT / "calm_vit_dte_tpu_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository "
@@ -1305,7 +1582,8 @@ def main() -> int:
     t0 = time.time()
     logs = _build.build(["axial_attention", "axial_attention_bwd",
                          "conv_residual", "conv_residual_bwd",
-                         "hires_attention", "hires_attention_bwd"])
+                         "hires_attention", "hires_attention_bwd",
+                         "relayout"])
     log(f"[build] {len(logs)} sources built in {time.time() - t0:.1f} s "
         f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
     for src, text in logs.items():
@@ -1795,10 +2073,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     hires_kernels, hires = hires_phases(torch, name, smi)
 
-    # 9. the trainer entry point, with the fused conv residual in training.
-    trainer_kernels, trainer = trainer_phase(
-        torch, name, smi, {"ms_per_step": steady_ms,
-                           "images_per_s": train_img_s})
+    # 9. the trainer entry point, with the fused conv residual in training;
+    # 10. the relayout kernel, the canaries, and serving and evaluating
+    # phase 9's checkpoint, in bf16 and int8.
+    import shutil
+    import tempfile
+
+    keep_ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        trainer_kernels, trainer = trainer_phase(
+            torch, name, smi, {"ms_per_step": steady_ms,
+                               "images_per_s": train_img_s}, keep_ckpt)
+        relayout_kernel, serve_launches, serving = serving_phase(
+            torch, name, smi, keep_ckpt)
+    finally:
+        shutil.rmtree(keep_ckpt, ignore_errors=True)
 
     def summary(kname, source, replaces, rows, launches):
         t_bytes = sum(r["launches"] * r["bound_ms"] for r in rows
@@ -1844,7 +2133,11 @@ def main() -> int:
         f"trainer_{TRAINER_STEPS}_steps_pallas_route"] = \
         trainer["conv_fwd_launches_pallas_route"]
     kernels[2]["launches"] += trainer["conv_fwd_launches_pallas_route"]
-    kernels += hires_kernels + trainer_kernels
+    for k, key in ((kernels[0], "attention"), (kernels[2], "conv")):
+        k["launches_by_path"]["serve_evaluate_int8_phase10"] = \
+            serve_launches[key]
+        k["launches"] += serve_launches[key]
+    kernels += hires_kernels + trainer_kernels + [relayout_kernel]
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} was not launched on the main "
@@ -1866,7 +2159,8 @@ def main() -> int:
                               "images_per_s": train_img_s,
                               "peak_mem_gib": train_peak_gib,
                               "losses": train_losses, "trace": train_trace},
-                    "hires-cls-1024": hires, "trainer": trainer}))
+                    "hires-cls-1024": hires, "trainer": trainer,
+                    "serving": serving}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -501,3 +501,77 @@ def test_train_cls_main_on_the_card_with_fused_conv(cuda_device, tmp_path,
     assert state.step == 2 and state.device.type == "cuda"
     assert (tmp_path / "step_2.pt").exists()
     assert all(torch.isfinite(p).all() for p in state.model.parameters())
+
+
+RELAYOUT_SHAPES = [(224, 56), (176, 44), (128, 32), (80, 20)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,d", RELAYOUT_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_relayout_kernel_bit_identical(cuda_device, s, d, dtype):
+    """The (s, h, d) -> (h, s, d) relayout at each flagship head split, B=128:
+    a copy, so bit-identical to the transpose."""
+    from calm_vit_dte_tpu_torch.kernels import relayout as kr
+
+    x = _normal(np.random.default_rng(s), cuda_device, 128, s, H, d).to(dtype)
+    n0 = kr.swap_seq_heads.launches
+    y = kr.swap_seq_heads(x)
+    torch.cuda.synchronize()
+    assert kr.swap_seq_heads.launches == n0 + 1
+    assert y.shape == (128, H, s, d) and y.is_contiguous()
+    assert torch.equal(y, kr.swap_seq_heads_plain(x))
+
+
+@pytest.mark.gpu
+def test_relayout_kernel_rejects_what_it_does_not_take(cuda_device):
+    from calm_vit_dte_tpu_torch.kernels import relayout as kr
+
+    x = torch.zeros(2, 8, H, 20, device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        kr.swap_seq_heads(x.transpose(1, 2))
+    with pytest.raises(ValueError, match="contiguous"):
+        kr.swap_seq_heads(x.half())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quantize", ["int8", "int8-wo"])
+def test_quantized_tiny_predictor_card_vs_cpu(cuda_device, quantize):
+    """The int8 tiny-cls Predictor, fp32, on the card against the same
+    weights on the CPU (2 images). Weight-only (int8-wo): exact int8 weights
+    and fp32 products on both, so the fp32 full-model limit of
+    tests/test_parity_full224.py applies. w8a8 (int8): the int32 products
+    are exact on both, but an activation within a last bit of a rounding
+    boundary lands on different int8 values on the two devices, a whole
+    quantization step, so the JAX package's limits for a quantized forward
+    apply (tests/test_quantize.py:157-162: relative error < 0.15, top-1
+    agreement)."""
+    import copy
+
+    from calm_vit_dte_tpu_torch.quantize import int8_matmul
+    from calm_vit_dte_tpu_torch.serve import Predictor
+
+    p = Predictor.fresh("tiny-cls", device=cuda_device, dtype=torch.float32)
+    cpu_model = copy.deepcopy(p.model).cpu()
+    p_gpu = Predictor(p.model, crop=p.crop, dtype=torch.float32,
+                      quantize=quantize)
+    p_cpu = Predictor(cpu_model, crop=p.crop, dtype=torch.float32,
+                      quantize=quantize)
+    assert torch.equal(p_gpu.model.head["0"].w_q.cpu(),
+                       cpu_model.head["0"].w_q)
+    images = np.random.default_rng(0).integers(0, 256, (2, 56, 56, 3),
+                                               dtype=np.uint8)
+    got, _ = p_gpu.predict(images)
+    want, _ = p_cpu.predict(images)
+    got = got.cpu()
+    if quantize == "int8-wo":
+        torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-4)
+    else:
+        assert torch.linalg.norm(got - want) < 0.15 * torch.linalg.norm(want)
+        assert torch.equal(got.argmax(-1), want.argmax(-1))
+    # The int8 product itself: card (torch._int_mm, padded) == CPU, exactly.
+    rng = np.random.default_rng(1)
+    a = torch.from_numpy(rng.integers(-127, 128, (5, 44), dtype=np.int8))
+    w = torch.from_numpy(rng.integers(-127, 128, (36, 44), dtype=np.int8))
+    assert torch.equal(int8_matmul(a.to(cuda_device), w.to(cuda_device))
+                       .cpu(), int8_matmul(a, w))

@@ -39,7 +39,9 @@ def test_port_imports_no_jax():
                  "train.checkpoint", "train.samples", "train.trainer",
                  "train.train_cls", "train.train_reg", "data.sampler",
                  "data.loader", "data.augment", "data.mixup",
-                 "data.pipeline", "utils.logging", "tools.ablate_conv_bwd"):
+                 "data.pipeline", "utils.logging", "tools.ablate_conv_bwd",
+                 "tools.canary_probes", "kernels.relayout", "quantize",
+                 "train.evaluate", "utils.profiling"):
         assert f"calm_vit_dte_tpu_torch.{name}" in report["imported"]
     leaked = [m for m in report["modules"]
               if m.split(".")[0].startswith("jax")
