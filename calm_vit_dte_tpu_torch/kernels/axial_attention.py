@@ -15,11 +15,13 @@ computes, per batch element and head,
     out  = softmax(scale * q_h k_h^T + m) v_h   softmax in fp32
 
 On a CPU tensor the wrappers run the plain versions; on a CUDA tensor they
-launch a kernel or raise. The forward source holds two kernels of the same
-function: a CUDA-core one (fp32, and bf16 at any S) and a WMMA tensor-core
-one (bf16, S % 16 == 0), chosen by `uses_tensor_cores`. All round like
-`_fwd_body` in bf16: ssum, the mask weights, the GELU output and p are
-rounded to the compute dtype before their products, and every product
+launch a kernel or raise. bf16 runs on the tensor cores (mma.sync, bf16 in,
+fp32 accumulate): the forward is one kernel; the backward is a rows kernel
+(dq, the mask MLP backward, per-row softmax statistics), a keys kernel (dk,
+dv) and the weight-grad products, launched by one call. fp32 runs on the
+CUDA-core kernels of the same sources (the card-vs-CPU parity checks). Both
+round like `_fwd_body` in bf16: ssum, the mask weights, the GELU output and
+p are rounded to the compute dtype before their products, and every product
 accumulates in fp32. The backward recomputes the forward and rounds like
 `_bwd_core` (p, dm, a, dh1 and the score gradient); it returns the gradients
 of all 13 tensor inputs, the four RoPE tables and the mask MLP included.
@@ -42,8 +44,8 @@ REPLACES = "calm_vit_dte_tpu/kernels/axial_attention.py:682"
 BWD_SOURCE = "calm_vit_dte_tpu_torch/csrc/axial_attention_bwd.cu"
 BWD_REPLACES = "calm_vit_dte_tpu/kernels/axial_attention.py:717"
 BWD_REPLACES_NO_ROPE = "calm_vit_dte_tpu/kernels/axial_attention.py:547"
-MAX_S = 256     # keys a CTA holds: 8 per lane
-MAX_DV = 64     # two output columns per lane
+MAX_S = 256     # keys a CTA holds (the whole key axis)
+MAX_DV = 64
 _SMEM_LIMIT = 232448
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -90,44 +92,88 @@ def fused_rope_attention_plain(qc, qr, kc, kr, v, cos_q, sin_q, cos_k,
                           use_mask=use_mask)
 
 
-def _kernel_fn(tensor_cores: bool):
-    lib = library("axial_attention")
-    if tensor_cores:
-        fn = lib.rope_attention_fwd_tc
-        lead = []
-    else:
-        fn = lib.rope_attention_fwd
-        lead = [ctypes.c_int]
+def _fn(lib: str, name: str, argtypes: list):
+    fn = getattr(library(lib), name)
     if fn.argtypes is None:
-        fn.argtypes = (lead + [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
 
 
-# Smallest S at which bf16 goes to the WMMA kernel. Below it the CUDA-core
-# kernel was as fast or faster on the H100 (chip_smoke.py times both paths
-# at every flagship shape; PERF.md).
-TENSOR_CORE_MIN_S = 176
+_FWD_ARGS = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 6
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+_FWD_ARGS_BF16 = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 6
+                  + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+                     ctypes.POINTER(ctypes.c_int)])
+
+ROWS_PER_CTA = 64    # query (or key) rows of one bf16 CTA: 4 warps x 16
+_THREADS_BF16 = 128
+_SM_SMEM = 233472    # shared memory of one SM; each CTA also reserves 1 KB
+_SM_REGS = 65536
 
 
-def uses_tensor_cores(dtype, s: int, d: int) -> bool:
-    """bf16 at S % 16 == 0 and S >= TENSOR_CORE_MIN_S runs the WMMA kernel;
-    fp32 and other S run the CUDA-core kernel."""
-    return (dtype == torch.bfloat16 and s % 16 == 0
-            and s >= TENSOR_CORE_MIN_S and d <= 64)
+def _pad16(x: int) -> int:
+    return -(-x // 16) * 16
 
 
-def smem_bytes(s: int, d: int, dv: int, tensor_cores: bool) -> int:
-    """Dynamic shared memory of one CTA (mirrors the source's layouts)."""
-    if tensor_cores:
-        dp, dvp = -(-d // 16) * 16, -(-dv // 16) * 16
-        ldq, ldkv = max(dp, 32) + 8, max(dp, dvp) + 8
-        return 2 * 64 * ldq + 2 * s * ldkv + 4 * 64 * (max(s, 64) + 4) \
-            + 2 * 64 * (s + 8)
+def _ld(width: int) -> int:
+    """Row stride (elements) of a padded bf16 tile (ld_bf16)."""
+    return _pad16(width) + 8
+
+
+def _w_stage_bytes(s: int) -> int:
+    """One mask-MLP weight stage: W1 chunk [16][SP+8] + W2 chunk [SP][24]
+    bf16 (w_stage_elems)."""
+    sp = _pad16(s)
+    return 2 * (16 * (sp + 8) + sp * 24)
+
+
+def _fwd_layout(s: int, d: int, dv: int, use_mask: bool) -> tuple:
+    """(bytes, K/V stages) of one bf16 forward CTA (FwdSmem): the fp32 mask
+    [64][SP+8], then a K and a V tile [SP][ld] where two CTAs of that size
+    still fit on an SM, else one tile for both (or, larger, the two MLP
+    weight stages)."""
+    sp = _pad16(s)
+    tile = sp * max(_ld(d), _ld(dv)) * 2
+    w = 2 * _w_stage_bytes(s) if use_mask else 0
+    m = ROWS_PER_CTA * (sp + 8) * 4 if use_mask else 0
+    two = m + max(2 * tile, w)
+    if 2 * (two + 1024) <= _SM_SMEM:
+        return two, 2
+    return m + max(tile, w), 1
+
+
+def smem_bytes(s: int, d: int, dv: int, use_mask: bool = True) -> int:
+    """Dynamic shared memory of one bf16 forward CTA (FwdSmem)."""
+    return _fwd_layout(s, d, dv, use_mask)[0]
+
+
+def fwd_kv_stages(s: int, d: int, dv: int, use_mask: bool = True) -> int:
+    """K/V stages of the bf16 forward: 2 where a V tile beside the K tile
+    still lets two CTAs share an SM."""
+    return _fwd_layout(s, d, dv, use_mask)[1]
+
+
+def smem_bytes_f32(s: int, d: int, dv: int) -> int:
+    """Dynamic shared memory of one fp32 (CUDA-core) forward CTA."""
     sp = 32 * ((s + 31) // 32)
     ld = d | 1
     return 4 * (32 * ld + sp * max(ld, dv) + 32 * sp + 32 * 2 * sp)
+
+
+def grid(s: int, b: int) -> tuple[int, int]:
+    """CTAs of each bf16 kernel (forward, backward rows and keys): one per
+    64 query (keys: key) rows of one batch element."""
+    return -(-s // ROWS_PER_CTA), b
+
+
+def ctas_per_sm(smem: int, regs_per_thread: int = 0) -> int:
+    """CTAs of 128 threads that fit on one SM by shared memory (and, given,
+    by registers)."""
+    n = _SM_SMEM // (smem + 1024)
+    if regs_per_thread:
+        n = min(n, _SM_REGS // (regs_per_thread * _THREADS_BF16))
+    return n
 
 
 def _check(t: torch.Tensor | None, name: str, shape: tuple, dtype,
@@ -142,14 +188,24 @@ def _check(t: torch.Tensor | None, name: str, shape: tuple, dtype,
         raise ValueError(f"{name} must be contiguous")
 
 
+def _mask_weights_bf16(w1, b1, w2, s: int):
+    """The mask weights rounded to bf16 once per launch and zero-padded for
+    the tensor-core kernels: W1 (pad16(2S), pad16(S)), b1 (pad16(2S),) fp32,
+    W2 (pad16(S), pad16(2S))."""
+    sp, h2p = _pad16(s), _pad16(2 * s)
+    w1b = F.pad(w1.to(torch.bfloat16), (0, sp - s, 0, h2p - 2 * s))
+    w2b = F.pad(w2.to(torch.bfloat16), (0, h2p - 2 * s, 0, sp - s))
+    return w1b.contiguous(), F.pad(b1, (0, h2p - 2 * s)), w2b.contiguous()
+
+
 def _launch(qc, qr, kc, kr, v, cos_q, sin_q, cos_k, sin_k, w1, b1, w2, b2,
-            *, scale, dtype, use_mask,
-            tensor_cores: bool | None = None) -> torch.Tensor:
-    """Launch on the card. `tensor_cores` None picks the kernel by
-    `uses_tensor_cores`; chip_smoke.py forces each to time both."""
+            *, scale, dtype, use_mask) -> torch.Tensor:
+    """Launch on the card: bf16 on the tensor-core kernel, fp32 on the
+    CUDA-core one."""
     if dtype not in _DTYPES:
         raise ValueError(f"compute dtype {dtype} not supported; "
                          f"expected one of {_DTYPES}")
+    bf16 = dtype == torch.bfloat16
     dev = v.device
     b, h, s, dv = v.shape
     dc = 0 if qc is None else qc.shape[-1]
@@ -157,13 +213,12 @@ def _launch(qc, qr, kc, kr, v, cos_q, sin_q, cos_k, sin_k, w1, b1, w2, b2,
     if s > MAX_S or dv > MAX_DV or dr % 2 or dc + dr == 0:
         raise ValueError(f"unsupported shape: S={s} (<= {MAX_S}), "
                          f"Dv={dv} (<= {MAX_DV}), Dc={dc}, Dr={dr} (even)")
-    if tensor_cores is None:
-        tensor_cores = uses_tensor_cores(dtype, s, dc + dr)
-    elif tensor_cores and (dtype != torch.bfloat16 or s % 16
-                           or dc + dr > 64):
-        raise ValueError("the tensor-core kernel takes bf16, S % 16 == 0 "
-                         "and D <= 64")
-    if smem_bytes(s, dc + dr, dv, tensor_cores) > _SMEM_LIMIT:
+    if bf16 and (dc + dr > 64 or dc % 2 or dv % 2):
+        raise ValueError(f"the bf16 kernel takes D <= 64 and even Dc, Dv; "
+                         f"got Dc={dc}, Dr={dr}, Dv={dv}")
+    smem = (smem_bytes(s, dc + dr, dv, use_mask) if bf16
+            else smem_bytes_f32(s, dc + dr, dv))
+    if smem > _SMEM_LIMIT:
         raise ValueError(f"S={s}, D={dc + dr}, Dv={dv} needs more shared "
                          "memory than a CTA has")
     _check(v, "v", (b, h, s, dv), dtype, dev)
@@ -175,32 +230,40 @@ def _launch(qc, qr, kc, kr, v, cos_q, sin_q, cos_k, sin_k, w1, b1, w2, b2,
         for name, t in (("cos_q", cos_q), ("sin_q", sin_q),
                         ("cos_k", cos_k), ("sin_k", sin_k)):
             _check(t, name, (s, dr), torch.float32, dev)
-    w1t = w2t = None
+    wa = wb = w1p = b1p = None
     if use_mask:
         for name, t, shape in (("w1", w1, (2 * s, s)), ("b1", b1, (2 * s,)),
                                ("w2", w2, (s, 2 * s)), ("b2", b2, (s,))):
             _check(t, name, shape, torch.float32, dev)
-        # The tensor-core kernel reads the weights as bf16 (the rounding
-        # the CUDA-core kernel applies on load).
-        wdtype = torch.bfloat16 if tensor_cores else torch.float32
-        w1t = w1.t().to(wdtype).contiguous()
-        w2t = w2.t().to(wdtype).contiguous()
+        if bf16:
+            wa, b1p, wb = _mask_weights_bf16(w1, b1, w2, s)
+        else:
+            wa, b1p, wb = w1.t().contiguous(), b1, w2.t().contiguous()
     out = torch.empty((b, h, s, dv), dtype=dtype, device=dev)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    lead = () if tensor_cores else (int(dtype == torch.bfloat16),)
-    err = _kernel_fn(tensor_cores)(
-        *lead, ptr(qc), ptr(kc), ptr(qr), ptr(kr),
+    prep = tail = ()
+    launched = ctypes.c_int(0)
+    if bf16:   # the prologue's padded q, k (rotated) and v rows
+        prep = (ptr(torch.empty(b * h * s * (2 * _pad16(dc + dr)
+                                             + _pad16(dv)),
+                                dtype=dtype, device=dev)),)
+        tail = (ctypes.byref(launched),)
+    name = "rope_attention_fwd_bf16" if bf16 else "rope_attention_fwd_f32"
+    err = _fn("axial_attention", name, _FWD_ARGS_BF16 if bf16 else _FWD_ARGS)(
+        ptr(qc), ptr(kc), ptr(qr), ptr(kr),
         ptr(v), ptr(cos_q if dr else None), ptr(sin_q if dr else None),
-        ptr(cos_k if dr else None), ptr(sin_k if dr else None), ptr(w1t),
-        ptr(b1 if use_mask else None), ptr(w2t),
-        ptr(b2 if use_mask else None), ptr(out), b, h, s, dc, dr, dv,
-        float(scale), int(use_mask),
-        torch.cuda.current_stream(dev).cuda_stream)
+        ptr(cos_k if dr else None), ptr(sin_k if dr else None), ptr(wa),
+        ptr(b1p), ptr(wb), ptr(b2 if use_mask else None), ptr(out), *prep,
+        b, h, s, dc, dr, dv, float(scale), int(use_mask),
+        torch.cuda.current_stream(dev).cuda_stream, *tail)
+    # The bf16 call launches the prologue before the kernel: the kernels it
+    # launched past the one counted in `.launches`.
+    fused_rope_attention.stage_launches += max(launched.value - 1, 0)
     if err != 0:
-        raise RuntimeError(f"rope_attention_fwd launch failed: CUDA error "
+        raise RuntimeError(f"{name} launch failed: CUDA error "
                            f"{err} (B={b}, H={h}, S={s}, Dc={dc}, Dr={dr}, "
                            f"Dv={dv}, {dtype})")
     fused_rope_attention.launches += 1
@@ -276,7 +339,101 @@ def fused_rope_attention_bwd_plain(g, qc, qr, kc, kr, v, cos_q, sin_q, cos_k,
     return (dqc, dqr, dkc, dkr, dv, dcq, dsq, dck, dsk, dw1, db1, dw2, db2)
 
 
-WEIGHT_TILE = 64   # output tile of the weight-grad kernel (kWTile)
+def bwd_rows_plain(g, q, k, v, w1, b1, w2, b2, *, scale: float, dtype,
+                   use_mask: bool) -> dict:
+    """The bf16 route's rows stage in torch ops, on rotated q, k (B,H,S,D),
+    v and g (B,H,S,Dv): per row and head the softmax statistics (max, sum)
+    and delta = rowsum(dp * p); with the mask ssum, a, m, dm, dh1 and dssum;
+    and dq before the un-rotation (fp32). p is rebuilt from the statistics,
+    as the kernels do."""
+    q, k = _rounded(q, dtype), _rounded(k, dtype)
+    vc, gc = _rounded(v, dtype), _rounded(g, dtype)
+    scores = q @ k.transpose(-1, -2)
+    x = scores * scale
+    out = {}
+    if use_mask:
+        w1c, w2c = _rounded(w1, dtype), _rounded(w2, dtype)
+        ssum = _rounded(scores.sum(dim=1), dtype)
+        h1 = ssum @ w1c.T + b1.float()
+        a = _rounded(F.gelu(h1), dtype)
+        m = a @ w2c.T + b2.float()
+        x = x + m[:, None]
+        out.update(ssum=ssum, a=a, m=m)
+    mx = x.amax(dim=-1, keepdim=True)
+    total = torch.exp(x - mx).sum(dim=-1, keepdim=True)
+    p = torch.exp(x - mx) / total
+    dp = gc @ vc.transpose(-1, -2)
+    delta = (dp * p).sum(dim=-1, keepdim=True)
+    dl = p * (dp - delta)
+    ds = dl * scale
+    if use_mask:
+        dm = _rounded(dl.sum(dim=1), dtype)
+        dh1 = _rounded((dm @ w2c) * _dgelu(h1), dtype)
+        dssum = dh1 @ w1c
+        ds = ds + dssum[:, None]
+        out.update(dm=dm, dh1=dh1, dssum=dssum)
+    out.update(stats=torch.cat([mx, total, delta], dim=-1),
+               dq=_rounded(ds, dtype) @ k)
+    return out
+
+
+def bwd_keys_plain(g, q, k, v, rows: dict, *, scale: float, dtype,
+                   use_mask: bool) -> tuple:
+    """The keys stage in torch ops: p^T from q, k, m and the rows stage's
+    statistics, dl from delta, ds with dssum; returns (dk before the
+    un-rotation, dv), both fp32."""
+    q, k = _rounded(q, dtype), _rounded(k, dtype)
+    vc, gc = _rounded(v, dtype), _rounded(g, dtype)
+    x = (q @ k.transpose(-1, -2)) * scale
+    if use_mask:
+        x = x + rows["m"][:, None]
+    mx, total, delta = rows["stats"].unbind(dim=-1)
+    p = torch.exp(x - mx[..., None]) / total[..., None]
+    dl = p * (gc @ vc.transpose(-1, -2) - delta[..., None])
+    ds = dl * scale
+    if use_mask:
+        ds = ds + rows["dssum"][:, None]
+    return (_rounded(ds, dtype).transpose(-1, -2) @ q,
+            _rounded(p, dtype).transpose(-1, -2) @ gc)
+
+
+def bwd_weight_grads_plain(rows: dict) -> tuple:
+    """The weight-grad stage: dW1 = dh1^T ssum, db1, dW2 = dm^T a, db2 over
+    the B*S rows (fp32 sums of the stored compute-type rows)."""
+    dh1, ssum, dm, a = rows["dh1"], rows["ssum"], rows["dm"], rows["a"]
+    return (torch.einsum("bqj,bqk->jk", dh1, ssum), dh1.sum(dim=(0, 1)),
+            torch.einsum("bqk,bqj->kj", dm, a), dm.sum(dim=(0, 1)))
+
+
+def fused_rope_attention_bwd_stages_plain(g, qc, qr, kc, kr, v, cos_q, sin_q,
+                                          cos_k, sin_k, w1, b1, w2, b2, *,
+                                          scale: float, dtype,
+                                          use_mask: bool = True) -> tuple:
+    """`fused_rope_attention_bwd_plain` composed from the plain versions of
+    the bf16 route's stages (rows, keys, weight grads, un-rotation); same
+    returns."""
+    q = _assemble(qc, qr, cos_q, sin_q, dtype).float()
+    k = _assemble(kc, kr, cos_k, sin_k, dtype).float()
+    kw = dict(scale=scale, dtype=dtype, use_mask=use_mask)
+    rows = bwd_rows_plain(g, q, k, v, w1, b1, w2, b2, **kw)
+    dk, dv = bwd_keys_plain(g, q, k, v, rows, **kw)
+    dq = rows["dq"]
+    dw1 = db1 = dw2 = db2 = None
+    if use_mask:
+        dw1, db1, dw2, db2 = bwd_weight_grads_plain(rows)
+    dc = 0 if qc is None else qc.shape[-1]
+    dqc = dkc = dqr = dkr = dcq = dsq = dck = dsk = None
+    if dc:
+        dqc, dkc = dq[..., :dc].to(dtype), dk[..., :dc]
+    if qr is not None:
+        dqr, dcq, dsq = _unrotate(dq[..., dc:], qr, cos_q, sin_q, dtype,
+                                  dtype)
+        dkr, dck, dsk = _unrotate(dk[..., dc:], kr, cos_k, sin_k, dtype,
+                                  torch.float32)
+    return (dqc, dqr, dkc, dkr, dv, dcq, dsq, dck, dsk, dw1, db1, dw2, db2)
+
+
+WEIGHT_TILE = 64   # output tile of the weight-grad kernels
 
 
 def weight_grad_splits(b: int, s: int) -> int:
@@ -286,25 +443,80 @@ def weight_grad_splits(b: int, s: int) -> int:
     return max(1, min(-(-264 // tiles), b * s // 16, 64))
 
 
-def bwd_smem_bytes(s: int, d: int, dv: int) -> int:
-    """Dynamic shared memory of one backward CTA (mirrors the source)."""
+def _slice_bytes(d: int) -> int:
+    """A warp's fp32 staging tile [16][pad16(D)+4] of its dq or dk."""
+    return 16 * (_pad16(d) + 4) * 4
+
+
+def bwd_rows_smem_bytes(s: int, d: int, dv: int,
+                        use_mask: bool = True) -> int:
+    """Dynamic shared memory of one bf16 backward rows CTA (RowsSmem): the K
+    and V tiles (or, larger, the ssum and dm tiles [64][SP+8] and two MLP
+    weight stages), then four warps' staging tiles."""
+    sp = _pad16(s)
+    u = sp * (_ld(d) + _ld(dv)) * 2
+    if use_mask:
+        u = max(u, 2 * ROWS_PER_CTA * (sp + 8) * 2 + 2 * _w_stage_bytes(s))
+    return u + 4 * _slice_bytes(d)
+
+
+def bwd_keys_smem_bytes(s: int, d: int, dv: int,
+                        use_mask: bool = True) -> int:
+    """Dynamic shared memory of one bf16 backward keys CTA (KeysSmem): q and
+    g blocks [64][ld], the m and dssum blocks fp32 [64][68] (with the
+    mask), the row statistics [64][4] fp32 and four warps' staging
+    tiles."""
+    blocks = 2 * ROWS_PER_CTA * 68 * 4 if use_mask else 0
+    return (ROWS_PER_CTA * (_ld(d) + _ld(dv)) * 2 + blocks
+            + ROWS_PER_CTA * 16 + 4 * _slice_bytes(d))
+
+
+def card_layout(s: int, d: int, dv: int, use_mask: bool = True) -> dict:
+    """The bf16 kernels' shared memory as the C launches size it (FwdSmem,
+    RowsSmem, KeysSmem): {"forward": (bytes, K/V stages), "rows": bytes,
+    "keys": bytes}. Builds the kernels; the Python helpers above mirror
+    these for the CPU."""
+    nb, stages = ctypes.c_longlong(), ctypes.c_int()
+    fwd = library("axial_attention").rope_attention_fwd_bf16_layout
+    fwd.restype = None
+    fwd(s, d, dv, int(use_mask), ctypes.byref(nb), ctypes.byref(stages))
+    rows, keys = ctypes.c_longlong(), ctypes.c_longlong()
+    bwd = library("axial_attention_bwd").rope_attention_bwd_bf16_layout
+    bwd.restype = None
+    bwd(s, d, dv, int(use_mask), ctypes.byref(rows), ctypes.byref(keys))
+    return {"forward": (nb.value, stages.value), "rows": rows.value,
+            "keys": keys.value}
+
+
+def bwd_smem_bytes_f32(s: int, d: int, dv: int) -> int:
+    """Dynamic shared memory of one fp32 (CUDA-core) backward CTA."""
     sp = 32 * ((s + 31) // 32)
     ld = d | 1
     ldq = max(ld, dv | 1)
     return 4 * (32 * ldq + sp * ldq + 32 * sp + 32 * 2 * sp + 32 * ld)
 
 
-# Slots of the backward's pointer array, in the order of the source's enum.
+# Slots of the backward's pointer arrays, in the order of the source's
+# enums (Slot for fp32, SlotBf16 for bf16).
 _BWD_SLOTS = ("qc", "kc", "qr", "kr", "v", "g", "cos_q", "sin_q", "cos_k",
               "sin_k", "w1", "w1t", "b1", "w2", "w2t", "b2", "dqc", "dqr",
               "dkc", "dkr", "dv", "tab_out", "wgrad", "tab_part", "dk_full",
               "dlog", "gprime", "ssum", "a", "dm", "dh1", "wpart")
+_BWD_SLOTS_BF16 = ("qc", "kc", "qr", "kr", "v", "g", "cos_q", "sin_q",
+                   "cos_k", "sin_k", "w1", "b1", "w2", "b2", "dqc", "dqr",
+                   "dkc", "dkr", "dv", "tab_out", "wgrad", "tab_part",
+                   "ssum", "a", "dm", "dh1", "m", "dssum", "stats", "wpart",
+                   "prep")
+_BWD_ARGS = ([ctypes.c_void_p] + [ctypes.c_int] * 6
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+_BWD_ARGS_BF16 = _BWD_ARGS + [ctypes.POINTER(ctypes.c_int)]
 
 
 def _launch_bwd(g, qc, qr, kc, kr, v, cos_q, sin_q, cos_k, sin_k, w1, b1,
                 w2, b2, *, scale, dtype, use_mask) -> tuple:
     """Launch the backward on the card; same returns as the plain version.
     Inputs were checked by the forward launch; g must match v."""
+    bf16 = dtype == torch.bfloat16
     dev = v.device
     b, h, s, dv = v.shape
     dc = 0 if qc is None else qc.shape[-1]
@@ -312,7 +524,10 @@ def _launch_bwd(g, qc, qr, kc, kr, v, cos_q, sin_q, cos_k, sin_k, w1, b1,
     d = dc + dr
     if d > 64:
         raise ValueError(f"the backward kernel takes D <= 64, got {d}")
-    if bwd_smem_bytes(s, d, dv) > _SMEM_LIMIT:
+    smem = (max(bwd_rows_smem_bytes(s, d, dv, use_mask),
+                bwd_keys_smem_bytes(s, d, dv, use_mask)) if bf16
+            else bwd_smem_bytes_f32(s, d, dv))
+    if smem > _SMEM_LIMIT:
         raise ValueError(f"S={s}, D={d}, Dv={dv} needs more shared memory "
                          "than a CTA has")
     _check(g, "g", (b, h, s, dv), dtype, dev)
@@ -321,42 +536,57 @@ def _launch_bwd(g, qc, qr, kc, kr, v, cos_q, sin_q, cos_k, sin_k, w1, b1,
         return torch.empty(shape, dtype=dt, device=dev)
 
     t = {"qc": qc, "kc": kc, "qr": qr, "kr": kr, "v": v, "g": g,
-         "dv": new((b, h, s, dv)), "dk_full": new((b, h, s, d)),
-         "dlog": new((b, h, s, s))}
+         "dv": new((b, h, s, dv))}
     if dc:
         t["dqc"] = new((b, h, s, dc), dtype)
     if dr:
         t.update(cos_q=cos_q, sin_q=sin_q, cos_k=cos_k, sin_k=sin_k,
                  dqr=new((b, h, s, dr), dtype), dkr=new((b, h, s, dr)),
                  tab_out=new((4, s, dr)), tab_part=new((b, 4, s, dr)))
-        if dc:
+    if not bf16:
+        t.update(dk_full=new((b, h, s, d)), dlog=new((b, h, s, s)))
+        if dr and dc:
             t["dkc"] = new((b, h, s, dc))
-    else:
-        t["dkc"] = t["dk_full"]
+        elif not dr:
+            t["dkc"] = t["dk_full"]
+    elif dc:
+        t["dkc"] = new((b, h, s, dc))
     splits = 1
+    n_w = 2 * s * s
     if use_mask:
         splits = weight_grad_splits(b, s)
-        n_w = 2 * s * s
         total = 2 * n_w + 3 * s
-        t.update(w1=w1, w1t=w1.t().contiguous(), b1=b1, w2=w2,
-                 w2t=w2.t().contiguous(), b2=b2, wgrad=new((total,)),
-                 wpart=new((splits, total)), gprime=new((b, s, 2 * s)),
-                 ssum=new((b, s, s), dtype), a=new((b, s, 2 * s), dtype),
-                 dm=new((b, s, s), dtype), dh1=new((b, s, 2 * s), dtype))
-    ptrs = (ctypes.c_void_p * len(_BWD_SLOTS))(
+        t.update(b2=b2, wgrad=new((total,)), wpart=new((splits, total)))
+        sp, h2p = _pad16(s), _pad16(2 * s)
+        if bf16:
+            w1b, b1p, w2b = _mask_weights_bf16(w1, b1, w2, s)
+            t.update(w1=w1b, b1=b1p, w2=w2b,
+                     ssum=new((b * s, sp), dtype), a=new((b * s, h2p), dtype),
+                     dm=new((b * s, sp), dtype), dh1=new((b * s, h2p), dtype),
+                     m=new((b * s, sp)), dssum=new((b * s, sp)))
+        else:
+            t.update(w1=w1, w1t=w1.t().contiguous(), b1=b1, w2=w2,
+                     w2t=w2.t().contiguous(), gprime=new((b, s, 2 * s)),
+                     ssum=new((b, s, s), dtype), a=new((b, s, 2 * s), dtype),
+                     dm=new((b, s, s), dtype), dh1=new((b, s, 2 * s), dtype))
+    if bf16:
+        t["stats"] = new((b, h, s, 3))
+        t["prep"] = new((b * h * s * 2 * (_pad16(d) + _pad16(dv)),), dtype)
+    slots = _BWD_SLOTS_BF16 if bf16 else _BWD_SLOTS
+    ptrs = (ctypes.c_void_p * len(slots))(
         *(None if t.get(name) is None else t[name].data_ptr()
-          for name in _BWD_SLOTS))
-    fn = library("axial_attention_bwd").rope_attention_bwd
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 6
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    err = fn(int(dtype == torch.bfloat16), ptrs, b, h, s, dc, dr, dv,
-             float(scale), int(use_mask), splits,
-             torch.cuda.current_stream(dev).cuda_stream)
+          for name in slots))
+    name = "rope_attention_bwd_bf16" if bf16 else "rope_attention_bwd_f32"
+    launched = ctypes.c_int(0)
+    err = _fn("axial_attention_bwd", name,
+              _BWD_ARGS_BF16 if bf16 else _BWD_ARGS)(
+        ptrs, b, h, s, dc, dr, dv, float(scale), int(use_mask), splits,
+        torch.cuda.current_stream(dev).cuda_stream,
+        *((ctypes.byref(launched),) if bf16 else ()))
+    # The bf16 call's kernels past the one counted in `.launches`.
+    fused_rope_attention_bwd.stage_launches += max(launched.value - 1, 0)
     if err != 0:
-        raise RuntimeError(f"rope_attention_bwd launch failed: CUDA error "
+        raise RuntimeError(f"{name} launch failed: CUDA error "
                            f"{err} (B={b}, H={h}, S={s}, Dc={dc}, Dr={dr}, "
                            f"Dv={dv}, {dtype})")
     fused_rope_attention_bwd.launches += 1
@@ -386,6 +616,9 @@ def fused_rope_attention_bwd(g, qc, qr, kc, kr, v, cos_q, sin_q, cos_k,
 
 
 fused_rope_attention_bwd.launches = 0
+# The bf16 route's further launches per call, as the C entry reports them:
+# the prologue, the keys kernel, the table and weight-grad reductions.
+fused_rope_attention_bwd.stage_launches = 0
 
 
 def _forward(args, scale, dtype, use_mask) -> torch.Tensor:
@@ -444,3 +677,6 @@ def fused_rope_attention(qc, qr, kc, kr, v, cos_q, sin_q, cos_k, sin_k,
 
 
 fused_rope_attention.launches = 0
+# The bf16 route's further launches per call, as the C entry reports them
+# (its prologue).
+fused_rope_attention.stage_launches = 0

@@ -11,8 +11,12 @@ Phases, each fatal on failure (any exception exits non-zero):
   2. build   the CUDA kernels with nvcc for sm_90a, one nvcc per source in
              parallel, printing each source's register and spill figures
              from ptxas (the full log stays in build/torch_kernels/);
-  3. check   every kernel against its plain PyTorch version at every shape
-             the flagship gives it (B=8). Forward kernels: fp32 at rtol 2e-4
+  3. check   the rope kernels' shared-memory helpers against the sizes the
+             C launches use, at every shape below, mask on and off; then
+             every kernel against its plain PyTorch version at every shape
+             the flagship and imagenet-cls-256 give it (B=8; the rope
+             attention kernels' bf16 route on the tensor cores, with the
+             mask on and off). Forward kernels: fp32 at rtol 2e-4
              / atol 2e-5 (the per-layer eval limit of
              tests/test_parity_torch.py), and in bf16 the kernel's max-abs
              error against the fp32 plain version must be at most twice the
@@ -22,8 +26,9 @@ Phases, each fatal on failure (any exception exits non-zero):
              value (tighter than the 5e-3 of bench.py's kernel-vs-oracle
              check; nothing in the kernel is atomic), bf16 by the same
              twice-the-plain rule, at every flagship shape and at Dr = 0,
-             with and without the mask; and the autograd Function against
-             torch autograd of the plain forward;
+             with and without the mask, the bf16 route bit-identical across
+             two launches; and the autograd Function against torch autograd
+             of the plain forward;
   4. serve   the flagship through the user's entry points:
              Predictor.fresh("imagenet-cls-224").classify on 128 uint8
              256x256 images in bf16, with exactly 24 attention and 8 conv
@@ -31,7 +36,8 @@ Phases, each fatal on failure (any exception exits non-zero):
              the CPU (plain versions) for 2 images, logits at rtol 2e-3 /
              atol 2e-4 and KL at rtol 1e-3 (tests/test_parity_full224.py's
              limits); one imagenet-reg-224 reconstruct (24 + 9 launches,
-             outputs in [0, 1]);
+             outputs in [0, 1]); Predictor.fresh("imagenet-cls-256")
+             .classify at B=128 (24 + 8 launches) and its images/s;
   5. train   imagenet-cls-224 at full width and depth through
              make_train_step: bf16, B=128, remat, fresh weights from seed 0,
              a repeated synthetic uint8 batch with soft labels. Loss finite
@@ -42,9 +48,14 @@ Phases, each fatal on failure (any exception exits non-zero):
              with 24 + 8; one fp32 step on 2 images card vs CPU under the
              same injected noise (loss rtol 2e-4; gradients per leaf rtol
              5e-3, atol 2e-4 of the leaf's largest value, the limits of
-             tests/test_parity_grad.py);
-  6. time    each kernel and its plain version at every flagship shape at
-             B=128 bf16 with CUDA events, beside its roofline bound;
+             tests/test_parity_grad.py); one bf16 imagenet-cls-256 step
+             at B=128 (finite loss and gradients, 24 + 24 launches);
+  6. time    each kernel and its plain version at every flagship shape
+             (the rope attention kernels also at imagenet-cls-256's) at
+             B=128 bf16 with CUDA events, plain, kernel, kernel, plain,
+             beside its roofline bound, and the per-forward and per-step
+             sums of the rope attention kernels against their plain
+             versions';
              classify images/s and peak memory at B=128 bf16; ms per
              training step, images/s and peak memory;
   7. trace   one classify forward and one training step under
@@ -84,7 +95,9 @@ Phases, each fatal on failure (any exception exits non-zero):
              conv and 8 weight-grad sums on the pallas route, 8 forwards
              with residuals on the xla route, none on the chain), the
              checkpoint restored bit for bit and a second main resuming
-             from it; p50 ms per step beside phase 5's bare step; each new
+             from it; three train_reg.main steps on imagenet-reg-224 at
+             B=128 (loss finite every step, 24 + 24 attention launches per
+             step); p50 ms per step beside phase 5's bare step; each new
              kernel and its plain version timed at B=128 bf16 at every conv
              S, and the ablation's seven variants at S=224;
  10. serving the (s,h,d)->(h,s,d) relayout kernel (kernels/relayout.py)
@@ -113,7 +126,13 @@ fused functions (scaled_dot_product_attention has no head-coupled learned
 mask and returns no mask, residual or table gradients; no convolution call
 returns the conv residual's middle activations or its packed weight grads),
 so their library_ms is null; the relayout's is the transpose's time
-(x.transpose(1, 2).contiguous(), also its plain version).
+(x.transpose(1, 2).contiguous(), also its plain version). The rope
+attention kernels' entries also carry `stage_launches_by_path`: the
+launches each bf16 call makes beside its kernel, as the C entry reports
+them (the forward's prologue; the backward's prologue, keys kernel, table
+and weight-grad reductions), read per main path after the counters were set
+to 0 before it, and checked against the path's launches (one prologue per
+forward, six per flagship backward).
 """
 
 from __future__ import annotations
@@ -240,6 +259,33 @@ def conv_bound(b, s, itemsize):
     return nbytes / PEAK_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
 
 
+# The tensor-core kernels whose registers and spills phase 2 prints.
+TENSOR_CORE_KERNELS = ("rope_attention_fwd_bf16_kernel", "bwd_rows_kernel",
+                       "bwd_keys_kernel", "xty_mma_kernel")
+
+
+def kernel_registers(ptxas_log):
+    """(kernel name, registers, spill store bytes) per compiled entry."""
+    rows, name, spill = [], None, 0
+    for line in ptxas_log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            known = [k for k in TENSOR_CORE_KERNELS if k in name]
+            arg = re.search(r"ILi(\d+)E", name)
+            short = (known[0] if known else name) + (
+                f"<{arg.group(1)}>" if arg else "")
+            rows.append((short, int(m.group(1)), spill))
+            name = None
+    return rows
+
+
 def cuda_ms(torch, fn, reps, warmup=2):
     for _ in range(warmup):
         fn()
@@ -271,7 +317,8 @@ BWD_FP32_LIMIT = 1e-4   # of each gradient's largest value
 def check_attention_bwd(torch, ka, args, g, scale, use_mask):
     """The backward kernel against its plain version on the same inputs
     (fp32 `args`, `g`): fp32 within BWD_FP32_LIMIT, bf16 at most twice the
-    plain bf16 version's error against the fp32 plain version. Returns
+    plain bf16 version's error against the fp32 plain version, and the bf16
+    route bit-identical across two launches. Returns
     (worst fp32 normalised error, worst fp32 absolute error, worst bf16
     kernel error, the plain bf16 error of that gradient)."""
     bf16, f32 = torch.bfloat16, torch.float32
@@ -281,6 +328,11 @@ def check_attention_bwd(torch, ka, args, g, scale, use_mask):
     torch.cuda.synchronize()
     a16, g16 = cast(torch, args, bf16), g.to(bf16)
     k16 = ka.fused_rope_attention_bwd(g16, *a16, dtype=bf16, **kw)
+    again = ka.fused_rope_attention_bwd(g16, *a16, dtype=bf16, **kw)
+    for name, x, y in zip(GRAD_NAMES, k16, again):
+        if x is not None and not torch.equal(x, y):
+            raise AssertionError(f"{name}: the bf16 backward differs between "
+                                 "two launches")
     p16 = ka.fused_rope_attention_bwd_plain(g16, *a16, dtype=bf16, **kw)
     r16 = ka.fused_rope_attention_bwd_plain(
         g16.float(), *cast(torch, a16, f32), dtype=f32, **kw)
@@ -310,6 +362,7 @@ def check_attention_bwd(torch, ka, args, g, scale, use_mask):
 HIRES_BATCH = 8          # hires-cls-1024: serving, training and timing
 HIRES_CHECK_BATCH = 2
 HIRES_TRAIN_STEPS = 5
+REG_STEPS = 3
 HIRES_OUT_NAMES = ("dq", "dssum", "dw1", "db1", "dw2", "db2", "dk", "dv")
 
 
@@ -1164,6 +1217,42 @@ def trainer_phase(torch, name, smi, bare, keep_ckpt):
                 f"{peak:.3f} GiB; checkpoint restored bit for bit, resumed "
                 f"at step {TRAINER_STEPS} (loss {losses[0]:.4f}); on {name} "
                 f"({smi})")
+        # Reconstruction training through train_reg.main on
+        # imagenet-reg-224 (the F.conv2d chain in training).
+        from calm_vit_dte_tpu_torch.train import train_reg
+
+        with tempfile.TemporaryDirectory() as ckpt:
+            per_step.clear()
+            losses.clear()
+            torch.cuda.reset_peak_memory_stats()
+            out = Tee(sys.stdout)
+            with contextlib.redirect_stdout(out):
+                state = train_reg.main(
+                    ["--config", "imagenet-reg-224", "--max-steps",
+                     str(REG_STEPS), f"global_batch_size={TIME_BATCH}",
+                     "dataset_root=synthetic", f"checkpoint_dir={ckpt}",
+                     f"save_samples_dir={ckpt}/samples", "log_every=1"])
+            torch.cuda.synchronize()
+            found = re.search(r"p50 step: ([0-9.]+)s", out.getvalue())
+            reg_p50 = float(found.group(1)) if found else float("nan")
+            if (len(per_step) != REG_STEPS
+                    or any(c != attention for c in per_step)
+                    or not all(np.isfinite(losses))
+                    or state.step != REG_STEPS):
+                raise AssertionError(f"train_reg: per step {per_step}, "
+                                     f"losses {losses}, step {state.step}")
+            results["reg"] = {
+                "ms_per_step_p50": reg_p50 * 1e3,
+                "images_per_s": TIME_BATCH / reg_p50,
+                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "losses": list(losses)}
+            log(f"[trainer] train_reg.main imagenet-reg-224 B={TIME_BATCH} "
+                f"bf16, {REG_STEPS} steps: losses "
+                f"{[round(x, 5) for x in losses]}, per step {per_step[0]}, "
+                f"p50 {reg_p50 * 1e3:.1f} ms per step, peak "
+                f"{results['reg']['peak_mem_gib']:.3f} GiB")
+            del state
+            torch.cuda.empty_cache()
     finally:
         trainer_mod.make_train_step = orig_make_step
     log(f"[trainer] bare make_train_step (phase 5, same call): "
@@ -1279,7 +1368,8 @@ def serving_phase(torch, name, smi, ckpt):
     runs after training: serve phase 9's step-6 checkpoint (`ckpt`), save
     and load it as a serving artifact, evaluate its top-1 on a planted val
     split, and serve and evaluate it in int8. Returns (the relayout kernel's
-    summary, forward launches by path, metrics)."""
+    summary, forward launches by kind and the attention prologues,
+    metrics)."""
     import contextlib
     import io
     import tempfile
@@ -1357,11 +1447,15 @@ def serving_phase(torch, name, smi, ckpt):
                 "conv": kc.fused_conv_residual}
     launches = dict.fromkeys(counters, 0)
 
+    prologues = [0]
+
     def counted(fn, forwards):
         """Run fn with the counters at 0; exactly 24 attention and 8 conv
-        launches per forward."""
+        launches per forward, and one attention prologue per attention
+        launch."""
         for c in counters.values():
             c.launches = 0
+        ka.fused_rope_attention.stage_launches = 0
         out = fn()
         torch.cuda.synchronize()
         got = {k: c.launches for k, c in counters.items()}
@@ -1369,8 +1463,13 @@ def serving_phase(torch, name, smi, ckpt):
         if got != want:
             raise AssertionError(f"{forwards} forwards: expected {want} "
                                  f"launches, got {got}")
+        if ka.fused_rope_attention.stage_launches != got["attention"]:
+            raise AssertionError(
+                f"{forwards} forwards: {ka.fused_rope_attention.stage_launches}"
+                f" attention prologues for {got['attention']} launches")
         for k in launches:
             launches[k] += got[k]
+        prologues[0] += got["attention"]
         return out
 
     rng = np.random.default_rng(10)
@@ -1517,6 +1616,7 @@ def serving_phase(torch, name, smi, ckpt):
                "top1_planted": acc, "top1_offset": acc_off,
                "evaluate_stats": evals, "int8": quant, "classify": rates,
                "forward_launches": launches}
+    launches["attention_prologues"] = prologues[0]
     return kernel, launches, metrics
 
 
@@ -1593,14 +1693,41 @@ def main() -> int:
         log(f"[build] {src}: {len(regs)} kernel instantiations, "
             f"{min(regs)}-{max(regs)} registers, largest spill "
             f"{max(spills)} bytes")
+        for kname, kregs, kspill in kernel_registers(text):
+            if any(k in kname for k in TENSOR_CORE_KERNELS):
+                log(f"[build] {src}: {kname}: {kregs} registers, spill "
+                    f"{kspill} bytes")
 
-    # 3. kernel vs plain at every flagship shape
+    # 3. kernel vs plain at every flagship shape (and imagenet-cls-256's)
     cfg = get_config("imagenet-cls-224")
     attn_shapes, conv_sizes = flagship_shapes(cfg.model)
+    cfg256 = get_config("imagenet-cls-256")
+    attn256, conv256 = flagship_shapes(cfg256.model)
     log(f"[check] attention shapes (S, Dc, Dr, Dv): launches = "
-        f"{attn_shapes}; conv S: launches = {conv_sizes}")
+        f"{attn_shapes}; conv S: launches = {conv_sizes}; imagenet-cls-256: "
+        f"{attn256}, conv {conv256}")
     per_attn: dict[tuple, dict] = {}
-    for i, (s, dc, dr, dv) in enumerate(sorted(attn_shapes, reverse=True)):
+    check_shapes = sorted(attn_shapes, reverse=True) + sorted(attn256,
+                                                              reverse=True)
+    # The wrapper's shared-memory helpers (which the CPU tests hold to the
+    # 232,448-byte limit) against the sizes the C launches use.
+    for s, dc, dr, dv in check_shapes:
+        for use_mask in (True, False):
+            want = {"forward": (ka.smem_bytes(s, dc + dr, dv, use_mask),
+                                ka.fwd_kv_stages(s, dc + dr, dv, use_mask)),
+                    "rows": ka.bwd_rows_smem_bytes(s, dc + dr, dv, use_mask),
+                    "keys": ka.bwd_keys_smem_bytes(s, dc + dr, dv, use_mask)}
+            got = ka.card_layout(s, dc + dr, dv, use_mask)
+            if got != want:
+                raise AssertionError(f"shared memory at S={s}, D={dc + dr}, "
+                                     f"Dv={dv}, mask {use_mask}: the C "
+                                     f"launch sizes {got}, the wrapper {want}")
+    log("[check] bf16 rope kernels' shared memory: the wrapper's helpers "
+        "equal the C launches' at every shape, mask on and off; forward K/V "
+        "stages (S: stages, with the mask): " + ", ".join(
+            f"{s}: {ka.fwd_kv_stages(s, dc + dr, dv)}"
+            for s, dc, dr, dv in check_shapes if dc))
+    for i, (s, dc, dr, dv) in enumerate(check_shapes):
         args = attn_inputs(torch, CHECK_BATCH, s, dc, dr, dv, dev, f32,
                            seed=i)
         kw = dict(scale=1.0 / (dc + dr) ** 0.5)
@@ -1609,28 +1736,31 @@ def main() -> int:
         torch.cuda.synchronize()
         torch.testing.assert_close(out, ref, rtol=2e-4, atol=2e-5)
         a16 = cast(torch, args, bf16)
-        p16 = ka.fused_rope_attention_plain(*a16, dtype=bf16, **kw)
-        ref16 = ka.fused_rope_attention_plain(*cast(torch, a16, f32),
-                                              dtype=f32, **kw)
-        e_p = max_err(p16, ref16)
         errs = {}
-        for tc in (False, True):   # both bf16 kernels, whichever serves
-            k16 = ka._launch(*a16, dtype=bf16, use_mask=True,
-                             tensor_cores=tc, **kw)
-            errs[tc] = max_err(k16, ref16)
-            if not errs[tc] <= 2 * e_p:
+        for use_mask in (True, False):
+            p16 = ka.fused_rope_attention_plain(*a16, dtype=bf16,
+                                                use_mask=use_mask, **kw)
+            ref16 = ka.fused_rope_attention_plain(*cast(torch, a16, f32),
+                                                  dtype=f32,
+                                                  use_mask=use_mask, **kw)
+            k16 = ka.fused_rope_attention(*a16, dtype=bf16,
+                                          use_mask=use_mask, **kw)
+            e_k, e_p = max_err(k16, ref16), max_err(p16, ref16)
+            if not e_k <= 2 * e_p:
                 raise AssertionError(
-                    f"attention S={s} Dc={dc} tensor_cores={tc}: bf16 "
-                    f"kernel error {errs[tc]} > 2 x plain bf16 {e_p}")
-        e_k = errs[ka.uses_tensor_cores(bf16, s, dc + dr)]
+                    f"attention S={s} Dc={dc} use_mask={use_mask}: bf16 "
+                    f"kernel error {e_k} > 2 x plain bf16 {e_p}")
+            errs[use_mask] = (e_k, e_p)
         per_attn[(s, dc, dr, dv)] = {"fp32_err": max_err(out, ref),
-                                     "bf16_err": e_k, "plain_bf16_err": e_p}
+                                     "bf16_err": errs[True][0],
+                                     "plain_bf16_err": errs[True][1]}
         log(f"[check] attention S={s} Dc={dc} Dr={dr} Dv={dv}: fp32 max "
-            f"err {max_err(out, ref):.3e}; bf16 err CUDA-core kernel "
-            f"{errs[False]:.3e}, tensor-core kernel {errs[True]:.3e}, plain "
-            f"{e_p:.3e}")
+            f"err {max_err(out, ref):.3e}; bf16 err kernel "
+            f"{errs[True][0]:.3e} vs plain {errs[True][1]:.3e} (mask off "
+            f"{errs[False][0]:.3e} vs {errs[False][1]:.3e})")
     per_conv: dict[int, dict] = {}
-    for i, s in enumerate(sorted(conv_sizes, reverse=True)):
+    for i, s in enumerate(sorted(set(conv_sizes) | set(conv256),
+                                 reverse=True)):
         args = conv_inputs(torch, CHECK_BATCH, s, dev, f32, seed=100 + i)
         out = kc.fused_conv_residual(*args, dtype=f32)
         ref = kc.fused_conv_residual_plain(*args, dtype=f32)
@@ -1670,15 +1800,13 @@ def main() -> int:
             ref16 = ka.fused_rope_attention_plain(*cast(torch, a16, f32),
                                                   dtype=f32, **kw)
             e_p = max_err(p16, ref16)
-            for tc in (False, True):
-                e_k = max_err(ka._launch(*a16, dtype=bf16, tensor_cores=tc,
-                                         **kw), ref16)
-                if not e_k <= 2 * e_p:
-                    raise AssertionError(
-                        f"attention S={s} Dr=0 use_mask={use_mask} "
-                        f"tensor_cores={tc}: bf16 kernel error {e_k} > 2 x "
-                        f"plain bf16 {e_p}")
-                worst16, worst_p = max(worst16, e_k), max(worst_p, e_p)
+            e_k = max_err(ka.fused_rope_attention(*a16, dtype=bf16, **kw),
+                          ref16)
+            if not e_k <= 2 * e_p:
+                raise AssertionError(
+                    f"attention S={s} Dr=0 use_mask={use_mask}: bf16 kernel "
+                    f"error {e_k} > 2 x plain bf16 {e_p}")
+            worst16, worst_p = max(worst16, e_k), max(worst_p, e_p)
             worst32 = max(worst32, max_err(out, ref))
         per_no_rope[(s, dc, dr, dv)] = {
             "fp32_err": worst32, "bf16_err": worst16,
@@ -1688,7 +1816,7 @@ def main() -> int:
             f"{worst_p:.3e}")
 
     per_bwd: dict[tuple, dict] = {}
-    bwd_shapes = sorted(attn_shapes, reverse=True) + no_rope_shapes
+    bwd_shapes = check_shapes + no_rope_shapes
     for i, (s, dc, dr, dv) in enumerate(bwd_shapes):
         args = attn_inputs(torch, CHECK_BATCH, s, dc, dr, dv, dev, f32,
                            seed=500 + i)
@@ -1697,7 +1825,7 @@ def main() -> int:
         n0 = ka.fused_rope_attention_bwd.launches
         with_mask = check_attention_bwd(torch, ka, args, g, scale, True)
         no_mask = check_attention_bwd(torch, ka, args, g, scale, False)
-        if ka.fused_rope_attention_bwd.launches != n0 + 4:
+        if ka.fused_rope_attention_bwd.launches != n0 + 6:
             raise AssertionError("the backward wrapper did not count its "
                                  "launches")
         per_bwd[(s, dc, dr, dv)] = {
@@ -1708,7 +1836,7 @@ def main() -> int:
             f"fp32 worst gradient error {with_mask[0]:.3e} of its largest "
             f"value (mask off {no_mask[0]:.3e}); bf16 worst {with_mask[2]:.3e}"
             f" vs plain {with_mask[3]:.3e} (mask off {no_mask[2]:.3e} vs "
-            f"{no_mask[3]:.3e})")
+            f"{no_mask[3]:.3e}); bf16 twice bit-identical")
 
     # The autograd Function (both kernels) against torch autograd of the
     # plain forward: an independent check of the backward's formulas.
@@ -1737,10 +1865,17 @@ def main() -> int:
                                    cfg.image_size, 3), dtype=np.uint8)
     pred = Predictor.fresh("imagenet-cls-224", seed=0, device="cuda")
     ka.fused_rope_attention.launches = 0
+    ka.fused_rope_attention.stage_launches = 0
     kc.fused_conv_residual.launches = 0
     labels, probs = pred.classify(images)
     main_launches = {"attention": ka.fused_rope_attention.launches,
                      "conv": kc.fused_conv_residual.launches}
+    # One prologue beside each bf16 forward, as the C entry reports.
+    stage_by_path = {"classify": ka.fused_rope_attention.stage_launches}
+    if stage_by_path["classify"] != main_launches["attention"]:
+        raise AssertionError(f"classify: {stage_by_path['classify']} "
+                             f"forward prologues for "
+                             f"{main_launches['attention']} forwards")
     log(f"[serve] classify B={TIME_BATCH} bf16: launches {main_launches}, "
         f"top-5 of image 0 {labels[0].tolist()} p={probs[0].tolist()}")
     if main_launches != {"attention": 24, "conv": 8}:
@@ -1785,6 +1920,32 @@ def main() -> int:
         raise AssertionError("reconstruct: bad shape or values outside [0,1]")
     del reg
 
+    # imagenet-cls-256: its shapes sit at every limit of the rope route.
+    pred256 = Predictor.fresh("imagenet-cls-256", seed=0, device="cuda")
+    images256 = np.random.default_rng(256).integers(
+        0, 256, (TIME_BATCH, cfg256.image_size, cfg256.image_size, 3),
+        dtype=np.uint8)
+    ka.fused_rope_attention.launches = 0
+    kc.fused_conv_residual.launches = 0
+    labels256, probs256 = pred256.classify(images256)
+    cls256_launches = {"attention": ka.fused_rope_attention.launches,
+                       "conv": kc.fused_conv_residual.launches}
+    if cls256_launches != {"attention": 24, "conv": 8}:
+        raise AssertionError(f"imagenet-cls-256 classify: expected 24 + 8 "
+                             f"launches, got {cls256_launches}")
+    if labels256.shape != (TIME_BATCH, 5) or not np.isfinite(probs256).all():
+        raise AssertionError("imagenet-cls-256 classify: bad shape or "
+                             "non-finite probabilities")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        pred256.classify(images256)
+    cls256_img_s = 3 * TIME_BATCH / (time.perf_counter() - t0)
+    log(f"[serve] imagenet-cls-256 classify B={TIME_BATCH} bf16: launches "
+        f"{cls256_launches}, {cls256_img_s:.2f} images/s, top-5 of image 0 "
+        f"{labels256[0].tolist()}")
+    del pred256
+
     # 5. the training path: a trainer that takes a few steps
     TRAIN_STEPS = 6
     soft = rng.random((TIME_BATCH, cfg.model.out_features)).astype(np.float32)
@@ -1817,7 +1978,24 @@ def main() -> int:
     def zero_counts():
         ka.fused_rope_attention.launches = 0
         ka.fused_rope_attention_bwd.launches = 0
+        ka.fused_rope_attention.stage_launches = 0
+        ka.fused_rope_attention_bwd.stage_launches = 0
         kc.fused_conv_residual.launches = 0
+
+    def stage_counts(path, launches):
+        """Read the stage counters after the path `path`: one prologue per
+        bf16 forward, and per flagship backward (rope half and mask) the
+        prologue, the keys kernel, the table-grad reduction and the two
+        weight-grad products with their reduction."""
+        fwd = ka.fused_rope_attention.stage_launches
+        bwd = ka.fused_rope_attention_bwd.stage_launches
+        if (fwd != launches["attention_fwd"]
+                or bwd != 6 * launches["attention_bwd"]):
+            raise AssertionError(
+                f"{path}: stage launches forward {fwd}, backward {bwd} for "
+                f"{launches['attention_fwd']} forwards and "
+                f"{launches['attention_bwd']} backwards")
+        return fwd, bwd
 
     _, model = create_vit("imagenet-cls-224", seed=cfg.init_seed,
                           device="cuda")
@@ -1869,6 +2047,8 @@ def main() -> int:
                 "finite nonzero gradient, inv_freq of both RoPEs and the "
                 "mask MLP included")
     train_launches = counts()
+    train_stages = stage_counts("train", train_launches)
+    stage_by_path[f"train_{TRAIN_STEPS}_steps"] = train_stages[0]
     train_peak_gib = torch.cuda.max_memory_allocated() / 2**30
     if not train_losses[-1] < train_losses[0]:
         raise AssertionError(f"loss did not fall on a repeated batch: "
@@ -1892,6 +2072,7 @@ def main() -> int:
             torch.from_numpy(images).to(dev), crop=cfg.crop),
             "label": train_batch["label"].argmax(-1)})
     eval_launches = counts()
+    stage_by_path["eval_step"] = stage_counts("eval step", eval_launches)[0]
     log(f"[train] eval step on the trained state: {int(ev['correct'])} of "
         f"{int(ev['total'])} correct, kl {float(ev['kl']):.6f}, launches "
         f"{eval_launches}")
@@ -1938,52 +2119,114 @@ def main() -> int:
         f"{worst[1]:.3e} of its largest value")
     del sides, g_gpu, g_cpu, start_model
 
-    # 6. timing at B=128 bf16. The shapes with Dr = 0 are not on the
-    # flagship's path (launches 0): they time the `_make_fused` case.
+    # One bf16 training step of imagenet-cls-256 at B=128.
+    _, model256 = create_vit("imagenet-cls-256", seed=cfg256.init_seed,
+                             device="cuda")
+    with torch.no_grad():
+        for _ in range(WARMUP_POWER_ITERATIONS):
+            normalize_tree(model256, training=True)
+    soft256 = np.random.default_rng(257).random(
+        (TIME_BATCH, cfg256.model.out_features)).astype(np.float32)
+    tx256 = optimizer()
+    state256 = create_train_state(model256, tx256, seed=0)
+    step256 = make_train_step(
+        cfg256.model, tx256, "cls", dtype=bf16, remat=cfg256.remat,
+        preprocess=lambda gen, b_: {
+            "image": eval_preprocess(b_["image"], crop=cfg256.crop),
+            "label": b_["label"]})
+    zero_counts()
+    t0 = time.perf_counter()
+    state256, m256 = step256(state256, {
+        "image": images256, "label": soft256 / soft256.sum(-1, keepdims=True)})
+    torch.cuda.synchronize()
+    step256_ms = (time.perf_counter() - t0) * 1e3
+    launches256 = counts()
+    bad = [k for k, p_ in model256.named_parameters()
+           if p_.grad is None or not torch.isfinite(p_.grad).all()]
+    if (launches256 != {"attention_fwd": 24, "attention_bwd": 24, "conv": 0}
+            or not np.isfinite(float(m256["loss"])) or bad):
+        raise AssertionError(f"imagenet-cls-256 step: launches "
+                             f"{launches256}, loss {float(m256['loss'])}, "
+                             f"non-finite gradients {bad[:5]}")
+    log(f"[train] imagenet-cls-256 bf16 step B={TIME_BATCH}: loss "
+        f"{float(m256['loss']):.6f}, grad_norm "
+        f"{float(m256['grad_norm']):.4f}, every gradient finite, launches "
+        f"{launches256}, {step256_ms:.1f} ms (first step)")
+    del model256, state256, step256, tx256
+    torch.cuda.empty_cache()
+
+    # 6. timing at B=128 bf16. The shapes with Dr = 0 and those of
+    # imagenet-cls-256 are not on the flagship's path (launches 0): they
+    # time the `_make_fused` case and the other config.
     attn_rows, bwd_rows, conv_rows = [], [], []
-    timed = [(shape, attn_shapes[shape], per_attn[shape])
+    timed = [(shape, attn_shapes[shape], per_attn[shape], None)
              for shape in sorted(attn_shapes, reverse=True)]
-    timed += [(shape, 0, per_no_rope[shape]) for shape in no_rope_shapes]
-    for i, ((s, dc, dr, dv), launches, errs) in enumerate(timed):
+    timed += [(shape, 0, per_attn[shape], attn256[shape])
+              for shape in sorted(attn256, reverse=True)]
+    timed += [(shape, 0, per_no_rope[shape], None)
+              for shape in no_rope_shapes]
+    for i, ((s, dc, dr, dv), launches, errs, l256) in enumerate(timed):
         args = attn_inputs(torch, TIME_BATCH, s, dc, dr, dv, dev, bf16,
                            seed=200 + i)
         g = grad_like(torch, TIME_BATCH, s, dv, dev, bf16, seed=250 + i)
         kw = dict(scale=1.0 / (dc + dr) ** 0.5, dtype=bf16)
-        plain = cuda_ms(torch,
-                        lambda: ka.fused_rope_attention_plain(*args, **kw),
-                        3, warmup=1)
-        by_path = {tc: cuda_ms(torch, lambda: ka._launch(
-            *args, use_mask=True, tensor_cores=tc, **kw), 5)
-            for tc in (False, True)}
-        served = ka.uses_tensor_cores(bf16, s, dc + dr)
-        ms = by_path[served]
+        extra = {} if l256 is None else {"config": "imagenet-cls-256",
+                                          "launches_cls256": l256}
+        # plain, kernel, kernel, plain: both read twice in one call
+        plain_a = cuda_ms(torch,
+                          lambda: ka.fused_rope_attention_plain(*args, **kw),
+                          3, warmup=1)
+        ms_a = cuda_ms(torch, lambda: ka.fused_rope_attention(*args, **kw),
+                       10)
+        ms_b = cuda_ms(torch, lambda: ka.fused_rope_attention(*args, **kw),
+                       10)
+        plain_b = cuda_ms(torch,
+                          lambda: ka.fused_rope_attention_plain(*args, **kw),
+                          3, warmup=0)
+        ms, plain = min(ms_a, ms_b), min(plain_a, plain_b)
         t_bytes, t_ops = attn_bound(TIME_BATCH, s, dc, dr, dv, 2)
         row = dict(S=s, Dc=dc, Dr=dr, Dv=dv, launches=launches, ms=ms,
                    plain_ms=plain, bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
-                   tensor_cores=served, cuda_core_ms=by_path[False],
-                   tensor_core_ms=by_path[True], **errs)
+                   ms_reads=[ms_a, ms_b], plain_ms_reads=[plain_a, plain_b],
+                   **extra, **errs)
         attn_rows.append(row)
         log(f"[time] attention S={s} Dc={dc} Dr={dr} Dv={dv}: kernel "
-            f"{ms:.4f} ms ({'tensor' if served else 'CUDA'} cores; CUDA-core"
-            f" {by_path[False]:.4f}, tensor-core {by_path[True]:.4f}), plain "
-            f"{plain:.4f} ms, bound {row['bound_ms']:.4f} ms "
-            f"({row['bound_by']}), {row['bound_ms'] / ms:.1%} of bound")
-        ms = cuda_ms(torch, lambda: ka.fused_rope_attention_bwd(
-            g, *args, **kw), 3, warmup=1)
-        plain = cuda_ms(torch, lambda: ka.fused_rope_attention_bwd_plain(
+            f"{ms:.4f} ms ({ms_a:.4f}, {ms_b:.4f}), plain {plain:.4f} ms, "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+            f"{row['bound_ms'] / ms:.1%} of bound")
+        plain_a = cuda_ms(torch, lambda: ka.fused_rope_attention_bwd_plain(
             g, *args, **kw), 2, warmup=1)
+        ms_a = cuda_ms(torch, lambda: ka.fused_rope_attention_bwd(
+            g, *args, **kw), 5, warmup=1)
+        ms_b = cuda_ms(torch, lambda: ka.fused_rope_attention_bwd(
+            g, *args, **kw), 5, warmup=0)
+        plain_b = cuda_ms(torch, lambda: ka.fused_rope_attention_bwd_plain(
+            g, *args, **kw), 2, warmup=0)
+        ms, plain = min(ms_a, ms_b), min(plain_a, plain_b)
         t_bytes, t_ops = attn_bwd_bound(TIME_BATCH, s, dc, dr, dv, 2)
         row = dict(S=s, Dc=dc, Dr=dr, Dv=dv, launches=launches, ms=ms,
                    plain_ms=plain, bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
-                   **per_bwd[(s, dc, dr, dv)])
+                   ms_reads=[ms_a, ms_b], plain_ms_reads=[plain_a, plain_b],
+                   **extra, **per_bwd[(s, dc, dr, dv)])
         bwd_rows.append(row)
         log(f"[time] attention backward S={s} Dc={dc} Dr={dr} Dv={dv}: "
-            f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
-            f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
-            f"{row['bound_ms'] / ms:.1%} of bound")
+            f"kernel {ms:.4f} ms ({ms_a:.4f}, {ms_b:.4f}), plain "
+            f"{plain:.4f} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}), {row['bound_ms'] / ms:.1%} of bound")
         del args, g
+    for name_, rows_ in (("forward", attn_rows), ("backward", bwd_rows)):
+        k_sum = sum(r["launches"] * r["ms"] for r in rows_)
+        p_sum = sum(r["launches"] * r["plain_ms"] for r in rows_)
+        b_sum = sum(r["launches"] * r["bound_ms"] for r in rows_)
+        log(f"[time] rope attention {name_}, flagship sum over one "
+            f"{'forward' if name_ == 'forward' else 'step'}: kernel "
+            f"{k_sum:.3f} ms, plain {p_sum:.3f} ms, bound {b_sum:.4f} ms "
+            f"({b_sum / k_sum:.1%} of bound); on {name} ({smi})")
+        if not k_sum < p_sum:
+            log(f"[time] NOTE: the rope attention {name_} kernel is slower "
+                f"than its plain version in this call")
     for s in sorted(conv_sizes, reverse=True):
         args = conv_inputs(torch, TIME_BATCH, s, dev, bf16, seed=300 + s)
         ms = cuda_ms(torch, lambda: kc.fused_conv_residual(*args,
@@ -2027,10 +2270,16 @@ def main() -> int:
     events = [e for e in prof.key_averages()
               if e.device_type.name == "CUDA"]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    attn_cls_ms = sum(e.self_device_time_total for e in events
+                      if "rope_attention_fwd" in e.key
+                      or "rope_prep_kernel" in e.key) / 1e3
+    classify_trace = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+                      "attention_ms": attn_cls_ms}
     log(f"[trace] one classify forward B={TIME_BATCH} bf16 under the "
         f"profiler: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
         f"({busy_ms / wall_ms:.1%}), {sum(e.count for e in events)} device "
-        f"kernels")
+        f"kernels; rope attention (kernel and prologue) {attn_cls_ms:.2f} ms"
+        f", {attn_cls_ms / busy_ms:.1%} of device busy time")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
         log(f"[trace] {e.self_device_time_total / 1e3:9.3f} ms "
             f"{e.count:5d}x  {e.key[:100]}")
@@ -2051,19 +2300,24 @@ def main() -> int:
                    if any(n in e.key for n in needles)) / 1e3
 
     fwd_ms = device_ms("rope_attention_fwd")
-    bwd_ms = device_ms("rope_attention_bwd", "xty_kernel",
-                       "reduce_leading_kernel")
+    bwd_ms = device_ms("bwd_rows_kernel", "bwd_keys_kernel",
+                       "xty_mma_kernel", "reduce_leading_kernel")
+    prep_ms = device_ms("rope_prep_kernel")   # both directions' prologue
     train_trace = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
                    "attention_fwd_ms": fwd_ms, "attention_bwd_ms": bwd_ms,
-                   "attention_share_of_busy": (fwd_ms + bwd_ms) / busy_ms}
+                   "attention_prologue_ms": prep_ms,
+                   "attention_share_of_busy":
+                       (fwd_ms + bwd_ms + prep_ms) / busy_ms}
     log(f"[trace] one training step B={TIME_BATCH} bf16 under the profiler: "
         f"wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
         f"({busy_ms / wall_ms:.1%}), {sum(e.count for e in events)} device "
         f"kernels; attention forward kernels {fwd_ms:.2f} ms, backward "
-        f"kernels {bwd_ms:.2f} ms (main {device_ms('rope_attention_bwd'):.2f}"
-        f", weight grads {device_ms('xty_kernel'):.2f}, reductions "
-        f"{device_ms('reduce_leading_kernel'):.2f}): "
-        f"{(fwd_ms + bwd_ms) / busy_ms:.1%} of device busy time")
+        f"kernels {bwd_ms:.2f} ms (rows {device_ms('bwd_rows_kernel'):.2f}"
+        f", keys {device_ms('bwd_keys_kernel'):.2f}, weight grads "
+        f"{device_ms('xty_mma_kernel'):.2f}, reductions "
+        f"{device_ms('reduce_leading_kernel'):.2f}), prologues "
+        f"{prep_ms:.2f} ms: {(fwd_ms + bwd_ms + prep_ms) / busy_ms:.1%} of "
+        "device busy time")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
         log(f"[trace] {e.self_device_time_total / 1e3:9.3f} ms "
             f"{e.count:5d}x  {e.key[:100]}")
@@ -2125,6 +2379,15 @@ def main() -> int:
     kernels[1]["launches_by_path"] = {
         f"train_{TRAIN_STEPS}_steps": train_launches["attention_bwd"]}
     kernels[1]["no_rope_case_replaces"] = ka.BWD_REPLACES_NO_ROPE
+    # The launches each call makes beside its kernel, per main path, read
+    # after that path with the counters set to 0 before it: the forward's
+    # prologue; the backward's prologue, keys kernel, table and weight-grad
+    # reductions.
+    stage_by_path["serve_evaluate_int8_phase10"] = \
+        serve_launches["attention_prologues"]
+    kernels[0]["stage_launches_by_path"] = stage_by_path
+    kernels[1]["stage_launches_by_path"] = {
+        f"train_{TRAIN_STEPS}_steps": train_stages[1]}
     kernels[2]["launches_by_path"] = {
         "classify": main_launches["conv"],
         f"train_{TRAIN_STEPS}_steps": train_launches["conv"],
@@ -2151,7 +2414,11 @@ def main() -> int:
     log(f"[done] {time.time() - t_start:.1f} s")
     log(json.dumps({"classify": {"batch": TIME_BATCH, "dtype": "bfloat16",
                                  "images_per_s": img_s,
-                                 "peak_mem_gib": peak_gib},
+                                 "peak_mem_gib": peak_gib,
+                                 "trace": classify_trace},
+                    "classify_imagenet_cls_256": {
+                        "batch": TIME_BATCH, "dtype": "bfloat16",
+                        "images_per_s": cls256_img_s},
                     "train": {"batch": TIME_BATCH, "dtype": "bfloat16",
                               "remat": cfg.remat, "microbatches": 1,
                               "ms_per_step": steady_ms,

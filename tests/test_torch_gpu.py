@@ -65,14 +65,14 @@ def test_rope_attention_kernel_matches_plain(cuda_device, s, dc, dr,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("s,dc,dr,tensor_cores", [
-    (44, 6, 6, False), (44, 0, 12, False), (80, 10, 10, False),
-    (80, 10, 10, True), (224, 0, 56, False), (224, 0, 56, True)])
-def test_rope_attention_kernel_bf16_error(cuda_device, s, dc, dr,
-                                          tensor_cores):
-    """bf16: each kernel's error against the fp32 plain version is at most
-    twice the plain bf16 version's (the CUDA-core kernel, and the WMMA one
-    where S % 16 == 0)."""
+@pytest.mark.parametrize("s,dc,dr", [
+    (44, 6, 6), (44, 0, 12), (80, 10, 10), (224, 0, 56), (224, 28, 28),
+    (256, 32, 32), (208, 26, 26), (160, 20, 20), (112, 14, 14)])
+@pytest.mark.parametrize("use_mask", [True, False])
+def test_rope_attention_kernel_bf16_error(cuda_device, s, dc, dr, use_mask):
+    """bf16: the tensor-core kernel's error against the fp32 plain version
+    is at most twice the plain bf16 version's, at the flagship's and
+    imagenet-cls-256's shapes and at a ragged S (44, padded to 48)."""
     rng = np.random.default_rng(s + dr)
     b, d = 2, dc + dr
 
@@ -89,13 +89,12 @@ def test_rope_attention_kernel_bf16_error(cuda_device, s, dc, dr,
             n(2 * s, scale=0.05, dtype=f32),
             n(s, 2 * s, scale=0.05, dtype=f32), n(s, scale=0.05, dtype=f32)]
     scale = 1.0 / math.sqrt(d)
-    out = ka._launch(*args, scale=scale, dtype=torch.bfloat16, use_mask=True,
-                     tensor_cores=tensor_cores)
-    plain = ka.fused_rope_attention_plain(*args, scale=scale,
-                                          dtype=torch.bfloat16)
+    kw = dict(scale=scale, use_mask=use_mask)
+    out = ka.fused_rope_attention(*args, dtype=torch.bfloat16, **kw)
+    plain = ka.fused_rope_attention_plain(*args, dtype=torch.bfloat16, **kw)
     ref = ka.fused_rope_attention_plain(
         *[a if a is None or a.dim() < 4 else a.float() for a in args],
-        scale=scale, dtype=f32)
+        dtype=f32, **kw)
     err = (out.float() - ref).abs().max()
     assert err <= 2 * (plain.float() - ref).abs().max()
 
@@ -126,9 +125,12 @@ GRAD_NAMES = ("dqc", "dqr", "dkc", "dkr", "dv", "dcos_q", "dsin_q", "dcos_k",
               "dsin_k", "dw1", "db1", "dw2", "db2")
 # Every flagship attention shape (S, Dc, Dr), with and without content
 # halves, and the no-rope case (Dr = 0) of the `_make_fused` kernels.
+# imagenet-cls-256's shapes sit at every limit of the rope route (S 256,
+# D 64, Dv 64); S = 44 is ragged (padded to 48 in the bf16 kernels).
 BWD_SHAPES = [(224, 28, 28), (224, 0, 56), (176, 22, 22), (176, 0, 44),
               (128, 16, 16), (128, 0, 32), (80, 10, 10), (80, 0, 20),
-              (224, 56, 0), (80, 20, 0)]
+              (224, 56, 0), (80, 20, 0), (256, 32, 32), (208, 26, 26),
+              (160, 20, 20), (112, 14, 14), (44, 6, 6)]
 
 
 def _norm_err(got, want):
@@ -187,6 +189,49 @@ def test_rope_attention_bwd_kernel_bf16_error(cuda_device, s, dc, dr):
             continue
         assert x.dtype == y.dtype, name
         assert _norm_err(x, r) <= 2 * _norm_err(y, r) + 1e-6, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,dc,dr", [(224, 28, 28), (256, 32, 32),
+                                     (80, 20, 0)])
+@pytest.mark.parametrize("use_mask", [True, False])
+def test_rope_attention_bwd_kernel_bf16_deterministic(cuda_device, s, dc, dr,
+                                                      use_mask):
+    """The bf16 backward (rows kernel, keys kernel, weight-grad products and
+    their fixed-order reductions) gives the same bits on every run."""
+    rng = np.random.default_rng(s + 7)
+    bf16 = torch.bfloat16
+    args, g = _attention_inputs(rng, cuda_device, 4, s, dc, dr, bf16)
+    kw = dict(scale=1.0 / math.sqrt(dc + dr), dtype=bf16, use_mask=use_mask)
+    n0 = ka.fused_rope_attention_bwd.stage_launches
+    first = ka.fused_rope_attention_bwd(g, *args, **kw)
+    second = ka.fused_rope_attention_bwd(g, *args, **kw)
+    torch.cuda.synchronize()
+    # Per call beside the rows kernel: the prologue, the keys kernel, the
+    # table-grad reduction (Dr > 0), two weight-grad products and their
+    # reduction (with the mask).
+    per_call = 2 + (dr > 0) + 3 * use_mask
+    assert ka.fused_rope_attention_bwd.stage_launches == n0 + 2 * per_call
+    for name, x, y in zip(GRAD_NAMES, first, second):
+        assert (x is None) == (y is None), name
+        if x is not None:
+            assert torch.equal(x, y), f"{name} differs between two runs"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,d,dv", [(224, 56, 56), (176, 44, 44),
+                                    (256, 64, 64), (208, 52, 52),
+                                    (44, 12, 12)])
+@pytest.mark.parametrize("use_mask", [True, False])
+def test_rope_attention_layout_helpers_match_the_launch(cuda_device, s, d, dv,
+                                                        use_mask):
+    """The wrapper's shared-memory helpers give the sizes and K/V stages the
+    C launches use."""
+    assert ka.card_layout(s, d, dv, use_mask) == {
+        "forward": (ka.smem_bytes(s, d, dv, use_mask),
+                    ka.fwd_kv_stages(s, d, dv, use_mask)),
+        "rows": ka.bwd_rows_smem_bytes(s, d, dv, use_mask),
+        "keys": ka.bwd_keys_smem_bytes(s, d, dv, use_mask)}
 
 
 @pytest.mark.gpu

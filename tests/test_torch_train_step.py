@@ -1,5 +1,6 @@
-"""The training step as a whole at the tiny config (S=48, fp32, CPU): the
-port's `make_train_step` against the committed reference trajectory, then
+"""The training step as a whole at the tiny configs (S=48, fp32, CPU): the
+port's `make_train_step` against the committed reference trajectories of
+tiny-cls and tiny-reg, then
 the step's own contracts (microbatches, remat, resume).
 tests/test_torch_train_step_jax.py holds it against the JAX package's step.
 
@@ -10,6 +11,7 @@ value, u/v rtol 5e-3 / atol 2e-3 of it.
 
 import copy
 import pathlib
+from dataclasses import replace
 
 import numpy as np
 import pytest
@@ -89,20 +91,46 @@ def _capture_state(model) -> TrainState:
     return TrainState(model=model, opt_state=_Gnorm(), step=0, seed=3)
 
 
-def test_trajectory_matches_the_reference_golden():
-    """Ten optimizer steps from the reference's initial state dict: losses,
-    pre-clip grad norms, final parameters and final u/v of the committed
-    torch AdamW + clip + per-epoch cosine trajectory."""
-    d = np.load(GOLDEN / "grad_traj_cls_tiny.npz")
+CFG = {"cls": TINY_VIT,
+       "reg": replace(TINY_VIT, out_features=144, generate=True)}
+
+
+def _golden(task):
+    d = np.load(GOLDEN / f"grad_traj_{task}_tiny.npz")
     sd0 = {k[3:]: torch.from_numpy(d[k]) for k in d.files
            if k.startswith("sd/")}
+    batch = {"image": d["in/x"].transpose(0, 2, 3, 1)}   # NCHW -> NHWC
+    if task == "cls":
+        batch["label"] = d["in/targets"]
+    model = ViT(CFG[task], torch.Generator().manual_seed(0))
+    model.load_state_dict(sd0)
+    return d, model, batch
+
+
+@pytest.mark.parametrize("task", ["cls", "reg"])
+def test_trajectory_matches_the_reference_golden(task):
+    """Ten optimizer steps from the reference's initial state dict: losses,
+    pre-clip grad norms, final u/v and (cls) final parameters of the
+    committed torch AdamW + clip + per-epoch cosine trajectory.
+
+    The reg golden's final parameters are not held: two elements of
+    decoder_blocks.2.cross miss the 1e-3 / 5e-4 limit (123% and 122% of
+    it). Their first-step gradients (about 4e-9 and 5e-10, against leaf
+    maxima of 3e-3 and 2e-3) are fp32 noise in every implementation:
+    calm_vit_dte_tpu_torch/tools/reg_drift.py finds the port's and the
+    golden's both within 4.1e-10 of the float64 step's. The noise enters at
+    the layer's weight gradient, a sum over 96 tokens that cancels 1240-fold
+    and reads inputs rounded through the whole forward and backward; the
+    spectral-norm pull-back then cancels it again (terms of 2.45e-6), and
+    computes it from its own cotangent to within 2e-11 of float64 in the
+    reference's order or the port's. Adam's first step divides the
+    gradients by |g| + 1e-8 and turns that noise into a 1.4e-4 difference
+    of the parameter. The one-step gradients are held below."""
+    d, model, batch = _golden(task)
     sdF = {k[4:]: d[k] for k in d.files if k.startswith("sdF/")}
-    model = _model(sd0)
     tx = make_optimizer(**OPT)
     state = create_train_state(model, tx, seed=3)
-    step = make_train_step(TINY_VIT, tx, "cls", dtype=F32, remat=False)
-    batch = {"image": d["in/x"].transpose(0, 2, 3, 1),   # NCHW -> NHWC
-             "label": d["in/targets"]}
+    step = make_train_step(CFG[task], tx, task, dtype=F32, remat=False)
     losses, gnorms = [], []
     seq = NoiseSeq()
     with noise_override(seq):
@@ -115,11 +143,36 @@ def test_trajectory_matches_the_reference_golden():
     np.testing.assert_allclose(gnorms, d["out/gnorms"], rtol=2e-3)
     got = {k: v.detach().numpy() for k, v in model.state_dict().items()}
     uv = {k for k in sdF if k.endswith(("weight_u", "weight_v"))}
-    assert_leaves_close({k: got[k] for k in sdF if k not in uv},
-                        {k: sdF[k] for k in sdF if k not in uv}, 1e-3, 5e-4,
-                        "final params")
+    if task == "cls":
+        assert_leaves_close({k: got[k] for k in sdF if k not in uv},
+                            {k: sdF[k] for k in sdF if k not in uv}, 1e-3,
+                            5e-4, "final params")
     assert_leaves_close({k: got[k] for k in uv}, {k: sdF[k] for k in uv},
                         5e-3, 2e-3, "final u/v")
+
+
+@pytest.mark.parametrize("task", ["cls", "reg"])
+def test_one_step_gradients_match_the_reference_golden(task):
+    """The first step's loss, pre-clip grad norm and every parameter's
+    gradient against the reference's, at tests/test_parity_grad.py's
+    `test_grad_parity` limits: loss rtol 1e-4, grad norm rtol 1e-3,
+    gradients rtol 5e-3 / atol 2e-4 of the leaf's largest value."""
+    d, model, batch = _golden(task)
+    cap = Capture()
+    step = make_train_step(CFG[task], cap, task, dtype=F32, remat=False)
+    seq = NoiseSeq()
+    with noise_override(seq):
+        _, m = step(_capture_state(model), batch)
+    assert seq.i == int(d["out/noise_count"]) // 10
+    np.testing.assert_allclose(float(m["loss"]), d["out/losses"][0],
+                               rtol=1e-4)
+    gnorm = torch.linalg.vector_norm(torch.stack(
+        [g.norm() for g in cap.grads]))
+    np.testing.assert_allclose(float(gnorm), d["out/gnorms"][0], rtol=1e-3)
+    want = {k[5:]: d[k] for k in d.files if k.startswith("grad/")}
+    got = {name: g.numpy() for (name, _), g in
+           zip(model.named_parameters(), cap.grads)}
+    assert_leaves_close(got, want, 5e-3, 2e-4, "one-step gradients")
 
 
 @pytest.fixture(scope="module")
