@@ -8,7 +8,6 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 
 #include <cstddef>
 

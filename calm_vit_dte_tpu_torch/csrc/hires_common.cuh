@@ -7,9 +7,9 @@
 //   * the register-tile products over 64-row tiles in shared memory that the
 //     attention kernels are built from, and their row reductions.
 // Every product reads the compute type T (float or bf16) and accumulates in
-// fp32 (bf16 products of the strided product on the tensor cores, all others
-// as fp32 FMAs); nothing is atomic, so every result is the same from run to
-// run.
+// fp32 as fp32 FMAs: the fp32 route, and the bf16 dk/dv kernel. The bf16
+// route's products run on the tensor cores (hires_mma.cuh). Nothing is
+// atomic, so every result is the same from run to run.
 #pragma once
 
 #include <type_traits>
@@ -50,6 +50,25 @@ struct Gemm {
   const float* bias;  // may be null
   int M, N, K, KO, epilogue;
   long long sAz, sAo, sAm, sAk, sBz, sBo, sBk, sBn, sCz, ldc;
+  // 0, or (bf16 only) the whole contraction length: blockIdx.z then splits
+  // it into ranges of K (sAz, sBz the offsets of one range, sCz of its
+  // partial output).
+  int Ktot;
+};
+
+// What one entry-point call launched: its kernels, and the largest dynamic
+// shared memory a CTA of them asked for. done() checks each launch.
+struct Report {
+  int launched = 0;
+  size_t smem = 0;
+  cudaError_t done(size_t bytes) {
+    const cudaError_t err = cudaGetLastError();
+    if (err == cudaSuccess) {
+      ++launched;
+      if (bytes > smem) smem = bytes;
+    }
+    return err;
+  }
 };
 
 // One output element through the epilogue (bounds-checked).
@@ -75,7 +94,7 @@ __device__ __forceinline__ void store_c(const Gemm& g, int m, int n,
   }
 }
 
-// fp32: CUDA-core FMAs.
+// CUDA-core FMAs (the fp32 route).
 template <typename T>
 __global__ void __launch_bounds__(kThreads) gemm_kernel(const Gemm g) {
   __shared__ float sA[kDepth][kTile + 4];
@@ -132,86 +151,6 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(const Gemm g) {
       store_c<T>(g, m0 + ty + 16 * i, n0 + tx + 16 * j, acc[i][j]);
 }
 
-// bf16: the same product on the tensor cores, WMMA 16x16x16 bf16 tiles
-// accumulating in fp32 (mma.sync). Warp w owns the 16 x 32 block at rows
-// 16 (w % 4), columns 32 (w / 4) of the CTA's 64 x 64 tile; the contraction
-// steps by 32 through shared memory, and the epilogue reads the sums back
-// from shared memory in the CUDA-core kernel's thread layout.
-constexpr int kTcDepth = 32;
-
-__global__ void __launch_bounds__(kThreads) gemm_tc_kernel(const Gemm g) {
-  using namespace nvcuda;
-  typedef __nv_bfloat16 bf16;
-  constexpr int lda = kTcDepth + 8, ldb = kTile + 8, ldc = kTile + 4;
-  __shared__ __align__(128) bf16 sA[kTile * lda];      // A[m][k]
-  __shared__ __align__(128) bf16 sB[kTcDepth * ldb];   // B[k][n]
-  __shared__ __align__(128) float sC[kTile * ldc];
-  const bf16* A = static_cast<const bf16*>(g.A) + blockIdx.z * g.sAz;
-  const bf16* Bm = static_cast<const bf16*>(g.B) + blockIdx.z * g.sBz;
-  const int m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
-  const int warp = threadIdx.x >> 5;
-  const int rt = warp % 4, ct = (warp / 4) * 2;
-  const bool a_k_fast = g.sAk == 1, b_n_fast = g.sBn == 1;
-  const bf16 zero_bf = __float2bfloat16(0.f);
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
-  wmma::fill_fragment(acc[0], 0.f);
-  wmma::fill_fragment(acc[1], 0.f);
-
-  for (int o = 0; o < g.KO; ++o) {
-    const bf16* Ao = A + o * g.sAo;
-    const bf16* Bo = Bm + o * g.sBo;
-    for (int k0 = 0; k0 < g.K; k0 += kTcDepth) {
-      for (int idx = threadIdx.x; idx < kTcDepth * kTile; idx += kThreads) {
-        const int ka = a_k_fast ? idx % kTcDepth : idx / kTile;
-        const int ma = a_k_fast ? idx / kTcDepth : idx % kTile;
-        const int m = m0 + ma, k = k0 + ka;
-        sA[ma * lda + ka] =
-            m < g.M && k < g.K ? Ao[m * g.sAm + k * g.sAk] : zero_bf;
-        const int kb = b_n_fast ? idx / kTile : idx % kTcDepth;
-        const int nb = b_n_fast ? idx % kTile : idx / kTcDepth;
-        const int n = n0 + nb, kk = k0 + kb;
-        sB[kb * ldb + nb] =
-            n < g.N && kk < g.K ? Bo[kk * g.sBk + n * g.sBn] : zero_bf;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kTcDepth; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, sA + rt * 16 * lda + kk, lda);
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-          wmma::load_matrix_sync(b, sB + kk * ldb + (ct + c) * 16, ldb);
-          wmma::mma_sync(acc[c], a, b, acc[c]);
-        }
-      }
-      __syncthreads();
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < 2; ++c)
-    wmma::store_matrix_sync(sC + rt * 16 * ldc + (ct + c) * 16, acc[c], ldc,
-                            wmma::mem_row_major);
-  __syncthreads();
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      store_c<bf16>(g, m0 + ty + 16 * i, n0 + tx + 16 * j,
-                    sC[(ty + 16 * i) * ldc + tx + 16 * j]);
-}
-
-template <typename T>
-cudaError_t gemm(const Gemm& g, int Z, cudaStream_t st) {
-  const dim3 grid((g.N + kTile - 1) / kTile, (g.M + kTile - 1) / kTile, Z);
-  if constexpr (std::is_same<T, __nv_bfloat16>::value)
-    gemm_tc_kernel<<<grid, kThreads, 0, st>>>(g);
-  else
-    gemm_kernel<T><<<grid, kThreads, 0, st>>>(g);
-  return cudaGetLastError();
-}
-
 // Column sums of a row-major (R x N) X in the compute type, in two ordered
 // stages: colsum_kernel sums rows [z * rows, (z + 1) * rows) of each column
 // into part[z][n] (one thread per column), sum_splits_kernel adds the splits
@@ -241,15 +180,15 @@ __global__ void sum_splits_kernel(const float* __restrict__ part, int splits,
 // out (N) = column sums of X (R x N); part holds kColSplits * N floats.
 template <typename T>
 cudaError_t colsum(const T* X, long long R, int N, float* part, float* out,
-                   cudaStream_t st) {
+                   cudaStream_t st, Report& rep) {
   const long long rows = (R + kColSplits - 1) / kColSplits;
   const unsigned blocks = (unsigned)((N + 127) / 128);
   colsum_kernel<T><<<dim3(blocks, kColSplits), 128, 0, st>>>(X, R, N, rows,
                                                              part);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = rep.done(0);
   if (err != cudaSuccess) return err;
   sum_splits_kernel<<<blocks, 128, 0, st>>>(part, kColSplits, N, out);
-  return cudaGetLastError();
+  return rep.done(0);
 }
 
 // ---------------------------------------------------------------------------

@@ -30,8 +30,14 @@ product accumulates in fp32, o, dq, dk and dv are written in the compute
 dtype, m, lse, dssum and the weight grads in fp32.
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
-launches its kernel or raises. Each wrapper counts its launches in
-`.launches`.
+launches its kernels or raises. The bf16 route runs every product on the
+tensor cores and takes S, D and Dv that are multiples of 8; the fp32 route
+(the card-vs-CPU checks) runs them on the CUDA cores and takes any shape
+with D, Dv <= 256. Each wrapper counts its calls in `.launches`; the C
+entries report the kernels each call launched and the largest dynamic
+shared memory a CTA of them asked for, and the wrappers add the launches
+past the counted one to `.stage_launches` and keep the shared memory of
+their last call in `.smem_bytes`.
 """
 
 from __future__ import annotations
@@ -56,7 +62,7 @@ REPLACES_DQ = "calm_vit_dte_tpu/kernels/axial_attention.py:1087"
 REPLACES_DKV = "calm_vit_dte_tpu/kernels/axial_attention.py:1125"
 REPLACES_FWD_ONLY = "calm_vit_dte_tpu/kernels/axial_attention.py:1221"
 MAX_D = 256     # head dims the kernels' register tiles hold (D and Dv)
-COL_SPLITS = 64  # row splits of the ordered bias-grad sums (kColSplits)
+BF16_MULTIPLE = 8  # S, D and Dv of the bf16 route: rows of 16 bytes
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -146,6 +152,10 @@ def _dims(q, k, v, dtype) -> tuple:
     if d > MAX_D or dv > MAX_D:
         raise ValueError(f"head dims D={d}, Dv={dv}: the kernels take at "
                          f"most {MAX_D}")
+    if dtype == torch.bfloat16 and (s % BF16_MULTIPLE or d % BF16_MULTIPLE
+                                    or dv % BF16_MULTIPLE):
+        raise ValueError(f"S={s}, D={d}, Dv={dv}: the bf16 kernels take "
+                         f"multiples of {BF16_MULTIPLE}")
     _check(q, "q", (b, h, s, d), dtype, v.device)
     _check(k, "k", (b, h, s, d), dtype, v.device)
     _check(v, "v", (b, h, s, dv), dtype, v.device)
@@ -153,16 +163,30 @@ def _dims(q, k, v, dtype) -> tuple:
 
 
 def _fn(lib: str, name: str, n_ptrs: int, n_flags: int = 0,
-        dims: int = 5, scale: bool = True):
+        dims: int = 5, scale: bool = True, report: bool = True):
     """The C entry point, typed: is_bf16 and `n_flags` more ints, the
-    pointers, `dims` ints, the scale (if any) and the stream."""
+    pointers, `dims` ints, the scale (if any), the stream and (with
+    `report`) the launch report's int and long long pointers."""
     fn = getattr(library(lib), name)
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_int] * (1 + n_flags)
                        + [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * dims
-                       + [ctypes.c_float] * scale + [ctypes.c_void_p])
+                       + [ctypes.c_float] * scale + [ctypes.c_void_p]
+                       + [ctypes.POINTER(ctypes.c_int),
+                          ctypes.POINTER(ctypes.c_longlong)] * report)
         fn.restype = ctypes.c_int
     return fn
+
+
+def _call(fn, counter, *args) -> int:
+    """Call a reporting C entry; add the kernels it launched past the one
+    counted in `counter.launches` to `counter.stage_launches` and keep its
+    shared memory per CTA in `counter.smem_bytes`. Returns its error."""
+    launched, smem = ctypes.c_int(0), ctypes.c_longlong(0)
+    err = fn(*args, ctypes.byref(launched), ctypes.byref(smem))
+    counter.stage_launches += max(launched.value - 1, 0)
+    counter.smem_bytes = smem.value
+    return err
 
 
 def _ptr(t):
@@ -176,9 +200,10 @@ def _raise_on(err: int, what: str, dims: tuple, dtype) -> None:
 
 
 def _launch_fwd(q, k, v, w1, b1, w2, b2, *, scale, dtype, use_mask: bool,
-                residuals: bool) -> tuple:
+                residuals: bool, counter) -> tuple:
     """The forward on the card: (o, m, lse), m and lse None without
-    `residuals` (kernel 4, whose m is scratch)."""
+    `residuals` (kernel 4, whose m is scratch). `counter` is the wrapper
+    whose stage launches the call adds to."""
     b, h, s, d, dv = dims = _dims(q, k, v, dtype)
     dev = v.device
 
@@ -200,8 +225,9 @@ def _launch_fwd(q, k, v, w1, b1, w2, b2, *, scale, dtype, use_mask: bool,
         b1 = b2 = None
     o = new((b, h, s, dv), dtype)
     lse = new((b, h, s)) if residuals else None
-    err = _fn("hires_attention", "hires_attention_fwd", 12, n_flags=2)(
-        int(dtype == torch.bfloat16), int(residuals), int(use_mask),
+    err = _call(
+        _fn("hires_attention", "hires_attention_fwd", 12, n_flags=2),
+        counter, int(dtype == torch.bfloat16), int(residuals), int(use_mask),
         _ptr(q), _ptr(k), _ptr(v), _ptr(w1t), _ptr(b1), _ptr(w2t), _ptr(b2),
         _ptr(ssum), _ptr(a), _ptr(m), _ptr(o), _ptr(lse), b, h, s, d, dv,
         float(scale), torch.cuda.current_stream(dev).cuda_stream)
@@ -231,7 +257,8 @@ def _launch_dq(q, k, v, g, m, lse, delta, w1, b1, w2, *, scale,
     ssum, dm = new((b, s, s), dtype), new((b, s, s), dtype)
     a, dh1, gp = (new((b, s, 2 * s), dtype), new((b, s, 2 * s), dtype),
                   new((b, s, 2 * s)))
-    err = _fn("hires_attention_bwd", "hires_attention_dq", 18)(
+    err = _call(
+        _fn("hires_attention_bwd", "hires_attention_dq", 18), hires_dq,
         int(dtype == torch.bfloat16), _ptr(q), _ptr(k), _ptr(v), _ptr(g),
         _ptr(m), _ptr(lse), _ptr(delta), _ptr(w1t), _ptr(b1), _ptr(w1c),
         _ptr(w2c), _ptr(dq), _ptr(dssum), _ptr(ssum), _ptr(dm), _ptr(a),
@@ -253,9 +280,10 @@ def hires_weight_grads_plain(ssum, dm, a, dh1) -> tuple:
 
 def hires_weight_grads(ssum, dm, a, dh1) -> tuple:
     """The weight-grad reduction that `hires_dq` runs on the card after its
-    pass: X^T Y products and column sums over the B*S rows, each output
-    summed by one thread in a fixed order (no atomics, the same bits from
-    run to run). Same returns as `hires_weight_grads_plain`."""
+    pass: X^T Y products and column sums over the B*S rows, every sum in a
+    fixed order (bf16: the products split over fixed row ranges whose
+    partials are added in order; no atomics, the same bits from run to
+    run). Same returns as `hires_weight_grads_plain`."""
     if _on(dm) == "cpu":
         return hires_weight_grads_plain(ssum, dm, a, dh1)
     b, s, _ = dm.shape
@@ -266,12 +294,20 @@ def hires_weight_grads(ssum, dm, a, dh1) -> tuple:
         _check(t, name, shape, dtype, dev)
     outs = [torch.empty(shape, dtype=torch.float32, device=dev)
             for shape in ((2 * s, s), (2 * s,), (s, 2 * s), (s,))]
-    part = torch.empty((COL_SPLITS, 3 * s), dtype=torch.float32, device=dev)
-    err = _fn("hires_attention_bwd", "hires_weight_grads", 9, dims=2,
-              scale=False)(
-        int(dtype == torch.bfloat16), _ptr(ssum), _ptr(dm), _ptr(a),
-        _ptr(dh1), *map(_ptr, outs), _ptr(part), b * s, s,
-        torch.cuda.current_stream(dev).cuda_stream)
+    bf16 = int(dtype == torch.bfloat16)
+    if bf16 and s % BF16_MULTIPLE:
+        raise ValueError(f"S={s}: the bf16 kernels take multiples of "
+                         f"{BF16_MULTIPLE}")
+    scratch = library("hires_attention_bwd").hires_weight_grads_scratch
+    if scratch.argtypes is None:
+        scratch.argtypes = [ctypes.c_int] * 2
+        scratch.restype = ctypes.c_longlong
+    part = torch.empty(scratch(bf16, s), dtype=torch.float32, device=dev)
+    err = _call(
+        _fn("hires_attention_bwd", "hires_weight_grads", 9, dims=2,
+            scale=False), hires_weight_grads,
+        bf16, _ptr(ssum), _ptr(dm), _ptr(a), _ptr(dh1), *map(_ptr, outs),
+        _ptr(part), b * s, s, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "hires_weight_grads", (b, s), dtype)
     hires_weight_grads.launches += 1
     return tuple(outs)
@@ -288,7 +324,8 @@ def _launch_dkv(q, k, v, g, m, lse, delta, dssum, *, scale,
         _check(t, name, shape, torch.float32, dev)
     dk = torch.empty((b, h, s, d), dtype=dtype, device=dev)
     dvv = torch.empty((b, h, s, dv), dtype=dtype, device=dev)
-    err = _fn("hires_attention_bwd", "hires_attention_dkv", 10)(
+    err = _fn("hires_attention_bwd", "hires_attention_dkv", 10,
+              report=False)(
         int(dtype == torch.bfloat16), _ptr(q), _ptr(k), _ptr(v),
         _ptr(g), _ptr(m), _ptr(lse), _ptr(delta), _ptr(dssum), _ptr(dk),
         _ptr(dvv), b, h, s, d, dv, float(scale),
@@ -316,7 +353,8 @@ def hires_fwd_res(q, k, v, w1, b1, w2, b2, *, scale: float, dtype) -> tuple:
         return hires_fwd_res_plain(q, k, v, w1, b1, w2, b2, scale=scale,
                                    dtype=dtype)
     out = _launch_fwd(q, k, v, w1, b1, w2, b2, scale=scale, dtype=dtype,
-                      use_mask=True, residuals=True)
+                      use_mask=True, residuals=True,
+                      counter=fused_hires_attention)
     fused_hires_attention.launches += 1
     return out
 
@@ -393,7 +431,8 @@ def fused_attention_forward(q, k, v, w1, b1, w2, b2, *, scale: float, dtype,
         return attention_core(q, k, v, w1, b1, w2, b2, scale=scale,
                               dtype=dtype, use_mask=use_mask)
     o, _, _ = _launch_fwd(q, k, v, w1, b1, w2, b2, scale=scale, dtype=dtype,
-                          use_mask=use_mask, residuals=False)
+                          use_mask=use_mask, residuals=False,
+                          counter=fused_attention_forward)
     fused_attention_forward.launches += 1
     return o
 
@@ -403,3 +442,11 @@ hires_dq.launches = 0
 hires_weight_grads.launches = 0
 hires_dkv.launches = 0
 fused_attention_forward.launches = 0
+# The launches each card call makes past its counted one, and the largest
+# dynamic shared memory per CTA of the last card call, as the C entries
+# report them.
+for _counter in (fused_hires_attention, hires_dq, hires_weight_grads,
+                 fused_attention_forward):
+    _counter.stage_launches = 0
+    _counter.smem_bytes = 0
+del _counter

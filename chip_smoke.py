@@ -68,15 +68,24 @@ Phases, each fatal on failure (any exception exits non-zero):
              fp32 backward within 1e-4 of each output's largest value, bf16
              at most twice the plain bf16 error; the forward-only kernel with
              the mask off, kernels 1-3 with zero mask weights; the autograd
-             Function against torch autograd of the plain forward);
+             Function against torch autograd of the plain forward; the bf16
+             forwards and dq pass bit-identical across two launches at
+             S=1024, D=256);
              Predictor.fresh("hires-cls-1024").classify on 8 uint8 1168x1168
              images (exactly 24 forward-only + 8 conv launches, no rope
              kernel), fp32 logits card vs CPU on 1 image; five bf16 training
              steps at B=8 with remat (24 + 24 + 24 hires launches and 24
              weight-grad reductions each, loss lower at the end, every
              gradient finite and nonzero), an eval step (24 forward-only),
-             one traced step, one fp32 step on 1 image card vs CPU; each
-             kernel and its plain version timed at B=8 bf16;
+             each path's stage launches as the C entries report them (3 per
+             forward, 4 per dq pass, 6 per weight-grad reduction), one
+             traced step split by kernel family, one fp32 step on 1 image
+             card vs CPU; each kernel and its plain version timed at B=8
+             bf16, with each call's device time by part (the attention
+             tiles, the strided product, the sums) beside the library calls
+             that compute the parts (scaled_dot_product_attention with m as
+             an additive bias; torch.matmul at the strided product's
+             shapes), which the port never calls;
   9. trainer the classification trainer entry point with the fused conv
              residual in training, after the hires phase frees its memory:
              the forward that saves h and acc and the recomputing backward
@@ -132,7 +141,9 @@ launches each bf16 call makes beside its kernel, as the C entry reports
 them (the forward's prologue; the backward's prologue, keys kernel, table
 and weight-grad reductions), read per main path after the counters were set
 to 0 before it, and checked against the path's launches (one prologue per
-forward, six per flagship backward).
+forward, six per flagship backward); so do the hires kernels' (their
+strided products and sums), whose per-shape rows also carry the parts'
+device times, the parts' library times and the shared memory per CTA.
 """
 
 from __future__ import annotations
@@ -261,7 +272,10 @@ def conv_bound(b, s, itemsize):
 
 # The tensor-core kernels whose registers and spills phase 2 prints.
 TENSOR_CORE_KERNELS = ("rope_attention_fwd_bf16_kernel", "bwd_rows_kernel",
-                       "bwd_keys_kernel", "xty_mma_kernel")
+                       "bwd_keys_kernel", "xty_mma_kernel",
+                       "hires_attention_bf16_kernel",
+                       "hires_dm_ssum_bf16_kernel", "hires_dq_bf16_kernel",
+                       "gemm_tc_kernel")
 
 
 def kernel_registers(ptxas_log):
@@ -278,9 +292,10 @@ def kernel_registers(ptxas_log):
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             known = [k for k in TENSOR_CORE_KERNELS if k in name]
-            arg = re.search(r"ILi(\d+)E", name)
+            targs = re.search(r"I((?:L[ib]\d+E)+)E", name)
             short = (known[0] if known else name) + (
-                f"<{arg.group(1)}>" if arg else "")
+                "<" + ", ".join(re.findall(r"L[ib](\d+)E", targs.group(1)))
+                + ">" if targs else "")
             rows.append((short, int(m.group(1)), spill))
             name = None
     return rows
@@ -364,6 +379,13 @@ HIRES_CHECK_BATCH = 2
 HIRES_TRAIN_STEPS = 5
 REG_STEPS = 3
 HIRES_OUT_NAMES = ("dq", "dssum", "dw1", "db1", "dw2", "db2", "dk", "dv")
+# Launches past the counted one of each bf16 hires call with the mask, as
+# the C entries report them: the forwards' three strided products before
+# the attention kernel; the dq pass's dm/ssum kernel and three products
+# before the dq kernel; the weight grads' second product, partial sums and
+# two two-stage column sums after the first product.
+HIRES_STAGES_PER_CALL = {"fwd_res": 3, "fwd_only": 3, "dq": 4,
+                         "weight_grads": 6}
 
 
 def hires_inputs(torch, b, s, d, dv, device, dtype, seed, zero_mask=False):
@@ -523,6 +545,7 @@ def hires_phases(torch, name, smi):
     )
     from calm_vit_dte_tpu_torch.train.optim import make_optimizer
     from calm_vit_dte_tpu_torch.train.state import create_train_state
+    from calm_vit_dte_tpu_torch.tools import time_hires as th
     from calm_vit_dte_tpu_torch.train.step import (
         make_eval_step,
         make_train_step,
@@ -581,6 +604,30 @@ def hires_phases(torch, name, smi):
         f"value; checks took {time.time() - t0:.1f} s")
     del args, g
 
+    # bf16, run to run: the forwards and the dq pass (with its weight
+    # grads) give the same bits from two launches at the widest shape.
+    s, d, dv = max(kernel_shapes)
+    q, k, v, w1, b1, w2, b2 = hires_inputs(torch, HIRES_CHECK_BATCH, s, d, dv,
+                                           dev, bf16, seed=870)
+    g = grad_like(torch, HIRES_CHECK_BATCH, s, dv, dev, bf16, seed=871)
+    kw16 = dict(scale=d ** -0.5, dtype=bf16)
+
+    def bf16_outputs():
+        o, m, lse = kh.hires_fwd_res(q, k, v, w1, b1, w2, b2, **kw16)
+        delta = (g.float() * o.float()).sum(-1)
+        return (o, m, lse, kh.fused_attention_forward(q, k, v, w1, b1, w2,
+                                                      b2, **kw16),
+                *kh.hires_dq(q, k, v, g, m, lse, delta, w1, b1, w2, **kw16))
+
+    names = ("o", "m", "lse", "forward-only o") + HIRES_OUT_NAMES[:6]
+    for n_, x, y in zip(names, bf16_outputs(), bf16_outputs()):
+        if not torch.equal(x, y):
+            raise AssertionError(f"hires bf16 {n_} at S={s} D={d} differs "
+                                 "between two runs")
+    log(f"[hires check] bf16 forward, forward-only and dq pass at S={s}, D="
+        f"{d}: {len(names)} outputs bit-identical from run to run")
+    del q, k, v, w1, b1, w2, b2, g
+
     def counts():
         return {"fwd_res": kh.fused_hires_attention.launches,
                 "dq": kh.hires_dq.launches,
@@ -591,6 +638,13 @@ def hires_phases(torch, name, smi):
                 "rope_bwd": ka.fused_rope_attention_bwd.launches,
                 "conv": kc.fused_conv_residual.launches}
 
+    staged = {"fwd_res": kh.fused_hires_attention, "dq": kh.hires_dq,
+              "weight_grads": kh.hires_weight_grads,
+              "fwd_only": kh.fused_attention_forward}
+
+    def stages():
+        return {k: w.stage_launches for k, w in staged.items()}
+
     def zero_counts():
         kh.fused_hires_attention.launches = kh.hires_dq.launches = 0
         kh.hires_weight_grads.launches = kh.hires_dkv.launches = 0
@@ -598,6 +652,14 @@ def hires_phases(torch, name, smi):
         ka.fused_rope_attention.launches = 0
         ka.fused_rope_attention_bwd.launches = 0
         kc.fused_conv_residual.launches = 0
+        for w in staged.values():
+            w.stage_launches = 0
+
+    def check_stages(what, got, launched):
+        want = {k: HIRES_STAGES_PER_CALL[k] * launched[k] for k in staged}
+        if got != want:
+            raise AssertionError(f"hires {what}: stage launches {got}, "
+                                 f"expected {want}")
 
     none = dict.fromkeys(counts(), 0)
 
@@ -610,13 +672,15 @@ def hires_phases(torch, name, smi):
     log(f"[hires serve] Predictor.fresh: {time.time() - t0:.1f} s")
     zero_counts()
     labels, probs = pred.classify(images)
-    serve_counts = counts()
+    serve_counts, serve_stages = counts(), stages()
     want = dict(none, fwd_only=24, conv=8)
     log(f"[hires serve] classify B={HIRES_BATCH} bf16: launches "
-        f"{serve_counts}, top-5 of image 0 {labels[0].tolist()}")
+        f"{serve_counts}, stage launches {serve_stages}, top-5 of image 0 "
+        f"{labels[0].tolist()}")
     if serve_counts != want:
         raise AssertionError(f"hires classify: expected {want}, got "
                              f"{serve_counts}")
+    check_stages("classify", serve_stages, serve_counts)
     if labels.shape != (HIRES_BATCH, 5) or not np.isfinite(probs).all():
         raise AssertionError("hires classify: bad shape or non-finite")
     p32 = Predictor(pred.model, crop=cfg.crop, dtype=f32)
@@ -693,7 +757,7 @@ def hires_phases(torch, name, smi):
     losses, step_ms, step_counts = [], [], None
     want = dict(none, fwd_res=24, dq=24, weight_grads=24, dkv=24)
     for i in range(HIRES_TRAIN_STEPS):
-        before = counts()
+        before, before_stages = counts(), stages()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, metrics = train_step(state, batch)
@@ -702,12 +766,14 @@ def hires_phases(torch, name, smi):
         m = {k: float(v) for k, v in metrics.items()}
         losses.append(m["loss"])
         step_counts = {k: v - before[k] for k, v in counts().items()}
+        step_stages = {k: v - before_stages[k] for k, v in stages().items()}
         log(f"[hires train] step {i}: loss {m['loss']:.6f}, grad_norm "
             f"{m['grad_norm']:.4f}, kl {m['kl']:.6f}, {step_ms[-1]:.1f} ms, "
-            f"launches {step_counts}")
+            f"launches {step_counts}, stage launches {step_stages}")
         if step_counts != want:
             raise AssertionError(f"hires training step: expected {want}, "
                                  f"got {step_counts}")
+        check_stages(f"training step {i}", step_stages, step_counts)
         if not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
                 and m["grad_norm"] > 0):
             raise AssertionError(f"hires step {i}: {m}")
@@ -718,7 +784,7 @@ def hires_phases(torch, name, smi):
             if dead:
                 raise AssertionError(f"hires parameters with no, non-finite "
                                      f"or zero first-step gradient: {dead}")
-    train_counts = counts()
+    train_counts, train_stages = counts(), stages()
     if not losses[-1] < losses[0]:
         raise AssertionError(f"hires loss did not fall: {losses}")
     steady = float(np.mean(step_ms[1:]))
@@ -738,12 +804,14 @@ def hires_phases(torch, name, smi):
         state, {"image": eval_preprocess(torch.from_numpy(images).to(dev),
                                          crop=cfg.crop),
                 "label": batch["label"].argmax(-1)})
-    eval_counts = counts()
+    eval_counts, eval_stages = counts(), stages()
     log(f"[hires train] eval step: {int(ev['correct'])} of "
-        f"{int(ev['total'])} correct, launches {eval_counts}")
+        f"{int(ev['total'])} correct, launches {eval_counts}, stage "
+        f"launches {eval_stages}")
     if eval_counts != dict(none, fwd_only=24, conv=8) or not torch.isfinite(
             ev["kl"]):
         raise AssertionError(f"hires eval step: {eval_counts}, {ev}")
+    check_stages("eval step", eval_stages, eval_counts)
 
     # trace one training step: device busy share, the attention kernels'.
     with profile(activities=[ProfilerActivity.CPU,
@@ -756,19 +824,8 @@ def hires_phases(torch, name, smi):
               if e.device_type.name == "CUDA"]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
 
-    def device_ms(*needles):
-        return sum(e.self_device_time_total for e in events
-                   if any(n_ in e.key for n_ in needles)) / 1e3
-
-    parts = {"forward (hires_attention_kernel)":
-             device_ms("hires_attention_kernel"),
-             "dm/ssum": device_ms("hires_dm_ssum_kernel"),
-             "dq": device_ms("hires_dq_kernel"),
-             "dk/dv": device_ms("hires_dkv_kernel"),
-             "mask-MLP and weight-grad products (strided product)":
-             device_ms("gemm_kernel", "gemm_tc_kernel"),
-             "bias-grad sums": device_ms("colsum_kernel",
-                                         "sum_splits_kernel")}
+    parts = th.split(events)
+    parts.pop("other")
     attn_ms = sum(parts.values())
     trace = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
              "attention_ms": attn_ms, "parts_ms": parts,
@@ -853,25 +910,53 @@ def hires_phases(torch, name, smi):
                                                dssum, **kw)),
         }
         bounds = hires_bounds(HIRES_BATCH, s, d, dv, 2)
+        # The library calls that compute the parts (yardsticks only).
+        lib = th.yardsticks(args, 5)
+        lib_parts = {
+            "fwd_res": {"attention forward": lib["sdpa"],
+                        "strided product": lib["matmul ssum"]
+                        + lib["matmul h1"] + lib["matmul m"]},
+            "dq": {"strided product": lib["matmul h1"] + lib["matmul dh1"]
+                   + lib["matmul dssum"] + lib["matmul dW1"]
+                   + lib["matmul dW2"]}}
+        lib_parts["fwd_only"] = lib_parts["fwd_res"]
+        log(f"[hires time] S={s} D={d}: library yardsticks (ms) "
+            + ", ".join(f"{k_} {v_:.3f}" for k_, v_ in lib.items()))
         for kname, (kern, plain) in calls.items():
             ms = cuda_ms(torch, kern, 3, warmup=1)
             plain_ms = cuda_ms(torch, plain, 2, warmup=1)
+            parts_ms = th.parts_ms(kern, 3)
             t_bytes, t_ops = bounds[kname]
             err = worst[(s, d, dv)]
             row = dict(S=s, D=d, Dv=dv, launches=n, ms=ms, plain_ms=plain_ms,
                        bound_ms=max(t_bytes, t_ops),
                        bound_by="bytes" if t_bytes >= t_ops else "operations",
                        fp32_err=err[kname], fp32_bwd_norm_err=err["bwd_norm"],
-                       bf16_err_over_plain=err["bf16_ratio"])
+                       bf16_err_over_plain=err["bf16_ratio"],
+                       parts_ms=parts_ms,
+                       parts_library_ms=lib_parts.get(kname, {}))
+            if kname in staged:
+                row["smem_per_cta"] = staged[kname].smem_bytes
+            if kname == "dq":
+                row["weight_grads_smem_per_cta"] = \
+                    kh.hires_weight_grads.smem_bytes
             rows[kname].append(row)
             log(f"[hires time] {kname} S={s} D={d} Dv={dv} (x{n}): kernel "
                 f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
                 f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
-                f"{row['bound_ms'] / ms:.2%} of bound")
-        del args, g, res, o, m, lse, delta, dssum, calls, q, k, v
+                f"{row['bound_ms'] / ms:.2%} of bound; parts (device ms) "
+                + ", ".join(f"{k_} {v_:.3f}" for k_, v_ in parts_ms.items()))
+        del args, g, res, o, m, lse, delta, dssum, calls, q, k, v, lib
         torch.cuda.empty_cache()
 
     per_step = f"train_{HIRES_TRAIN_STEPS}_steps"
+    stage_launches = {
+        "fwd_res": {per_step: train_stages["fwd_res"]},
+        "dq": {per_step: train_stages["dq"],
+               "weight_grad_reductions": train_stages["weight_grads"]},
+        "fwd_only": {"classify": serve_stages["fwd_only"],
+                     "eval_step": eval_stages["fwd_only"]},
+    }
     launches = {
         "fwd_res": {per_step: train_counts["fwd_res"]},
         "dq": {per_step: train_counts["dq"],
@@ -906,6 +991,8 @@ def hires_phases(torch, name, smi):
             "bound_ms": t_bytes + t_ops,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None, "launches_by_path": launches[key],
+            **({"stage_launches_by_path": stage_launches[key]}
+               if key in stage_launches else {}),
             "per_shape": r})
     log("[hires time] hires kernels' ms, plain_ms and bound_ms are per "
         f"hires-cls-1024 forward (or training step's backward) at "

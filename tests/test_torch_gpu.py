@@ -389,9 +389,9 @@ def test_conv_function_matches_autograd(cuda_device, route, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# The long-sequence kernels (kernels/hires_attention.py) at two hires-cls-1024
-# shapes (S, D = Dv): the smallest stage and the widest.
-HIRES_SHAPES = [(448, 112), (1024, 256)]
+# The long-sequence kernels (kernels/hires_attention.py) at the four stages
+# of hires-cls-1024 (S, D = Dv).
+HIRES_SHAPES = [(448, 112), (640, 160), (832, 208), (1024, 256)]
 HIRES_BWD_NAMES = ("dq", "dssum", "dw1", "db1", "dw2", "db2", "dk", "dv")
 
 
@@ -462,6 +462,25 @@ def test_hires_forward_kernels_match_plain(cuda_device, s, d):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("s,d", HIRES_SHAPES)
+def test_hires_forward_kernels_bf16_deterministic(cuda_device, s, d):
+    """The bf16 forward with residuals (o, m, lse) and the forward-only
+    kernel give the same bits from two launches."""
+    from calm_vit_dte_tpu_torch.kernels import hires_attention as kh
+
+    rng = np.random.default_rng(s + 2)
+    bf16 = torch.bfloat16
+    args = _hires_inputs(rng, cuda_device, 2, s, d, bf16)
+    kw = dict(scale=1.0 / math.sqrt(d), dtype=bf16)
+    first = kh.hires_fwd_res(*args, **kw)
+    again = kh.hires_fwd_res(*args, **kw)
+    for name, x, y in zip(("o", "m", "lse"), first, again):
+        assert torch.equal(x, y), f"{name} differs between two runs"
+    assert torch.equal(kh.fused_attention_forward(*args, **kw),
+                       kh.fused_attention_forward(*args, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,d", HIRES_SHAPES)
 def test_hires_backward_kernels_match_plain(cuda_device, s, d):
     """The dq pass (kernel 2, with its weight-grad reduction) and the dk/dv
     pass (kernel 3): fp32 within 1e-4 of each output's largest value, the
@@ -496,9 +515,70 @@ def test_hires_backward_kernels_match_plain(cuda_device, s, d):
                          True)
     r32 = _hires_bwd_all(kh, [a.float() for a in a16], g16.float(), m16,
                          lse16, delta16, scale, f32, True)
-    for name, x, y, r in zip(HIRES_BWD_NAMES, k16, p16, r32):
+    again16 = _hires_bwd_all(kh, a16, g16, m16, lse16, delta16, scale, bf16,
+                             False)
+    for name, x, y, r, z in zip(HIRES_BWD_NAMES, k16, p16, r32, again16):
         assert x.dtype == y.dtype, name
         assert _norm_err(x, r) <= 2 * _norm_err(y, r) + 1e-6, name
+        assert torch.equal(x, z), f"bf16 {name} differs between two runs"
+
+
+@pytest.mark.gpu
+def test_hires_kernels_ragged_shape_match_plain(cuda_device):
+    """S = 520 and D = Dv = 120, multiples of none of the bf16 kernels'
+    tiles (64 rows, 64-column chunks, k-steps of 16): the ragged rows and
+    keys are masked and the columns zero-padded. Forward and both backward
+    passes in fp32 against plain, and in bf16 at most twice the plain bf16
+    error; a bf16 shape that is not a multiple of 8 raises."""
+    from calm_vit_dte_tpu_torch.kernels import hires_attention as kh
+
+    rng = np.random.default_rng(520)
+    f32, bf16 = torch.float32, torch.bfloat16
+    s, d = 520, 120
+    scale = 1.0 / math.sqrt(d)
+    args = _hires_inputs(rng, cuda_device, 2, s, d, f32)
+    g = _normal(rng, cuda_device, 2, H, s, d, scale=0.3)
+    for x, y in zip(kh.hires_fwd_res(*args, scale=scale, dtype=f32),
+                    kh.hires_fwd_res_plain(*args, scale=scale, dtype=f32)):
+        torch.testing.assert_close(x, y, rtol=2e-4, atol=2e-5)
+    o, m, lse = kh.hires_fwd_res_plain(*args, scale=scale, dtype=f32)
+    delta = (g * o).sum(-1)
+    got = _hires_bwd_all(kh, args, g, m, lse, delta, scale, f32, False)
+    want = _hires_bwd_all(kh, args, g, m, lse, delta, scale, f32, True)
+    for name, x, y in zip(HIRES_BWD_NAMES, got, want):
+        assert _norm_err(x, y) <= 1e-4, name
+
+    a16 = [a.to(bf16) if a.dim() == 4 else a for a in args]
+    a32 = [a.float() for a in a16]
+    g16 = g.to(bf16)
+    k16 = kh.hires_fwd_res(*a16, scale=scale, dtype=bf16)
+    p16 = kh.hires_fwd_res_plain(*a16, scale=scale, dtype=bf16)
+    r32 = kh.hires_fwd_res_plain(*a32, scale=scale, dtype=f32)
+    for x, y, r in zip(k16, p16, r32):
+        assert _norm_err(x, r) <= 2 * _norm_err(y, r) + 1e-6
+    for use_mask in (True, False):
+        out = kh.fused_attention_forward(*a16, scale=scale, dtype=bf16,
+                                         use_mask=use_mask)
+        plain = ka.attention_core(*a16, scale=scale, dtype=bf16,
+                                  use_mask=use_mask)
+        ref = ka.attention_core(*a32, scale=scale, dtype=f32,
+                                use_mask=use_mask)
+        assert _norm_err(out, ref) <= 2 * _norm_err(plain, ref) + 1e-6
+    o16, m16, lse16 = p16
+    delta16 = (g16.float() * o16.float()).sum(-1)
+    k16 = _hires_bwd_all(kh, a16, g16, m16, lse16, delta16, scale, bf16,
+                         False)
+    b16 = _hires_bwd_all(kh, a16, g16, m16, lse16, delta16, scale, bf16,
+                         True)
+    r32 = _hires_bwd_all(kh, a32, g16.float(), m16, lse16, delta16, scale,
+                         f32, True)
+    for name, x, y, r in zip(HIRES_BWD_NAMES, k16, b16, r32):
+        assert _norm_err(x, r) <= 2 * _norm_err(y, r) + 1e-6, name
+
+    odd = [a[:, :, :-4] if a.dim() == 4 else a for a in a16[:3]]
+    with pytest.raises(ValueError, match="multiples of 8"):
+        kh.fused_attention_forward(*odd, *a16[3:], scale=scale, dtype=bf16,
+                                   use_mask=False)
 
 
 @pytest.mark.gpu

@@ -13,6 +13,8 @@ the card.
 
 import dataclasses
 import math
+import pathlib
+import re
 
 import jax
 import jax.numpy as jnp
@@ -38,7 +40,7 @@ from calm_vit_dte_tpu_torch.compat import from_jax
 from calm_vit_dte_tpu_torch.kernels import hires_attention as kh
 from calm_vit_dte_tpu_torch.models.vit import ViT
 from calm_vit_dte_tpu_torch.models.vmla import VMLA, VMLAConfig
-from calm_vit_dte_tpu_torch.ops.attention import attention_impl
+from calm_vit_dte_tpu_torch.ops.attention import attention_impl, pick_route
 from calm_vit_dte_tpu_torch.ops.latent_state import LatentState
 from calm_vit_dte_tpu_torch.ops.variational import noise_override
 from calm_vit_dte_tpu_torch.train.optim import FusedAdamW
@@ -143,6 +145,45 @@ def test_wrappers_raise_off_cpu_and_cuda():
     with pytest.raises(ValueError, match="attention route"):
         with attention_impl("plain"):
             pass
+
+
+CSRC = pathlib.Path(kh.__file__).resolve().parent.parent / "csrc"
+
+
+@pytest.mark.parametrize("source", ["hires_attention.cu",
+                                    "hires_attention_bwd.cu"])
+def test_bf16_shape_rule_matches_the_source(source):
+    """The wrapper's BF16_MULTIPLE is the multiple of S, D and Dv that the
+    C entries' bf16 routes take (rows of 16 bytes)."""
+    rules = re.findall(r"is_bf16 && \(S % (\d+) \|\| D % (\d+) \|\| "
+                       r"Dv % (\d+)\)", (CSRC / source).read_text())
+    assert rules
+    assert {int(x) for rule in rules for x in rule} == {kh.BF16_MULTIPLE}
+
+
+def test_every_hires_shape_takes_the_bf16_kernels():
+    """Every attention shape of every config that `pick_route` sends to the
+    hires route passes the bf16 kernels' shape check (so no config's bf16
+    path raises on the card); an S off the multiple raises."""
+    shapes = set()
+    for cfg in configs.CONFIGS.values():
+        for _, bcfg in cfg.model.backbone_cfg().block_configs():
+            for v in (bcfg.encoder_cfg(), bcfg.decoder_cfg(),
+                      bcfg.cross_cfg()):
+                d = (v.head_dim_content + v.head_dim_rope) if v.reduce \
+                    else v.head_dim
+                if pick_route(v.seq_len_new, d, v.head_dim) == "hires":
+                    shapes.add((v.seq_len_new, d, v.head_dim))
+    assert (1024, 256, 256) in shapes and (448, 112, 112) in shapes
+    bf16 = torch.bfloat16
+    for s, d, dv in sorted(shapes):
+        q = torch.empty(1, 1, s, d, dtype=bf16)
+        v = torch.empty(1, 1, s, dv, dtype=bf16)
+        assert kh._dims(q, q, v, bf16) == (1, 1, s, d, dv)
+    q, v = torch.empty(1, 1, 452, 112, dtype=bf16), \
+        torch.empty(1, 1, 452, 112, dtype=bf16)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        kh._dims(q, q, v, bf16)
 
 
 VMLA_CFGS = {
