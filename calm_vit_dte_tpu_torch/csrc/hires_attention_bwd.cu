@@ -25,10 +25,10 @@
 //
 // What bounds it on the H100: about three times the forward's operations
 // (514 GFLOP at S=1024, D=256, B=8 in bf16, 0.52 ms at 989 TFLOP/s) against
-// under 0.5 GB of traffic: bound by operations. The bf16 route's dq pass
-// runs every product on the tensor cores (mma.sync.m16n8k16, bf16 in, fp32
-// accumulate; hires_mma.cuh); the dk/dv kernel and the fp32 route (the
-// card-vs-CPU parity checks) form theirs as fp32 FMAs on the CUDA cores.
+// under 0.5 GB of traffic: bound by operations. The bf16 route runs every
+// product on the tensor cores (mma.sync.m16n8k16, bf16 in, fp32 accumulate;
+// hires_mma.cuh); the fp32 route (the card-vs-CPU parity checks) forms its
+// products as fp32 FMAs on the CUDA cores.
 //
 // Design (no atomics anywhere, so results are the same from run to run):
 //   * The heads couple through dm and ssum, which the mask MLP's backward
@@ -65,13 +65,35 @@
 //     a (rows x S) dm and ssum per CTA, which does not fit in 227 KB at
 //     S = 1024. fp32 (hires_dq_kernel): the key tiles (v, then k, through
 //     one buffer) in fp32 shared memory, ds through shared memory.
-//   * dk, dv (both routes, hires_dkv_kernel): one CTA per (64 keys, batch
-//     element and head) streams the query tiles: scores and dp transposed
-//     (key rows), dv += round(p)^T g and dk += ds^T q from shared memory. m
-//     and dssum are read transposed by their indexing, so no transposed
-//     copy is made.
+//   * dk, dv, bf16 (hires_dkv_bf16_kernel): one CTA of 8 warps per (64
+//     keys, head, batch element), grid (H, ceil(S/64), B) with the heads
+//     fastest, so the H CTAs that read the same key columns of m and dssum
+//     share them through L2. 16 rows x (D + Dv) fp32 accumulators do not fit
+//     one warp's registers at D = Dv = 256, so the work is split by output:
+//     warps 0-3 own dv, warps 4-7 dk, over the same 16 keys each. k and v
+//     rows stay in shared memory; per query tile the (q, g) chunk pairs
+//     stream through the ring twice (three stages). First pass: the dv warps
+//     form s^T = k q^T, the dk warps dp^T = v g^T, each on its own half of
+//     a pair; the dv warps turn s^T into p^T and hand it to the dk warps
+//     through shared memory in fragment order. Second pass: dv += round(p)^T
+//     g and dk += ds^T q, the A fragments from the score registers (c_to_a),
+//     q and g read as B through ldmatrix.trans. m and dssum are staged per
+//     query tile as [64 queries][64 keys] fp32 tiles with 16-byte cp.async
+//     (their rows run along the keys) and read transposed from shared memory
+//     (row stride 68 floats: no bank conflicts), so no warp load strides by
+//     rows of S and no transposed copy is made; they, lse and delta are
+//     double-buffered and copied a query tile ahead. 4 units of products,
+//     as the fp32 route (no recompute of s^T by the dk warps). ptxas gives
+//     162, 208, 249 and 255 registers for NC = 1-4, no spills; the CTA
+//     takes 209,920 bytes of shared memory at D = 256 (173,056 at 112),
+//     so one CTA of 8 warps an SM. On an H100 (chip_smoke.py) it runs at
+//     about 120 TFLOP/s at S = 1024, D = 256, B = 8.
+//     fp32 (hires_dkv_kernel): one CTA per (64 keys, batch element and
+//     head) streams the query tiles: scores and dp transposed (key rows), dv
+//     += round(p)^T g and dk += ds^T q from shared memory; m and dssum read
+//     transposed by their indexing.
 // The bf16 route takes S, D and Dv that are multiples of 8 (16-byte rows);
-// the wrapper raises for any other shape.
+// the wrapper and the C entries refuse any other shape.
 
 #include "hires_mma.cuh"
 
@@ -329,8 +351,9 @@ cudaError_t allow_smem(Kern kern, size_t smem) {
 // ---------------------------------------------------------------------------
 // bf16 on the tensor cores.
 
-// The dm/ssum kernel's (q, k) or (g, v) chunk pairs: kPairStages stages of
-// two [64][64] chunks, 55,296 bytes.
+// The dm/ssum kernel's (q, k) or (g, v) chunk pairs, and the dk/dv
+// kernel's (q, g) pairs: kPairStages stages of two [64][64] chunks, 55,296
+// bytes (four stages made the dk/dv kernel spill and run 5-8% slower).
 constexpr int kPairStages = 3;
 constexpr size_t kDmSsumSmem = sizeof(bf16) * kPairStages * 2 * kChunkElems;
 
@@ -559,6 +582,225 @@ __global__ void __launch_bounds__(kAttnThreads) hires_dq_bf16_kernel(
   }
 }
 
+// The bf16 dk/dv CTA: 8 warps over 64 keys of one (batch element, head).
+// Warps 0-3 own dv, warps 4-7 dk, each warp the same 16 keys in both
+// groups. The residual tiles of a query tile, m and dssum [64 queries][64
+// keys] fp32 (rows contiguous along the keys, so every copy is a 16-byte
+// cp.async), and its lse and delta, are double-buffered; the probabilities
+// p^T pass from the dv warps to the dk warps in fragment order.
+constexpr int kDkvWarps = 2 * kAttnWarps;
+constexpr int kDkvThreads = 32 * kDkvWarps;
+constexpr int kResLd = kAttnRows + 4;   // conflict-free transposed reads
+constexpr int kResElems = kAttnRows * kResLd;
+constexpr int kXchFloats = kAttnWarps * 32 * 32;   // 8 float4 a thread
+
+// Dynamic shared memory of the bf16 dk/dv CTA: the resident k and v tiles,
+// the ring of (q, g) chunk pairs, two buffers of m, dssum, lse and delta,
+// and the p^T exchange (209,920 bytes at D = Dv = 256, one CTA an SM).
+size_t dkv_bf16_smem(int D, int Dv) {
+  return sizeof(bf16) *
+             ((size_t)kAttnRows * (tcore::pad16(D) + 8 + tcore::pad16(Dv) + 8) +
+              (size_t)kPairStages * 2 * kChunkElems) +
+         sizeof(float) * ((size_t)4 * kResElems + 4 * kAttnRows + kXchFloats);
+}
+
+// Rows [0, 64) x columns [0, 64) of an fp32 matrix with row stride ld
+// (a multiple of 4) into a [64][kResLd] tile; rows at or past live_r and
+// columns at or past live_c (a multiple of 4) become zeros. No commit.
+__device__ __forceinline__ void copy_res_tile(float* dst, const float* src,
+                                              int ld, int live_r,
+                                              int live_c) {
+  for (int idx = threadIdx.x; idx < kAttnRows * kAttnRows / 4;
+       idx += kDkvThreads) {
+    const int r = idx >> 4, c = (idx & 15) * 4;
+    float* d = dst + r * kResLd + c;
+    if (r < live_r && c < live_c)
+      tcore::cp_async16(d, src + (size_t)r * ld + c);
+    else
+      *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// dk and dv of 64 keys of one (batch element, head); NC = chunks of the
+// wider of D and Dv. Per query tile, the (q, g) chunk pairs stream through
+// the ring twice: first the dv warps form s^T = k q^T from the q chunks and
+// the dk warps dp^T = v g^T from the g chunks (rows_by_chunk, the resident
+// k or v rows as A); the dv warps turn s^T into p^T = exp(scale s^T + m^T -
+// lse) and hand it over; then the dv warps add round(p)^T g and the dk warps
+// ds^T q, ds^T = round(scale p^T (dp^T - delta) + dssum^T), each from the
+// A fragments in registers (probs_by_chunk).
+template <int NC>
+__global__ void __launch_bounds__(kDkvThreads, 1) hires_dkv_bf16_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ g, const Residuals R,
+    const float* __restrict__ dssum, int D, int Dv, bf16* __restrict__ dk,
+    bf16* __restrict__ dv) {
+  using namespace tcore;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int H = R.H, S = R.S;
+  const int ldk = pad16(D) + 8, ldv = pad16(Dv) + 8;
+  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sV = sK + kAttnRows * ldk;
+  bf16* ring = sV + kAttnRows * ldv;
+  // [buffer][m, dssum][64 queries][kResLd], then [buffer][lse, delta][64].
+  float* sRes = reinterpret_cast<float*>(ring + kPairStages * 2 * kChunkElems);
+  float* sVec = sRes + 4 * kResElems;
+  float4* sXch = reinterpret_cast<float4*>(sVec + 4 * kAttnRows);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int w = warp & (kAttnWarps - 1);       // keys 16w of the CTA's 64
+  const bool owns_dk = warp >= kAttnWarps;
+  const int gr = lane >> 2, t = lane & 3;
+  const int b = blockIdx.z, t0 = blockIdx.y * kAttnRows;
+  const size_t head = ((size_t)b * H + blockIdx.x) * S;
+  const bf16* qh = q + head * D;
+  const bf16* gh = g + head * Dv;
+  const int nkc = chunks_of(D), nvc = chunks_of(Dv);
+  const int nqt = (S + kAttnRows - 1) / kAttnRows;
+  constexpr int kPerTile = 2 * NC;   // pairs per query tile
+
+  // Pair `at`: query tile at / kPerTile, chunk at % NC of its q and g rows.
+  auto pair = [&](int at) {
+    if (at < nqt * kPerTile) {
+      const int q0 = at / kPerTile * kAttnRows, c = at % NC;
+      bf16* dst = ring + (at % kPairStages) * 2 * kChunkElems;
+      if (c < nkc)
+        copy_chunk<kDkvThreads>(dst, qh + (size_t)q0 * D, D, S - q0, c);
+      if (c < nvc)
+        copy_chunk<kDkvThreads>(dst + kChunkElems, gh + (size_t)q0 * Dv, Dv,
+                                S - q0, c);
+    }
+    cp_commit();
+  };
+  // Query tile j's residuals into buffer j % 2 (joins the next commit).
+  auto residuals = [&](int j) {
+    if (j >= nqt) return;
+    const int q0 = j * kAttnRows;
+    float* dst = sRes + (j & 1) * 2 * kResElems;
+    const size_t at = ((size_t)b * S + q0) * S + t0;
+    copy_res_tile(dst, R.m + at, S, S - q0, S - t0);
+    copy_res_tile(dst + kResElems, dssum + at, S, S - q0, S - t0);
+    const int c = (threadIdx.x & 15) * 4;
+    if (threadIdx.x < 32) {
+      float* vd = sVec + (j & 1) * 2 * kAttnRows + (threadIdx.x >> 4) *
+                                                       kAttnRows + c;
+      const float* src = (threadIdx.x < 16 ? R.lse : R.delta) + head + q0 + c;
+      if (q0 + c < S) cp_async16(vd, src);
+      else *reinterpret_cast<float4*>(vd) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+  copy_resident<kDkvThreads>(sK, k + (head + t0) * D, D, S - t0);
+  copy_resident<kDkvThreads>(sV, v + (head + t0) * Dv, Dv, S - t0);
+  residuals(0);   // these join pair 0
+#pragma unroll
+  for (int at = 0; at < kPairStages - 1; ++at) pair(at);
+  int i = 0;
+  // Pair i has landed and every warp is done with pair i - 1's stage and
+  // with the residual buffer of two tiles back: refill both.
+  auto next = [&]() -> const bf16* {
+    cp_wait<kPairStages - 2>();
+    __syncthreads();
+    if (i % kPerTile == 0) residuals(i / kPerTile + 1);
+    pair(i + kPairStages - 1);
+    return ring + (i++ % kPairStages) * 2 * kChunkElems;
+  };
+
+  // This warp's operands: phase 1 A rows and the pair half it reads as B,
+  // phase 2 the pair half it reads and its width.
+  const bf16* rows = owns_dk ? sV : sK;
+  const int ldr = owns_dk ? ldv : ldk;
+  const int w1 = owns_dk ? Dv : D, w2 = owns_dk ? D : Dv;
+  const int half1 = owns_dk ? kChunkElems : 0, half2 = kChunkElems - half1;
+  float4* xch = sXch + w * 8 * 32 + lane;
+  const int key[2] = {w * 16 + gr, w * 16 + gr + 8};   // of the CTA's 64
+
+  float acc[NC * kChunkN][4];
+#pragma unroll
+  for (int n = 0; n < NC * kChunkN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  for (int j = 0; j < nqt; ++j) {
+    const float* res = sRes + (j & 1) * 2 * kResElems;
+    const float* vec = sVec + (j & 1) * 2 * kAttnRows;
+    float s[8][4];   // keys 16w + gr (+8) x queries 8n + 2t (+1)
+    zero8(s);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const bf16* X = next();
+      if (c < chunks_of(w1))
+        rows_by_chunk(s, rows, ldr, c, X + half1, chunk_steps(w1, c), lane,
+                      w);
+    }
+    uint32_t a[4][4];
+    if (!owns_dk) {
+      // p^T = exp(scale s^T + m^T - lse), handed to the dk warps.
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qr = n * 8 + 2 * t + (e & 1);
+          s[n][e] = __expf(s[n][e] * R.scale + res[qr * kResLd + key[e >> 1]] -
+                           vec[qr]);
+        }
+        xch[n * 32] = make_float4(s[n][0], s[n][1], s[n][2], s[n][3]);
+      }
+#pragma unroll
+      for (int kb = 0; kb < 4; ++kb) c_to_a(a[kb], s[2 * kb], s[2 * kb + 1]);
+    }
+#pragma unroll
+    for (int u = 0; u < NC; ++u) {
+      const bf16* X = next();   // after the first: p^T is in the exchange
+      if (u == 0 && owns_dk) {
+        // ds^T = round(scale p^T (dp^T - delta) + dssum^T); s holds dp^T.
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const float4 p4 = xch[n * 32];
+          const float p[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qr = n * 8 + 2 * t + (e & 1);
+            s[n][e] = p[e] * (s[n][e] - vec[kAttnRows + qr]) * R.scale +
+                      res[kResElems + qr * kResLd + key[e >> 1]];
+          }
+        }
+#pragma unroll
+        for (int kb = 0; kb < 4; ++kb) c_to_a(a[kb], s[2 * kb], s[2 * kb + 1]);
+      }
+      if (u < chunks_of(w2))
+        probs_by_chunk(acc, u, a, X + half2, chunk_steps(w2, u), lane);
+    }
+  }
+  cp_wait<0>();
+
+  bf16* out = owns_dk ? dk + head * D : dv + head * Dv;
+#pragma unroll
+  for (int n = 0; n < NC * kChunkN; ++n) {
+    const int d = n * 8 + 2 * t;
+    if (d < w2) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        if (t0 + key[hf] < S)
+          *reinterpret_cast<uint32_t*>(out + (size_t)(t0 + key[hf]) * w2 + d) =
+              pack(acc[n][2 * hf], acc[n][2 * hf + 1]);
+      }
+    }
+  }
+}
+
+template <int NC>
+cudaError_t launch_dkv_bf16(const bf16* q, const bf16* k, const bf16* v,
+                            const bf16* g, const Residuals& R,
+                            const float* dssum, int B, int D, int Dv,
+                            bf16* dk, bf16* dv, cudaStream_t st,
+                            Report& rep) {
+  auto kern = hires_dkv_bf16_kernel<NC>;
+  const size_t smem = dkv_bf16_smem(D, Dv);
+  cudaError_t err = allow_smem(kern, smem);
+  if (err != cudaSuccess) return err;
+  kern<<<dim3(R.H, (R.S + kAttnRows - 1) / kAttnRows, B), kDkvThreads, smem,
+         st>>>(q, k, v, g, R, dssum, D, Dv, dk, dv);
+  return rep.done(smem);
+}
+
 template <int NQ>
 cudaError_t launch_dq_bf16(const bf16* q, const bf16* k, const bf16* v,
                            const bf16* g, const Residuals& R,
@@ -640,14 +882,14 @@ cudaError_t dq_pass(const T* q, const T* k, const T* v, const T* g,
 template <typename T, int CJ>
 cudaError_t launch_dkv(const T* q, const T* k, const T* v, const T* g,
                        const Residuals& R, const float* dssum, int B, int D,
-                       int Dv, T* dk, T* dv, cudaStream_t st) {
+                       int Dv, T* dk, T* dv, cudaStream_t st, Report& rep) {
   auto kern = hires_dkv_kernel<T, CJ>;
   const size_t smem = tiled_smem(D, Dv, 2);
   cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return err;
   kern<<<dim3((R.S + kTile - 1) / kTile, B * R.H), kThreads, smem, st>>>(
       q, k, v, g, R, dssum, D, Dv, dk, dv);
-  return cudaGetLastError();
+  return rep.done(smem);
 }
 
 template <typename T>
@@ -692,20 +934,38 @@ template <typename T>
 cudaError_t run_dkv(const void* q, const void* k, const void* v,
                     const void* g, const Residuals& R, const float* dssum,
                     void* dk, void* dv, int B, int D, int Dv,
-                    cudaStream_t st) {
+                    cudaStream_t st, Report& rep) {
   const T *qt = static_cast<const T*>(q), *kt = static_cast<const T*>(k),
           *vt = static_cast<const T*>(v), *gt = static_cast<const T*>(g);
   T *dkt = static_cast<T*>(dk), *dvt = static_cast<T*>(dv);
-  switch (cols_per_thread(D > Dv ? D : Dv)) {
-    case 4:
-      return launch_dkv<T, 4>(qt, kt, vt, gt, R, dssum, B, D, Dv, dkt, dvt,
-                              st);
-    case 8:
-      return launch_dkv<T, 8>(qt, kt, vt, gt, R, dssum, B, D, Dv, dkt, dvt,
-                              st);
-    default:
-      return launch_dkv<T, 16>(qt, kt, vt, gt, R, dssum, B, D, Dv, dkt, dvt,
-                               st);
+  if constexpr (std::is_same<T, bf16>::value) {
+    static_assert(kMaxChunks == 4, "one case per chunk count");
+    switch (chunks_of(D > Dv ? D : Dv)) {
+      case 1:
+        return launch_dkv_bf16<1>(qt, kt, vt, gt, R, dssum, B, D, Dv, dkt,
+                                  dvt, st, rep);
+      case 2:
+        return launch_dkv_bf16<2>(qt, kt, vt, gt, R, dssum, B, D, Dv, dkt,
+                                  dvt, st, rep);
+      case 3:
+        return launch_dkv_bf16<3>(qt, kt, vt, gt, R, dssum, B, D, Dv, dkt,
+                                  dvt, st, rep);
+      default:
+        return launch_dkv_bf16<4>(qt, kt, vt, gt, R, dssum, B, D, Dv, dkt,
+                                  dvt, st, rep);
+    }
+  } else {
+    switch (cols_per_thread(D > Dv ? D : Dv)) {
+      case 4:
+        return launch_dkv<T, 4>(qt, kt, vt, gt, R, dssum, B, D, Dv, dkt, dvt,
+                                st, rep);
+      case 8:
+        return launch_dkv<T, 8>(qt, kt, vt, gt, R, dssum, B, D, Dv, dkt, dvt,
+                                st, rep);
+      default:
+        return launch_dkv<T, 16>(qt, kt, vt, gt, R, dssum, B, D, Dv, dkt,
+                                 dvt, st, rep);
+    }
   }
 }
 
@@ -833,17 +1093,25 @@ extern "C" int hires_weight_grads(int is_bf16, const void* ssum,
 }
 
 // dk (B,H,S,D) and dv (B,H,S,Dv) in the compute type from q, k, v, g and the
-// residuals m, lse, delta and dssum (fp32, as for hires_attention_dq).
-// Returns a cudaError_t.
+// residuals m, lse, delta and dssum (fp32, as for hires_attention_dq). bf16
+// takes S, D and Dv that are multiples of 8. Returns a cudaError_t; sets
+// *launched and *smem as hires_attention_dq does.
 extern "C" int hires_attention_dkv(
     int is_bf16, const void* q, const void* k, const void* v, const void* g,
     const float* m, const float* lse, const float* delta, const float* dssum,
     void* dk, void* dv, int B, int H, int S, int D, int Dv, float scale,
-    void* stream) {
-  if (bad_dims(0, B, H, S, D, Dv)) return (int)cudaErrorInvalidValue;
+    void* stream, int* launched, long long* smem) {
+  *launched = 0;
+  *smem = 0;
+  if (bad_dims(is_bf16, B, H, S, D, Dv)) return (int)cudaErrorInvalidValue;
   const Residuals R{m, lse, delta, H, S, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return (int)run_dkv<bf16>(q, k, v, g, R, dssum, dk, dv, B, D, Dv, st);
-  return (int)run_dkv<float>(q, k, v, g, R, dssum, dk, dv, B, D, Dv, st);
+  Report rep;
+  const cudaError_t err =
+      is_bf16 ? run_dkv<bf16>(q, k, v, g, R, dssum, dk, dv, B, D, Dv, st, rep)
+              : run_dkv<float>(q, k, v, g, R, dssum, dk, dv, B, D, Dv, st,
+                               rep);
+  *launched = rep.launched;
+  *smem = (long long)rep.smem;
+  return (int)err;
 }

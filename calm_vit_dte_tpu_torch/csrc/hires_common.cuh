@@ -7,8 +7,8 @@
 //   * the register-tile products over 64-row tiles in shared memory that the
 //     attention kernels are built from, and their row reductions.
 // Every product reads the compute type T (float or bf16) and accumulates in
-// fp32 as fp32 FMAs: the fp32 route, and the bf16 dk/dv kernel. The bf16
-// route's products run on the tensor cores (hires_mma.cuh). Nothing is
+// fp32 as fp32 FMAs: the fp32 route. The bf16 route's products run on the
+// tensor cores (hires_mma.cuh). Nothing is
 // atomic, so every result is the same from run to run.
 #pragma once
 

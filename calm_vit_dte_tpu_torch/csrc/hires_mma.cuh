@@ -275,13 +275,14 @@ __device__ __forceinline__ int chunk_steps(int width, int c) {
 }
 
 // Rows [0, 64) x columns [c0, c0 + cols) of a row-major bf16 matrix (row
-// stride `ld`, a multiple of 8) into dst (row stride dld); rows at or past
-// `live` and columns at or past `width` become zeros. No commit.
+// stride `ld`, a multiple of 8) into dst (row stride dld), by the NT
+// threads of the CTA; rows at or past `live` and columns at or past `width`
+// become zeros. No commit.
+template <int NT = kAttnThreads>
 __device__ __forceinline__ void copy_rows(bf16* dst, int dld, const bf16* src,
                                           int ld, int live, int c0, int width,
                                           int cols) {
-  for (int idx = threadIdx.x; idx < kAttnRows * (cols / 8);
-       idx += kAttnThreads) {
+  for (int idx = threadIdx.x; idx < kAttnRows * (cols / 8); idx += NT) {
     const int r = idx / (cols / 8), c = (idx - r * (cols / 8)) * 8;
     bf16* d = dst + r * dld + c;
     if (r < live && c0 + c < width)
@@ -293,17 +294,19 @@ __device__ __forceinline__ void copy_rows(bf16* dst, int dld, const bf16* src,
 
 // Chunk c (columns [c kChunkCols, (c + 1) kChunkCols)) of the 64 rows of a
 // row-major matrix of `width` columns, into a ring stage.
+template <int NT = kAttnThreads>
 __device__ __forceinline__ void copy_chunk(bf16* dst, const bf16* src,
                                            int width, int live, int c) {
-  copy_rows(dst, kChunkLd, src, width, live, c * kChunkCols, width,
-            kChunkCols);
+  copy_rows<NT>(dst, kChunkLd, src, width, live, c * kChunkCols, width,
+                kChunkCols);
 }
 
 // The resident [64][pad16(width) + 8] tile of a CTA's own rows.
+template <int NT = kAttnThreads>
 __device__ __forceinline__ void copy_resident(bf16* dst, const bf16* src,
                                               int width, int live) {
   const int wp = tcore::pad16(width);
-  copy_rows(dst, wp + 8, src, width, live, 0, width, wp);
+  copy_rows<NT>(dst, wp + 8, src, width, live, 0, width, wp);
 }
 
 // acc[n] += X[16 warp rows][cols c kChunkCols + 16 kk] . Ch[key n*8..][16 kk]^T

@@ -20,9 +20,10 @@ mask-MLP weight grads, the dk/dv pass). On rotated q, k (B,H,S,D) and v
 
 The residuals keep the port's own layouts: m and dssum are (B, S_query,
 S_key) fp32 and lse and delta = rowsum(g * o) are (B, H, S) fp32; the dk/dv
-pass reads m and dssum transposed by its indexing, so the TPU's (B, S, H)
-lse layout and the XLA transposes before its dk/dv pass have no
-counterpart. Rounding in bf16 follows the Pallas bodies (`_mask_fwd`,
+pass reads m and dssum transposed (bf16: from [64 query][64 key] tiles
+staged in shared memory; fp32: by its indexing), so the TPU's (B, S, H) lse
+layout and the XLA transposes before its dk/dv pass have no counterpart.
+Rounding in bf16 follows the Pallas bodies (`_mask_fwd`,
 `_fwd_res_kernel`, `_hires_dq_kernel`, `_hires_dkv_kernel`), not
 `_bwd_core`: ssum, the mask weights, a = gelu(h1), p, dm, dh1 and the score
 gradient are rounded to the compute dtype before their products, every
@@ -163,17 +164,17 @@ def _dims(q, k, v, dtype) -> tuple:
 
 
 def _fn(lib: str, name: str, n_ptrs: int, n_flags: int = 0,
-        dims: int = 5, scale: bool = True, report: bool = True):
+        dims: int = 5, scale: bool = True):
     """The C entry point, typed: is_bf16 and `n_flags` more ints, the
-    pointers, `dims` ints, the scale (if any), the stream and (with
-    `report`) the launch report's int and long long pointers."""
+    pointers, `dims` ints, the scale (if any), the stream and the launch
+    report's int and long long pointers."""
     fn = getattr(library(lib), name)
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_int] * (1 + n_flags)
                        + [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * dims
                        + [ctypes.c_float] * scale + [ctypes.c_void_p]
                        + [ctypes.POINTER(ctypes.c_int),
-                          ctypes.POINTER(ctypes.c_longlong)] * report)
+                          ctypes.POINTER(ctypes.c_longlong)])
         fn.restype = ctypes.c_int
     return fn
 
@@ -324,11 +325,11 @@ def _launch_dkv(q, k, v, g, m, lse, delta, dssum, *, scale,
         _check(t, name, shape, torch.float32, dev)
     dk = torch.empty((b, h, s, d), dtype=dtype, device=dev)
     dvv = torch.empty((b, h, s, dv), dtype=dtype, device=dev)
-    err = _fn("hires_attention_bwd", "hires_attention_dkv", 10,
-              report=False)(
-        int(dtype == torch.bfloat16), _ptr(q), _ptr(k), _ptr(v),
-        _ptr(g), _ptr(m), _ptr(lse), _ptr(delta), _ptr(dssum), _ptr(dk),
-        _ptr(dvv), b, h, s, d, dv, float(scale),
+    err = _call(
+        _fn("hires_attention_bwd", "hires_attention_dkv", 10), hires_dkv,
+        int(dtype == torch.bfloat16), _ptr(q), _ptr(k), _ptr(v), _ptr(g),
+        _ptr(m), _ptr(lse), _ptr(delta), _ptr(dssum), _ptr(dk), _ptr(dvv),
+        b, h, s, d, dv, float(scale),
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "hires_attention_dkv", dims, dtype)
     hires_dkv.launches += 1
@@ -446,7 +447,7 @@ fused_attention_forward.launches = 0
 # dynamic shared memory per CTA of the last card call, as the C entries
 # report them.
 for _counter in (fused_hires_attention, hires_dq, hires_weight_grads,
-                 fused_attention_forward):
+                 hires_dkv, fused_attention_forward):
     _counter.stage_launches = 0
     _counter.smem_bytes = 0
 del _counter

@@ -8,16 +8,18 @@ forward-only kernel (`fused_attention_forward`, also with the mask off:
 the attention kernel alone), the dq pass with its weight-grad reduction
 (`hires_dq`) and the dk/dv pass (`hires_dkv`). A
 torch.profiler trace of each call splits its device time by the kernels it
-launched (the attention tiles, the strided product, the sums), and beside
-the parts it times the single PyTorch calls that compute them, which the
-port never calls: `scaled_dot_product_attention` with the mask m as an
-additive bias (the attention tiles of the forward) and `torch.matmul` at
-the shapes of the strided product's ssum, h1, m (forward) and h1, dh1,
-dssum, dW1, dW2 (dq pass). With --step it builds the model and traces one
-bf16 training step at B=8, split by the same kernel families. It prints one
-JSON line per shape, then the sums weighted by the launches per hires
-forward (per training step for the passes of the backward), with the
-card's name and power limit.
+launched (the attention tiles, the strided product, the sums; a trace that
+saw none of them is taken again, and the row says how many traces it
+took), and beside the parts it times the single PyTorch calls that compute
+them, which the port never calls: `scaled_dot_product_attention` with the
+mask m as an additive bias (the attention tiles of the forward) and
+`torch.matmul` at the shapes of the strided product's ssum, h1, m
+(forward) and h1, dh1, dssum, dW1, dW2 (dq pass), and of the dk/dv pass's
+four products per (batch, head). With --step it builds the model and
+traces one bf16 training step at B=8, split by the same kernel families.
+It prints one JSON line per shape, then the sums weighted by the launches
+per hires forward (per training step for the passes of the backward),
+with the card's name and power limit.
 
     python -m calm_vit_dte_tpu_torch.tools.time_hires [--batch 8] \\
         [--reps 5] [--step] [--no-yardsticks]
@@ -51,7 +53,7 @@ PARTS = {
                           "hires_attention_bf16_kernel"),
     "dm/ssum": ("hires_dm_ssum_kernel", "hires_dm_ssum_bf16_kernel"),
     "dq": ("hires_dq_kernel", "hires_dq_bf16_kernel"),
-    "dk/dv": ("hires_dkv_kernel",),
+    "dk/dv": ("hires_dkv_kernel", "hires_dkv_bf16_kernel"),
     "strided product": ("namespace)::gemm_kernel", "gemm_tc_kernel"),
     "weight-grad partial sums": ("sum_partials_kernel",),
     "bias-grad sums": ("colsum_kernel", "sum_splits_kernel"),
@@ -122,39 +124,48 @@ def split(events, counts: dict | None = None) -> dict[str, float]:
     return out
 
 
-def parts_ms(fn, reps: int) -> dict[str, float]:
-    """Device ms per call of each part of `fn`, from a trace of `reps`
-    calls. A kernel launched as a trace starts can be missed, so the calls
-    are counted, not assumed: each call launches its kernel families at
-    least once and some exactly once, so the smallest launch count of a
-    family is the number of calls the trace saw. Parts `fn` does not
-    launch are left out; a trace that saw none of its kernels gives {}
-    (not measured)."""
+TRACE_TRIES = 4
+
+
+def parts_ms(fn, reps: int) -> tuple[dict[str, float], int]:
+    """(device ms per call of each part of `fn`, the traces taken), from a
+    trace of `reps` calls. A kernel launched as a trace starts can be
+    missed, so the calls are counted, not assumed: each call launches its
+    kernel families at least once and some exactly once, so the smallest
+    launch count of a family is the number of calls the trace saw. A trace
+    that saw none of the kernels is taken again, up to TRACE_TRIES traces
+    in all; if none saw them the parts are {} (not measured). Parts `fn`
+    does not launch are left out."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    counts: dict[str, int] = {}
-    total = split(prof.key_averages(), counts)
-    calls = min((n for p, n in counts.items() if p != "other"), default=0)
-    if not calls:
-        return {}
-    return {k: v / calls for k, v in total.items() if v > 0}
+    for tries in range(1, TRACE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        counts: dict[str, int] = {}
+        total = split(prof.key_averages(), counts)
+        calls = min((n for p, n in counts.items() if p != "other"),
+                    default=0)
+        if calls:
+            return {k: v / calls for k, v in total.items() if v > 0}, tries
+    return {}, TRACE_TRIES
 
 
 def yardsticks(args, reps: int) -> dict[str, float]:
     """ms of the PyTorch calls that compute the parts, on the same inputs:
-    SDPA with m as an additive bias (bf16), and torch.matmul at the shapes
-    of ssum (heads folded into the contraction), h1, m, dh1, dssum, dW1 and
-    dW2."""
+    SDPA with m as an additive bias (bf16), torch.matmul at the shapes of
+    ssum (heads folded into the contraction), h1, m, dh1, dssum, dW1 and dW2,
+    and per (batch, head) at the dk/dv pass's four products, k q^T, v g^T,
+    p^T g and ds^T q (a random g and a random (S, S) tile for p^T, ds^T)."""
     q, k, v, w1, _, w2, _ = args
     b, _, s, d = q.shape
     dt = q.dtype
     m = torch.randn(b, 1, s, s, device="cuda", dtype=dt)
+    g = torch.randn_like(v)
+    x_ss = torch.randn(b, H, s, s, device="cuda", dtype=dt)   # p^T, ds^T
     qf = q.transpose(1, 2).reshape(b, s, H * d).contiguous()
     kf = k.transpose(1, 2).reshape(b, s, H * d).transpose(1, 2).contiguous()
     x_s = torch.randn(b * s, s, device="cuda", dtype=dt)       # ssum, dm
@@ -170,6 +181,10 @@ def yardsticks(args, reps: int) -> dict[str, float]:
         "matmul dssum": lambda: torch.matmul(x_2s, w1c),
         "matmul dW1": lambda: torch.matmul(x_2s.t(), x_s),
         "matmul dW2": lambda: torch.matmul(x_s.t(), x_2s),
+        "matmul k q^T": lambda: torch.matmul(k, q.transpose(-1, -2)),
+        "matmul v g^T": lambda: torch.matmul(v, g.transpose(-1, -2)),
+        "matmul p^T g": lambda: torch.matmul(x_ss, g),
+        "matmul ds^T q": lambda: torch.matmul(x_ss, q),
     }
     with torch.no_grad():
         return {name: median_ms(fn, reps) for name, fn in calls.items()}
@@ -205,8 +220,9 @@ def time_shape(b: int, s: int, d: int, dv: int, seed: int, reps: int,
         }
         row = {"shape": [s, d, dv]}
         for name, (kern, ref) in calls.items():
-            row[name] = {"ms": median_ms(kern, reps),
-                         "parts_ms": parts_ms(kern, 3)}
+            parts, traces = parts_ms(kern, 3)
+            row[name] = {"ms": median_ms(kern, reps), "parts_ms": parts,
+                         "traces": traces}
             if plain:
                 row[name]["plain_ms"] = median_ms(ref, max(2, reps // 2))
         # The attention kernel alone, without the mask: no strided product

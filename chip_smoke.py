@@ -10,7 +10,8 @@ Phases, each fatal on failure (any exception exits non-zero):
              whether triton imports;
   2. build   the CUDA kernels with nvcc for sm_90a, one nvcc per source in
              parallel, printing each source's register and spill figures
-             from ptxas (the full log stays in build/torch_kernels/);
+             from ptxas (the full log stays in build/torch_kernels/); a
+             spill in a hires tensor-core kernel fails the run;
   3. check   the rope kernels' shared-memory helpers against the sizes the
              C launches use, at every shape below, mask on and off; then
              every kernel against its plain PyTorch version at every shape
@@ -69,8 +70,8 @@ Phases, each fatal on failure (any exception exits non-zero):
              at most twice the plain bf16 error; the forward-only kernel with
              the mask off, kernels 1-3 with zero mask weights; the autograd
              Function against torch autograd of the plain forward; the bf16
-             forwards and dq pass bit-identical across two launches at
-             S=1024, D=256);
+             forwards, dq pass and dk/dv pass bit-identical across two
+             launches at S=1024, D=256);
              Predictor.fresh("hires-cls-1024").classify on 8 uint8 1168x1168
              images (exactly 24 forward-only + 8 conv launches, no rope
              kernel), fp32 logits card vs CPU on 1 image; five bf16 training
@@ -78,14 +79,15 @@ Phases, each fatal on failure (any exception exits non-zero):
              weight-grad reductions each, loss lower at the end, every
              gradient finite and nonzero), an eval step (24 forward-only),
              each path's stage launches as the C entries report them (3 per
-             forward, 4 per dq pass, 6 per weight-grad reduction), one
-             traced step split by kernel family, one fp32 step on 1 image
-             card vs CPU; each kernel and its plain version timed at B=8
-             bf16, with each call's device time by part (the attention
-             tiles, the strided product, the sums) beside the library calls
-             that compute the parts (scaled_dot_product_attention with m as
-             an additive bias; torch.matmul at the strided product's
-             shapes), which the port never calls;
+             forward, 4 per dq pass, 6 per weight-grad reduction, none per
+             dk/dv pass), one traced step split by kernel family, one fp32
+             step on 1 image card vs CPU; each kernel and its plain version
+             timed at B=8 bf16, with each call's device time by part (the
+             attention tiles, the strided product, the sums) beside the
+             library calls that compute the parts
+             (scaled_dot_product_attention with m as an additive bias;
+             torch.matmul at the strided product's shapes and at the dk/dv
+             pass's four products), which the port never calls;
   9. trainer the classification trainer entry point with the fused conv
              residual in training, after the hires phase frees its memory:
              the forward that saves h and acc and the recomputing backward
@@ -275,7 +277,11 @@ TENSOR_CORE_KERNELS = ("rope_attention_fwd_bf16_kernel", "bwd_rows_kernel",
                        "bwd_keys_kernel", "xty_mma_kernel",
                        "hires_attention_bf16_kernel",
                        "hires_dm_ssum_bf16_kernel", "hires_dq_bf16_kernel",
-                       "gemm_tc_kernel")
+                       "hires_dkv_bf16_kernel", "gemm_tc_kernel")
+# The hires tensor-core kernels, whose ptxas reports must show no spills.
+NO_SPILL_KERNELS = ("hires_attention_bf16_kernel",
+                    "hires_dm_ssum_bf16_kernel", "hires_dq_bf16_kernel",
+                    "hires_dkv_bf16_kernel", "gemm_tc_kernel")
 
 
 def kernel_registers(ptxas_log):
@@ -383,9 +389,10 @@ HIRES_OUT_NAMES = ("dq", "dssum", "dw1", "db1", "dw2", "db2", "dk", "dv")
 # the C entries report them: the forwards' three strided products before
 # the attention kernel; the dq pass's dm/ssum kernel and three products
 # before the dq kernel; the weight grads' second product, partial sums and
-# two two-stage column sums after the first product.
+# two two-stage column sums after the first product; none beside the dk/dv
+# kernel.
 HIRES_STAGES_PER_CALL = {"fwd_res": 3, "fwd_only": 3, "dq": 4,
-                         "weight_grads": 6}
+                         "weight_grads": 6, "dkv": 0}
 
 
 def hires_inputs(torch, b, s, d, dv, device, dtype, seed, zero_mask=False):
@@ -604,8 +611,9 @@ def hires_phases(torch, name, smi):
         f"value; checks took {time.time() - t0:.1f} s")
     del args, g
 
-    # bf16, run to run: the forwards and the dq pass (with its weight
-    # grads) give the same bits from two launches at the widest shape.
+    # bf16, run to run: the forwards, the dq pass (with its weight grads)
+    # and the dk/dv pass give the same bits from two launches at the widest
+    # shape.
     s, d, dv = max(kernel_shapes)
     q, k, v, w1, b1, w2, b2 = hires_inputs(torch, HIRES_CHECK_BATCH, s, d, dv,
                                            dev, bf16, seed=870)
@@ -615,17 +623,19 @@ def hires_phases(torch, name, smi):
     def bf16_outputs():
         o, m, lse = kh.hires_fwd_res(q, k, v, w1, b1, w2, b2, **kw16)
         delta = (g.float() * o.float()).sum(-1)
+        dq_out = kh.hires_dq(q, k, v, g, m, lse, delta, w1, b1, w2, **kw16)
         return (o, m, lse, kh.fused_attention_forward(q, k, v, w1, b1, w2,
                                                       b2, **kw16),
-                *kh.hires_dq(q, k, v, g, m, lse, delta, w1, b1, w2, **kw16))
+                *dq_out, *kh.hires_dkv(q, k, v, g, m, lse, delta, dq_out[1],
+                                       **kw16))
 
-    names = ("o", "m", "lse", "forward-only o") + HIRES_OUT_NAMES[:6]
+    names = ("o", "m", "lse", "forward-only o") + HIRES_OUT_NAMES
     for n_, x, y in zip(names, bf16_outputs(), bf16_outputs()):
         if not torch.equal(x, y):
             raise AssertionError(f"hires bf16 {n_} at S={s} D={d} differs "
                                  "between two runs")
-    log(f"[hires check] bf16 forward, forward-only and dq pass at S={s}, D="
-        f"{d}: {len(names)} outputs bit-identical from run to run")
+    log(f"[hires check] bf16 forward, forward-only, dq and dk/dv passes at "
+        f"S={s}, D={d}: {len(names)} outputs bit-identical from run to run")
     del q, k, v, w1, b1, w2, b2, g
 
     def counts():
@@ -639,7 +649,7 @@ def hires_phases(torch, name, smi):
                 "conv": kc.fused_conv_residual.launches}
 
     staged = {"fwd_res": kh.fused_hires_attention, "dq": kh.hires_dq,
-              "weight_grads": kh.hires_weight_grads,
+              "weight_grads": kh.hires_weight_grads, "dkv": kh.hires_dkv,
               "fwd_only": kh.fused_attention_forward}
 
     def stages():
@@ -918,14 +928,16 @@ def hires_phases(torch, name, smi):
                         + lib["matmul h1"] + lib["matmul m"]},
             "dq": {"strided product": lib["matmul h1"] + lib["matmul dh1"]
                    + lib["matmul dssum"] + lib["matmul dW1"]
-                   + lib["matmul dW2"]}}
+                   + lib["matmul dW2"]},
+            "dkv": {"dk/dv": lib["matmul k q^T"] + lib["matmul v g^T"]
+                    + lib["matmul p^T g"] + lib["matmul ds^T q"]}}
         lib_parts["fwd_only"] = lib_parts["fwd_res"]
         log(f"[hires time] S={s} D={d}: library yardsticks (ms) "
             + ", ".join(f"{k_} {v_:.3f}" for k_, v_ in lib.items()))
         for kname, (kern, plain) in calls.items():
             ms = cuda_ms(torch, kern, 3, warmup=1)
             plain_ms = cuda_ms(torch, plain, 2, warmup=1)
-            parts_ms = th.parts_ms(kern, 3)
+            parts_ms, traces = th.parts_ms(kern, 3)
             t_bytes, t_ops = bounds[kname]
             err = worst[(s, d, dv)]
             row = dict(S=s, D=d, Dv=dv, launches=n, ms=ms, plain_ms=plain_ms,
@@ -933,7 +945,7 @@ def hires_phases(torch, name, smi):
                        bound_by="bytes" if t_bytes >= t_ops else "operations",
                        fp32_err=err[kname], fp32_bwd_norm_err=err["bwd_norm"],
                        bf16_err_over_plain=err["bf16_ratio"],
-                       parts_ms=parts_ms,
+                       parts_ms=parts_ms, parts_traces=traces,
                        parts_library_ms=lib_parts.get(kname, {}))
             if kname in staged:
                 row["smem_per_cta"] = staged[kname].smem_bytes
@@ -944,8 +956,10 @@ def hires_phases(torch, name, smi):
             log(f"[hires time] {kname} S={s} D={d} Dv={dv} (x{n}): kernel "
                 f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
                 f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
-                f"{row['bound_ms'] / ms:.2%} of bound; parts (device ms) "
-                + ", ".join(f"{k_} {v_:.3f}" for k_, v_ in parts_ms.items()))
+                f"{row['bound_ms'] / ms:.2%} of bound; parts (device ms, "
+                f"{traces} trace(s)) "
+                + (", ".join(f"{k_} {v_:.3f}" for k_, v_ in parts_ms.items())
+                   or "not measured"))
         del args, g, res, o, m, lse, delta, dssum, calls, q, k, v, lib
         torch.cuda.empty_cache()
 
@@ -954,6 +968,7 @@ def hires_phases(torch, name, smi):
         "fwd_res": {per_step: train_stages["fwd_res"]},
         "dq": {per_step: train_stages["dq"],
                "weight_grad_reductions": train_stages["weight_grads"]},
+        "dkv": {per_step: train_stages["dkv"]},
         "fwd_only": {"classify": serve_stages["fwd_only"],
                      "eval_step": eval_stages["fwd_only"]},
     }
@@ -1784,6 +1799,8 @@ def main() -> int:
             if any(k in kname for k in TENSOR_CORE_KERNELS):
                 log(f"[build] {src}: {kname}: {kregs} registers, spill "
                     f"{kspill} bytes")
+            if kspill and any(k in kname for k in NO_SPILL_KERNELS):
+                raise AssertionError(f"{src}: {kname} spills {kspill} bytes")
 
     # 3. kernel vs plain at every flagship shape (and imagenet-cls-256's)
     cfg = get_config("imagenet-cls-224")

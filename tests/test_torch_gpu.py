@@ -393,6 +393,7 @@ def test_conv_function_matches_autograd(cuda_device, route, monkeypatch):
 # of hires-cls-1024 (S, D = Dv).
 HIRES_SHAPES = [(448, 112), (640, 160), (832, 208), (1024, 256)]
 HIRES_BWD_NAMES = ("dq", "dssum", "dw1", "db1", "dw2", "db2", "dk", "dv")
+SMEM_PER_BLOCK = 232_448   # the H100's dynamic shared memory per CTA
 
 
 def _hires_inputs(rng, device, b, s, d, dtype):
@@ -479,12 +480,22 @@ def test_hires_forward_kernels_bf16_deterministic(cuda_device, s, d):
                        kh.fused_attention_forward(*args, **kw))
 
 
+def _assert_dkv_launches(kh, launches, stages, calls):
+    """`calls` dk/dv passes since the counts were `launches`, `stages`: each
+    one kernel (no stage launches) whose CTA fits the card's shared
+    memory."""
+    assert kh.hires_dkv.launches == launches + calls
+    assert kh.hires_dkv.stage_launches == stages
+    assert 0 < kh.hires_dkv.smem_bytes <= SMEM_PER_BLOCK
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("s,d", HIRES_SHAPES)
 def test_hires_backward_kernels_match_plain(cuda_device, s, d):
     """The dq pass (kernel 2, with its weight-grad reduction) and the dk/dv
     pass (kernel 3): fp32 within 1e-4 of each output's largest value, the
-    same bits from two launches, bf16 at most twice the plain bf16 error."""
+    same bits from two launches, bf16 at most twice the plain bf16 error;
+    the dk/dv launches and stage launches as its C entry reports them."""
     from calm_vit_dte_tpu_torch.kernels import hires_attention as kh
 
     rng = np.random.default_rng(s + 1)
@@ -495,11 +506,13 @@ def test_hires_backward_kernels_match_plain(cuda_device, s, d):
     o, m, lse = kh.hires_fwd_res_plain(*args, scale=scale, dtype=f32)
     delta = (g * o).sum(-1)
     n2, n3 = kh.hires_dq.launches, kh.hires_dkv.launches
+    s3 = kh.hires_dkv.stage_launches
     got = _hires_bwd_all(kh, args, g, m, lse, delta, scale, f32, False)
     again = _hires_bwd_all(kh, args, g, m, lse, delta, scale, f32, False)
     want = _hires_bwd_all(kh, args, g, m, lse, delta, scale, f32, True)
     torch.cuda.synchronize()
-    assert kh.hires_dq.launches == n2 + 2 and kh.hires_dkv.launches == n3 + 2
+    assert kh.hires_dq.launches == n2 + 2
+    _assert_dkv_launches(kh, n3, s3, 2)
     for name, x, y, z in zip(HIRES_BWD_NAMES, got, want, again):
         assert x.shape == y.shape and x.dtype == y.dtype, name
         assert _norm_err(x, y) <= 1e-4, name
@@ -517,6 +530,8 @@ def test_hires_backward_kernels_match_plain(cuda_device, s, d):
                          lse16, delta16, scale, f32, True)
     again16 = _hires_bwd_all(kh, a16, g16, m16, lse16, delta16, scale, bf16,
                              False)
+    torch.cuda.synchronize()
+    _assert_dkv_launches(kh, n3, s3, 4)
     for name, x, y, r, z in zip(HIRES_BWD_NAMES, k16, p16, r32, again16):
         assert x.dtype == y.dtype, name
         assert _norm_err(x, r) <= 2 * _norm_err(y, r) + 1e-6, name
@@ -529,7 +544,8 @@ def test_hires_kernels_ragged_shape_match_plain(cuda_device):
     tiles (64 rows, 64-column chunks, k-steps of 16): the ragged rows and
     keys are masked and the columns zero-padded. Forward and both backward
     passes in fp32 against plain, and in bf16 at most twice the plain bf16
-    error; a bf16 shape that is not a multiple of 8 raises."""
+    error, the bf16 dk/dv the same bits from two launches and one kernel a
+    call; a bf16 shape that is not a multiple of 8 raises."""
     from calm_vit_dte_tpu_torch.kernels import hires_attention as kh
 
     rng = np.random.default_rng(520)
@@ -566,14 +582,21 @@ def test_hires_kernels_ragged_shape_match_plain(cuda_device):
         assert _norm_err(out, ref) <= 2 * _norm_err(plain, ref) + 1e-6
     o16, m16, lse16 = p16
     delta16 = (g16.float() * o16.float()).sum(-1)
+    n3, s3 = kh.hires_dkv.launches, kh.hires_dkv.stage_launches
     k16 = _hires_bwd_all(kh, a16, g16, m16, lse16, delta16, scale, bf16,
                          False)
+    again16 = kh.hires_dkv(*a16[:3], g16, m16, lse16, delta16, k16[1],
+                           scale=scale, dtype=bf16)
+    torch.cuda.synchronize()
+    _assert_dkv_launches(kh, n3, s3, 2)
     b16 = _hires_bwd_all(kh, a16, g16, m16, lse16, delta16, scale, bf16,
                          True)
     r32 = _hires_bwd_all(kh, a32, g16.float(), m16, lse16, delta16, scale,
                          f32, True)
     for name, x, y, r in zip(HIRES_BWD_NAMES, k16, b16, r32):
         assert _norm_err(x, r) <= 2 * _norm_err(y, r) + 1e-6, name
+    for name, x, z in zip(("dk", "dv"), k16[6:], again16):
+        assert torch.equal(x, z), f"bf16 {name} differs between two runs"
 
     odd = [a[:, :, :-4] if a.dim() == 4 else a for a in a16[:3]]
     with pytest.raises(ValueError, match="multiples of 8"):

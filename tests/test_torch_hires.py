@@ -161,6 +161,31 @@ def test_bf16_shape_rule_matches_the_source(source):
     assert {int(x) for rule in rules for x in rule} == {kh.BF16_MULTIPLE}
 
 
+def _c_entries(source):
+    """{name: (parameters, body)} of the extern "C" entries of a source."""
+    text = (CSRC / source).read_text()
+    return {m.group(1): (" ".join(m.group(2).split()),
+                         text[m.end():text.index("\n}\n", m.end())])
+            for m in re.finditer(r'extern "C" \w[\w ]*?(\w+)\(([^)]*)\)\s*\{',
+                                 text)}
+
+
+def test_bf16_entries_pass_is_bf16_to_the_shape_check():
+    """Every C entry of the backward source that takes is_bf16 and checks
+    its dims with bad_dims (the dq and dk/dv passes) passes is_bf16 to it,
+    so the C entry itself refuses a bf16 shape off the multiple, and
+    reports its launches and shared memory."""
+    entries = _c_entries("hires_attention_bwd.cu")
+    checked = {name for name, (_, body) in entries.items()
+               if "bad_dims(" in body}
+    assert checked == {"hires_attention_dq", "hires_attention_dkv"}
+    for name in checked:
+        params, body = entries[name]
+        assert params.startswith("int is_bf16,"), name
+        assert re.findall(r"bad_dims\((\w+),", body) == ["is_bf16"], name
+        assert params.endswith("int* launched, long long* smem"), name
+
+
 def test_every_hires_shape_takes_the_bf16_kernels():
     """Every attention shape of every config that `pick_route` sends to the
     hires route passes the bf16 kernels' shape check (so no config's bf16
