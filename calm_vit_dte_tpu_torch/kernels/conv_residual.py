@@ -7,10 +7,14 @@ JAX counterpart: calm_vit_dte_tpu/kernels/conv_residual.py,
 forward (fwd_call, :355), the forward that saves the middle activations h
 and acc (fwd_resid_call, :369) and the recomputing backward (bwd_call,
 :387). The kernel sources and their design notes are in csrc/conv_residual.cu
-and csrc/conv_residual_bwd.cu. Both GELUs are exact (erf) in both compute
-dtypes, and the backward differentiates exactly that; the TPU kernel's bf16
-minimax GELU and its derivative are not carried over. There is no S gate:
-every S goes to the kernels on the card.
+and csrc/conv_residual_bwd.cu. The fp32 kernels' GELUs are exact (erf), and
+the backward differentiates exactly that. The bf16 kernels take erf from one
+exp and one reciprocal (Abramowitz-Stegun 7.1.26 in
+csrc/conv_residual_common.cuh: within ERF_BF16_MAX_ERR of erff, shared by a
+GELU and its derivative), far below bf16's rounding of h, acc and y; the
+plain versions stay exact in both dtypes. The TPU kernel's bf16 minimax
+GELU and its derivative are not carried over. There is no S gate: every S
+goes to the kernels on the card.
 
 `fused_conv_residual_train` is the differentiable entry point. Its backward
 is chosen by CALM_CONV_BWD, read at each call as the JAX package reads it:
@@ -23,6 +27,14 @@ is chosen by CALM_CONV_BWD, read at each call as the JAX package reads it:
 Under activation checkpointing (utils/remat.py) the Function records its
 forward's outputs, y or (y, h, acc), so the Block replay launches no conv
 kernel again (the JAX step's saved "conv_out").
+
+The bf16 kernels' launch geometry is mirrored here (`FWD_BF16_TILE`,
+`BWD_BF16_TILE`, the grids, `fwd_bf16_smem`, `bwd_bf16_smem`,
+`ctas_per_sm`); the CPU tests hold it to the sources' notes, and
+chip_smoke.py and the GPU tests to the C launches (`card_geometry`).
+`conv_residual_bwd_partials_plain` is the backward's staged plain version:
+its per-CTA partial weight-grad rows, in the bf16 kernel's tiling, which
+the GPU tests hold the kernel's rows (`launch_bwd`) to.
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches the kernel or raises.
@@ -52,6 +64,63 @@ _WG_SUMS = 17    # the sums per channel each CTA writes (columns 0:17)
 _DTYPES = (torch.float32, torch.bfloat16)
 _INV_SQRT_2PI = 0.3989422804014327
 _SQRT_HALF = 0.7071067811865476
+# kErfBf16MaxErr of csrc/conv_residual_common.cuh: the bf16 route's erf
+# against erff over [-10, 10].
+ERF_BF16_MAX_ERR = 6e-7
+
+# The bf16 kernels' launch geometry, as csrc/conv_residual{,_bwd}.cu set it.
+THREADS_BF16 = 256
+FWD_BF16_TILE = (64, 16)     # output rows, columns of a forward CTA
+BWD_BF16_TILE = (16, 32)     # ... of a backward CTA
+_FWD_WEIGHTS_SMEM = 4 * (3 * 32 + 32 + 9 * 32 + 32 + 3 * 32 + 4)  # static
+_SM_SMEM = 233472            # shared memory of one SM; each CTA also
+#                              reserves 1 KB
+_SM_REGS = 65536
+# The CTAs an SM each bf16 kernel's __launch_bounds__ asks for (kMinCtas,
+# kMinCtasSave of the sources).
+MIN_CTAS_BF16 = {"forward": 3, "forward with residuals": 2, "backward": 2}
+
+
+def fwd_bf16_smem() -> int:
+    """Shared memory of a bf16 forward CTA: h on the tile's one-pixel halo
+    for a pass of 16 channels, bf16 (dynamic), and the weights (static)."""
+    rows, cols = FWD_BF16_TILE
+    return (rows + 2) * (cols + 2) * 16 * 2 + _FWD_WEIGHTS_SMEM
+
+
+def bwd_bf16_smem() -> int:
+    """Dynamic shared memory of a bf16 backward CTA: x on the tile's
+    two-pixel halo and g on its one-pixel halo as float4, and each of the 8
+    warps' planes (h on the tile + 2, dacc on the tile + 1, gelu'(a1) on the
+    tile), fp32."""
+    rows, cols = BWD_BF16_TILE
+    hn, an = (rows + 4) * (cols + 4), (rows + 2) * (cols + 2)
+    return 16 * (hn + an) + 4 * 8 * (hn + an + rows * cols)
+
+
+def ctas_per_sm(smem: int, min_ctas: int) -> int:
+    """CTAs of THREADS_BF16 threads that fit on one SM by shared memory and
+    by registers, for a kernel whose __launch_bounds__ asks for `min_ctas`
+    (which caps its registers a thread, allocated in eights)."""
+    regs = _SM_REGS // (min_ctas * THREADS_BF16) // 8 * 8
+    return min(_SM_SMEM // (smem + 1024), _SM_REGS // (regs * THREADS_BF16))
+
+
+def _grid(tile: tuple[int, int], b: int, s: int) -> tuple[int, int, int]:
+    rows, cols = tile
+    return (-(-s // cols), -(-s // rows), b)
+
+
+def fwd_bf16_grid(b: int, s: int) -> tuple[int, int, int]:
+    """(x, y, z) CTAs of a bf16 forward launch: column tiles, row tiles,
+    images."""
+    return _grid(FWD_BF16_TILE, b, s)
+
+
+def bwd_bf16_grid(b: int, s: int) -> tuple[int, int, int]:
+    """... of a bf16 backward launch, which writes one partial weight-grad
+    row a CTA."""
+    return _grid(BWD_BF16_TILE, b, s)
 
 
 def fused_conv_residual_plain(x, w1, b1, wd, bd, w2, b2, *,
@@ -103,17 +172,23 @@ def conv_residual_fwd_resid_plain(x, w1, b1, wd, bd, w2, b2, *,
     return y.to(dtype), h.to(dtype), acc.to(dtype)
 
 
-def conv_residual_bwd_plain(x, g, w1, b1, wd, bd, w2, *, dtype) -> tuple:
-    """The recomputing backward, step by step as the kernel computes it
-    (h rounded to `dtype`, the rest fp32): x, g (B,S,S,3) -> (dx (B,S,S,3)
-    in `dtype`, the packed (32, 24) fp32 weight grads)."""
+def _bwd_parts(x, g, w1, b1, wd, bd, w2, dtype) -> tuple:
+    """The recomputing backward's per-pixel values, as the kernels compute
+    them (h rounded to `dtype`, the rest fp32): x, g, h, g2, dacc, da1."""
     x32, gy = x.float(), g.float()
     a1 = _a1(x32, w1, b1)
     h = F.gelu(a1).to(dtype).float()
     acc = _taps(h, wd, bd)
-    g2 = F.gelu(acc)
     dacc = (gy @ w2) * _dgelu(acc)
     da1 = _taps(dacc, wd, 0.0, flip=True) * _dgelu(a1)
+    return x32, gy, h, F.gelu(acc), dacc, da1
+
+
+def conv_residual_bwd_plain(x, g, w1, b1, wd, bd, w2, *, dtype) -> tuple:
+    """The recomputing backward, step by step as the kernel computes it
+    (h rounded to `dtype`, the rest fp32): x, g (B,S,S,3) -> (dx (B,S,S,3)
+    in `dtype`, the packed (32, 24) fp32 weight grads)."""
+    x32, gy, h, g2, dacc, da1 = _bwd_parts(x, g, w1, b1, wd, bd, w2, dtype)
     hp = F.pad(h, (0, 0, 1, 1, 1, 1))
     s = x.shape[1]
     dims = (0, 1, 2)
@@ -126,6 +201,47 @@ def conv_residual_bwd_plain(x, g, w1, b1, wd, bd, w2, *, dtype) -> tuple:
     wg[:, 13] = da1.sum(dims)
     wg[:, 14:17] = torch.einsum("bhwc,bhwo->co", g2, gy)
     return (da1 @ w1).to(dtype), wg
+
+
+def conv_residual_bwd_partials_plain(x, g, w1, b1, wd, bd, w2, *,
+                                     dtype) -> tuple:
+    """The backward's first stage as the bf16 kernel stages it: dx, and one
+    partial row a CTA (in the grid's order: image, row tile, column tile of
+    BWD_BF16_TILE) of the 32 x 17 weight-grad sums over the tile's own
+    pixels, (n, 544) fp32. `conv_weight_grad_sum_plain` of the rows gives
+    `conv_residual_bwd_plain`'s packed weight grads. For small inputs: it
+    holds all 17 products of every pixel and channel."""
+    x32, gy, h, g2, dacc, da1 = _bwd_parts(x, g, w1, b1, wd, bd, w2, dtype)
+    hp = F.pad(h, (0, 0, 1, 1, 1, 1))
+    n, s = x.shape[0], x.shape[1]
+    terms = [dacc * hp[:, a:a + s, b:b + s, :]
+             for a in range(3) for b in range(3)]
+    terms += [dacc, *(da1 * x32[..., i:i + 1] for i in range(3)), da1,
+              *(g2 * gy[..., o:o + 1] for o in range(3))]
+    rows, cols = BWD_BF16_TILE
+    gx, gyt, _ = bwd_bf16_grid(n, s)
+    t = F.pad(torch.stack(terms, dim=-1),
+              (0, 0, 0, 0, 0, gx * cols - s, 0, gyt * rows - s))
+    t = t.view(n, gyt, rows, gx, cols, HIDDEN, _WG_SUMS).sum((2, 4))
+    return (da1 @ w1).to(dtype), t.reshape(-1, HIDDEN * _WG_SUMS)
+
+
+def erf_bf16_probe(x: torch.Tensor) -> tuple:
+    """erf(x / sqrt 2), GELU(x) and GELU'(x) of fp32 `x` as the bf16 kernels
+    compute them (csrc/conv_residual_common.cuh), on the card; on a CPU
+    tensor the exact functions."""
+    if _on(x) == "cpu":
+        return (torch.erf(x * _SQRT_HALF), F.gelu(x), _dgelu(x))
+    if x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError("the probe takes contiguous fp32")
+    outs = [torch.empty_like(x) for _ in range(3)]
+    fn = library("conv_residual").conv_residual_erf_bf16_probe
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
+        fn.restype = ctypes.c_int
+    err = fn(x.data_ptr(), x.numel(), *_ptrs(*outs), _stream(x))
+    _raise_on(err, "conv_residual_erf_bf16_probe", 0, 0, torch.float32)
+    return tuple(outs)
 
 
 def conv_residual_bwd_from_residuals(x, g, h, acc, w1, b1, wd, w2) -> tuple:
@@ -255,13 +371,68 @@ def conv_residual_fwd_resid(x, w1, b1, wd, bd, w2, b2, *, dtype) -> tuple:
 conv_residual_fwd_resid.launches = 0
 
 
-def _bwd_rows(b: int, s: int) -> int:
-    """The partial weight-grad rows (one per CTA) the backward kernel
-    writes for (B, S); the library computes it from its own tiling."""
+def _bwd_rows(dtype, b: int, s: int) -> int:
+    """The partial weight-grad rows (one per CTA) the backward kernel of
+    `dtype` writes for (B, S); the library computes it from its own
+    tiling."""
     fn = library("conv_residual_bwd").conv_residual_bwd_rows
     if fn.argtypes is None:
-        fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
-    return fn(b, s)
+        fn.argtypes = [ctypes.c_int] * 3
+        fn.restype = ctypes.c_int
+    return fn(int(dtype == torch.bfloat16), b, s)
+
+
+# The C entries that report the bf16 kernels' geometry and what the card
+# makes of every conv kernel, by library.
+_GEOMETRY = {"forward": ("conv_residual", "conv_residual_fwd_bf16_geometry"),
+             "backward": ("conv_residual_bwd",
+                          "conv_residual_bwd_bf16_geometry")}
+_OCCUPANCY = {
+    ("conv_residual", "conv_residual_fwd_occupancy"): (
+        "conv_residual_fwd_kernel<fp32>",
+        "conv_residual_fwd_kernel<fp32, save>", "conv_fwd_bf16_kernel<0>",
+        "conv_fwd_bf16_kernel<1> (save)"),
+    ("conv_residual_bwd", "conv_residual_bwd_occupancy"): (
+        "conv_residual_bwd_kernel<fp32>", "conv_bwd_bf16_kernel<31>",
+        "conv_wgrad_sum_kernel"),
+}
+
+
+def card_geometry(b: int, s: int) -> dict:
+    """The bf16 kernels' launch geometry for (B, S) as the C entries set
+    it: {"forward": ..., "backward": ...}, each (grid x, y, z, threads a
+    CTA, dynamic shared memory a CTA); and the backward's partial rows."""
+    out = {}
+    for what, (lib, entry) in _GEOMETRY.items():
+        fn = getattr(library(lib), entry)
+        if fn.argtypes is None:
+            fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            fn.restype = None
+        buf = (ctypes.c_int * 5)()
+        fn(b, s, buf)
+        out[what] = tuple(buf)
+    out["bwd_rows"] = _bwd_rows(torch.bfloat16, b, s)
+    return out
+
+
+def card_occupancy() -> dict:
+    """What the card makes of each conv kernel: {name: {"registers",
+    "spill_bytes", "smem_bytes" (static + dynamic, a CTA), "ctas_per_sm"}},
+    from cudaFuncGetAttributes and cudaOccupancyMaxActiveBlocksPer
+    Multiprocessor in the C entries."""
+    out = {}
+    for (lib, entry), kernels in _OCCUPANCY.items():
+        fn = getattr(library(lib), entry)
+        if fn.argtypes is None:
+            fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+        buf = (ctypes.c_int * (4 * len(kernels)))()
+        err = fn(buf)
+        if err != 0:
+            raise RuntimeError(f"{entry}: CUDA error {err}")
+        for k, name in enumerate(kernels):
+            out[name] = dict(zip(("registers", "spill_bytes", "smem_bytes",
+                                  "ctas_per_sm"), buf[4 * k:4 * k + 4]))
+    return out
 
 
 def launch_bwd(x, g, w1, b1, wd, bd, w2, *, dtype,
@@ -278,7 +449,7 @@ def launch_bwd(x, g, w1, b1, wd, bd, w2, *, dtype,
     else:
         raise ValueError("the ablation variants are built for bf16 only")
     dx = torch.empty_like(x)
-    part = torch.empty((_bwd_rows(b, s), HIDDEN * _WG_SUMS),
+    part = torch.empty((_bwd_rows(dtype, b, s), HIDDEN * _WG_SUMS),
                        dtype=torch.float32, device=x.device)
     err = _fn("conv_residual_bwd", entry, 9)(
         lead, *_ptrs(x, g, w1, b1, wd, bd, w2, dx, part), b, s, _stream(x))

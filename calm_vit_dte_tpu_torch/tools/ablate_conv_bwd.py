@@ -6,9 +6,12 @@ card to attribute its time.
         [--batch 128] [--size 224] [--reps 10]
 
 JAX counterpart: scripts/ablate_conv_bwd.py, whose Pallas variants (:119)
-drop the same six parts of the TPU backward; here they are a compile-time
-mask of csrc/conv_residual_bwd.cu (entry `conv_residual_bwd_ablate`, bf16
-only), and the source says what each part is. As there, each variant runs
+drop six parts of the TPU backward; here five of them are a compile-time
+mask of the bf16 production kernel in csrc/conv_residual_bwd.cu (entry
+`conv_residual_bwd_ablate`), and the source says what each part is. The
+sixth, trans (the hand-off of g2 and da1 between two layouts through shared
+memory), has no counterpart in that design: `run` reports it as absent,
+with no time. As there, each variant runs
 chained twice (x, g -> dx, then x, dx -> dx) and its time is per backward:
 the kernel and its ordered weight-grad sum. FULL must equal the production
 kernel bit for bit, which `main` checks first; the variants compute
@@ -24,8 +27,10 @@ import torch
 
 from calm_vit_dte_tpu_torch.kernels import conv_residual as kc
 
-PARTS = ("recompute", "dgelu2", "trans", "wdots", "dh", "dgelu1")
+PARTS = ("recompute", "dgelu2", "wdots", "dh", "dgelu1")   # bit i: PARTS[i]
 FULL = (1 << len(PARTS)) - 1
+# The script's parts that the kernel's design no longer has.
+ABSENT = {"trans": "no hand-off between layouts in the kernel's design"}
 
 
 def variants() -> list[tuple[str, int]]:
@@ -87,7 +92,8 @@ def _ms(fn, reps: int) -> float:
 
 
 def run(args, reps: int = 10) -> list[dict]:
-    """Each variant chained twice, `reps` times: ms per backward."""
+    """Each variant chained twice, `reps` times: ms per backward; then a row
+    (ms None) for each part in ABSENT."""
     x, g, *w = args
     rows = []
     for label, parts in variants():
@@ -99,7 +105,17 @@ def run(args, reps: int = 10) -> list[dict]:
         dx, _ = chained()
         rows.append({"variant": label, "parts": parts, "ms": ms,
                      "dx_sum": float(dx.float().sum())})
+    rows += [{"variant": f"-{p}", "parts": None, "ms": None, "absent": why}
+             for p, why in ABSENT.items()]
     return rows
+
+
+def describe(row: dict) -> str:
+    """One line of the tool's output for a row of `run`."""
+    if row["ms"] is None:
+        return f"{row['variant']:<12} absent: {row['absent']}"
+    return (f"{row['variant']:<12} {row['ms']:8.4f} ms  (dx sum "
+            f"{row['dx_sum']:.4e})")
 
 
 def main(argv: list[str] | None = None) -> list[dict]:
@@ -115,8 +131,7 @@ def main(argv: list[str] | None = None) -> list[dict]:
         raise AssertionError("FULL differs from the production backward")
     rows = run(args, a.reps)
     for r in rows:
-        print(f"{r['variant']:<12} {r['ms']:8.4f} ms  (dx sum "
-              f"{r['dx_sum']:.4e})", flush=True)
+        print(describe(r), flush=True)
     return rows
 
 

@@ -11,9 +11,16 @@ Phases, each fatal on failure (any exception exits non-zero):
   2. build   the CUDA kernels with nvcc for sm_90a, one nvcc per source in
              parallel, printing each source's register and spill figures
              from ptxas (the full log stays in build/torch_kernels/); a
-             spill in a hires tensor-core kernel fails the run;
+             spill in a hires tensor-core kernel fails the run; every conv
+             kernel instantiation's registers, spills, shared memory a CTA
+             and CTAs per SM as the CUDA runtime reports them (the bf16
+             ones must keep the CTAs an SM their launch bounds ask for,
+             with no spill);
   3. check   the rope kernels' shared-memory helpers against the sizes the
-             C launches use, at every shape below, mask on and off; then
+             C launches use, at every shape below, mask on and off; the
+             bf16 conv kernels' grids, threads, shared memory and partial
+             rows against the wrapper's helpers at every conv S, and their
+             erf within its stated bound of erff over [-10, 10]; then
              every kernel against its plain PyTorch version at every shape
              the flagship and imagenet-cls-256 give it (B=8; the rope
              attention kernels' bf16 route on the tensor cores, with the
@@ -21,7 +28,8 @@ Phases, each fatal on failure (any exception exits non-zero):
              / atol 2e-5 (the per-layer eval limit of
              tests/test_parity_torch.py), and in bf16 the kernel's max-abs
              error against the fp32 plain version must be at most twice the
-             plain bf16 version's; the attention forward also with no rope
+             plain bf16 version's (the conv forward's two bf16 launches
+             bit-identical); the attention forward also with no rope
              half (Dr = 0), with and without the mask. Attention backward:
              all 13 gradients, fp32 within 1e-4 of each gradient's largest
              value (tighter than the 5e-3 of bench.py's kernel-vs-oracle
@@ -54,7 +62,8 @@ Phases, each fatal on failure (any exception exits non-zero):
   6. time    each kernel and its plain version at every flagship shape
              (the rope attention kernels also at imagenet-cls-256's) at
              B=128 bf16 with CUDA events, plain, kernel, kernel, plain,
-             beside its roofline bound, and the per-forward and per-step
+             beside its roofline bound (the conv forward also beside its
+             CUDA-core floor), and the per-forward and per-step
              sums of the rope attention kernels against their plain
              versions';
              classify images/s and peak memory at B=128 bf16; ms per
@@ -87,16 +96,22 @@ Phases, each fatal on failure (any exception exits non-zero):
              library calls that compute the parts
              (scaled_dot_product_attention with m as an additive bias;
              torch.matmul at the strided product's shapes and at the dk/dv
-             pass's four products), which the port never calls;
+             pass's four products), which the port never calls; the conv
+             forward at the four hires conv S at B=8 against its plain
+             version (bf16 at most twice the plain bf16 error, two launches
+             bit-identical), then timed beside its plain version, bound and
+             CUDA-core floor, summed per hires forward (the floor, a count
+             and not a measurement, goes to the log only);
   9. trainer the classification trainer entry point with the fused conv
              residual in training, after the hires phase frees its memory:
              the forward that saves h and acc and the recomputing backward
              (kernels/conv_residual.py) against their plain versions at
-             every flagship conv S at B=8 (fp32 forward rtol 2e-4 / atol
-             2e-5, fp32 backward within 1e-4 of each output's largest value,
-             bf16 at most twice the plain bf16 error, two backward launches
-             and the ablation's FULL bit-identical to the production
-             backward; the Function on both routes against torch autograd of
+             every conv S of the flagship and imagenet-cls-256 at B=8 (fp32
+             forward rtol 2e-4 / atol 2e-5, fp32 backward within 1e-4 of
+             each output's largest value, bf16 at most twice the plain bf16
+             error, two bf16 launches of each kernel bit-identical, the
+             ablation's FULL bit-identical to the production backward; the
+             Function on both routes against torch autograd of
              the plain forward); then train_cls.main in process on
              imagenet-cls-224 at full width and depth, B=128, synthetic
              data, bf16, remat, six steps, under each conv route (the
@@ -108,9 +123,11 @@ Phases, each fatal on failure (any exception exits non-zero):
              checkpoint restored bit for bit and a second main resuming
              from it; three train_reg.main steps on imagenet-reg-224 at
              B=128 (loss finite every step, 24 + 24 attention launches per
-             step); p50 ms per step beside phase 5's bare step; each new
+             step); p50 ms per step beside phase 5's bare step; each
              kernel and its plain version timed at B=128 bf16 at every conv
-             S, and the ablation's seven variants at S=224;
+             S beside its bound and CUDA-core floor, and the ablation's
+             variants at S=224 (FULL and five parts dropped; the sixth
+             part, trans, reported absent);
  10. serving the (s,h,d)->(h,s,d) relayout kernel (kernels/relayout.py)
              bit-identical to the transpose at every flagship head split
              (128, S, 12, D), (S, D) in (224, 56), (176, 44), (128, 32),
@@ -152,6 +169,7 @@ from __future__ import annotations
 
 import copy
 import json
+import math
 import re
 import subprocess
 import sys
@@ -170,6 +188,17 @@ TIME_BATCH = 128
 
 def log(*args) -> None:
     print(*args, flush=True)
+
+
+# The card's SM count and SM clock (phase 1), for the conv kernels' CUDA-core
+# floor (tools/time_conv.py: LANE_OPS x pixels / (SMs x 128 x clock)).
+CARD: dict = {}
+
+
+def conv_floor_ms(kind, b, s):
+    from calm_vit_dte_tpu_torch.tools import time_conv as tconv
+
+    return tconv.floor_ms(kind, b, s, CARD["sms"], CARD["clock_hz"])
 
 
 def flagship_shapes(model_cfg):
@@ -963,6 +992,60 @@ def hires_phases(torch, name, smi):
         del args, g, res, o, m, lse, delta, dssum, calls, q, k, v, lib
         torch.cuda.empty_cache()
 
+    # The conv forward at the hires conv sizes, B=8 bf16: per hires forward
+    # it runs once at each conv stage. Held against its plain version first
+    # (within twice the plain bf16 version's error against the fp32 plain
+    # version, two launches bit-identical), then timed.
+    conv_rows, conv_floor = [], 0.0
+    for s in sorted(conv_sizes, reverse=True):
+        cargs = conv_inputs(torch, HIRES_BATCH, s, dev, bf16, seed=970 + s)
+        k16 = kc.fused_conv_residual(*cargs, dtype=bf16)
+        again = kc.fused_conv_residual(*cargs, dtype=bf16)
+        p16 = kc.fused_conv_residual_plain(*cargs, dtype=bf16)
+        ref = kc.fused_conv_residual_plain(cargs[0].float(), *cargs[1:],
+                                           dtype=f32)
+        torch.cuda.synchronize()
+        if not torch.equal(k16, again):
+            raise AssertionError(f"hires conv S={s}: two bf16 launches "
+                                 "differ")
+        e_k, e_p = max_err(k16, ref), max_err(p16, ref)
+        if not e_k <= 2 * e_p:
+            raise AssertionError(f"hires conv S={s}: bf16 kernel error "
+                                 f"{e_k} > 2 x plain bf16 {e_p}")
+        del k16, again, p16, ref
+        ms = cuda_ms(torch, lambda: kc.fused_conv_residual(*cargs,
+                                                           dtype=bf16), 10)
+        plain_ms = cuda_ms(torch, lambda: kc.fused_conv_residual_plain(
+            *cargs, dtype=bf16), 3, warmup=1)
+        t_bytes, t_ops = conv_bound(HIRES_BATCH, s, 2)
+        floor = conv_floor_ms("fwd", HIRES_BATCH, s)
+        conv_floor += conv_sizes[s] * floor
+        row = dict(config="hires-cls-1024", S=s, B=HIRES_BATCH, launches=0,
+                   launches_hires=conv_sizes[s], ms=ms, plain_ms=plain_ms,
+                   bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   bf16_err=e_k, plain_bf16_err=e_p)
+        conv_rows.append(row)
+        log(f"[hires check] conv forward S={s} B={HIRES_BATCH}: bf16 err "
+            f"kernel {e_k:.3e} vs plain {e_p:.3e}, two launches "
+            "bit-identical")
+        log(f"[hires time] conv forward S={s} B={HIRES_BATCH} "
+            f"(x{conv_sizes[s]}): kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+            f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+            f"CUDA-core floor {floor:.4f} ms")
+        del cargs
+        torch.cuda.empty_cache()
+    hires_conv = {
+        "per_forward": {k: sum(r["launches_hires"] * r[k] for r in conv_rows)
+                        for k in ("ms", "plain_ms", "bound_ms")},
+        "rows": conv_rows,
+        "launches": {"hires_classify": serve_counts["conv"],
+                     "hires_eval_step": eval_counts["conv"]}}
+    log(f"[hires time] conv forward per hires forward (B={HIRES_BATCH}): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in
+                    hires_conv["per_forward"].items())
+        + f", CUDA-core floor {conv_floor:.4f}; on {name} ({smi})")
+
     per_step = f"train_{HIRES_TRAIN_STEPS}_steps"
     stage_launches = {
         "fwd_res": {per_step: train_stages["fwd_res"]},
@@ -1012,7 +1095,8 @@ def hires_phases(torch, name, smi):
     log("[hires time] hires kernels' ms, plain_ms and bound_ms are per "
         f"hires-cls-1024 forward (or training step's backward) at "
         f"B={HIRES_BATCH} bf16; dq includes its weight-grad reduction")
-    return kernels, {"classify": serve, "train": train, "trace": trace}
+    return kernels, {"classify": serve, "train": train, "trace": trace,
+                     "conv_fwd": hires_conv}
 
 
 TRAINER_STEPS = 6
@@ -1041,8 +1125,8 @@ def check_conv_training_kernels(torch, kc, abl, s, seed):
     versions at B=CHECK_BATCH: fp32 forward outputs at rtol 2e-4 / atol
     2e-5, fp32 backward outputs within BWD_FP32_LIMIT of each one's largest
     value, bf16 at most twice the plain bf16 error against the fp32 plain
-    version; two backward launches and the ablation's FULL bit-identical to
-    the production backward. Returns the worst errors."""
+    version; two bf16 launches of each kernel, and the ablation's FULL and
+    the production backward, bit-identical. Returns the worst errors."""
     bf16, f32 = torch.bfloat16, torch.float32
     dev = torch.device("cuda")
     args = conv_inputs(torch, CHECK_BATCH, s, dev, f32, seed)
@@ -1081,8 +1165,13 @@ def check_conv_training_kernels(torch, kc, abl, s, seed):
 
     x16, g16 = args[0].to(bf16), g.to(bf16)
     a16 = (x16,) + tuple(args[1:])
+    k16 = kc.conv_residual_fwd_resid(*a16, dtype=bf16)
+    if not all(torch.equal(a, b) for a, b in zip(
+            k16, kc.conv_residual_fwd_resid(*a16, dtype=bf16))):
+        raise AssertionError(f"conv forward with residuals S={s}: two bf16 "
+                             "launches differ")
     for what, k, p, r in zip(
-            ("y", "h", "acc"), kc.conv_residual_fwd_resid(*a16, dtype=bf16),
+            ("y", "h", "acc"), k16,
             kc.conv_residual_fwd_resid_plain(*a16, dtype=bf16),
             kc.conv_residual_fwd_resid_plain(x16.float(), *args[1:],
                                              dtype=f32)):
@@ -1132,19 +1221,22 @@ def trainer_phase(torch, name, smi, bare, keep_ckpt):
     dev = torch.device("cuda")
     cfg = get_config("imagenet-cls-224")
     _, conv_sizes = flagship_shapes(cfg.model)
+    _, conv256 = flagship_shapes(get_config("imagenet-cls-256").model)
     t_phase = time.time()
 
-    # 1. check both new kernels at every flagship conv S, and the Function.
+    # 1. check both kernels at every conv S of the flagship and of
+    # imagenet-cls-256, and the Function.
     t0 = time.time()
     per_s = {}
-    for i, s in enumerate(sorted(conv_sizes, reverse=True)):
+    for i, s in enumerate(sorted(set(conv_sizes) | set(conv256),
+                                 reverse=True)):
         per_s[s] = check_conv_training_kernels(torch, kc, abl, s, 1000 + i)
         w = per_s[s]
         log(f"[trainer check] conv S={s}: fp32 max err forward with "
             f"residuals {w['fwd_resid']:.3e}, backward {w['bwd']:.3e} "
             f"(worst {w['bwd_norm']:.3e} of its largest value); bf16 worst "
-            f"{w['bf16_ratio']:.3f} x the plain bf16 error; backward twice "
-            "and ablation FULL bit-identical")
+            f"{w['bf16_ratio']:.3f} x the plain bf16 error; each kernel "
+            "twice and the ablation's FULL bit-identical")
     args = conv_inputs(torch, 2, 80, dev, f32, seed=1100)
     g = torch.from_numpy(np.random.default_rng(1101).standard_normal(
         (2, 80, 80, 3)).astype(np.float32)).to(dev)
@@ -1365,6 +1457,7 @@ def trainer_phase(torch, name, smi, bare, keep_ckpt):
 
     # 3. time both kernels at every conv S, B=128 bf16, and the ablation.
     rows = {"fwd_resid": [], "bwd": []}
+    floors = {"fwd_resid": 0.0, "bwd": 0.0}   # per step, for the log
     for s in sorted(conv_sizes, reverse=True):
         args = conv_inputs(torch, TIME_BATCH, s, dev, bf16, seed=1200 + s)
         g = torch.from_numpy((np.random.default_rng(s).standard_normal(
@@ -1383,6 +1476,8 @@ def trainer_phase(torch, name, smi, bare, keep_ckpt):
             ms = cuda_ms(torch, kern, 10)
             plain_ms = cuda_ms(torch, plain, 2, warmup=1)
             t_bytes, t_ops = bound(TIME_BATCH, s, 2)
+            floor = conv_floor_ms(key, TIME_BATCH, s)
+            floors[key] += conv_sizes[s] * floor
             row = dict(S=s, launches=conv_sizes[s], ms=ms, plain_ms=plain_ms,
                        bound_ms=max(t_bytes, t_ops),
                        bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -1391,7 +1486,8 @@ def trainer_phase(torch, name, smi, bare, keep_ckpt):
             rows[key].append(row)
             log(f"[trainer time] {key} S={s}: kernel {ms:.4f} ms, plain "
                 f"{plain_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
-                f"({row['bound_by']}), {row['bound_ms'] / ms:.2%} of bound")
+                f"({row['bound_by']}), {row['bound_ms'] / ms:.2%} of bound; "
+                f"CUDA-core floor {floor:.4f} ms, {floor / ms:.1%} of it")
         del args, g, w, calls
         torch.cuda.empty_cache()
     abl.ablated_bwd.launches = 0
@@ -1400,8 +1496,9 @@ def trainer_phase(torch, name, smi, bare, keep_ckpt):
     ab_launches = abl.ablated_bwd.launches
     full = next(r for r in ab_rows if r["variant"] == "FULL")
     for r in ab_rows:
-        log(f"[trainer ablation] {r['variant']:<12} {r['ms']:8.4f} ms per "
-            f"backward (B={TIME_BATCH}, S=224, bf16)")
+        log(f"[trainer ablation] {abl.describe(r)}" + (
+            "" if r["ms"] is None else
+            f" per backward (B={TIME_BATCH}, S=224, bf16)"))
     ab_plain = cuda_ms(torch, lambda: kc.conv_residual_bwd_plain(
         ab_args[0], ab_args[1], *ab_args[2:], dtype=bf16), 2, warmup=1)
     ab_bytes, ab_ops = conv_bwd_bound(TIME_BATCH, 224, 2)
@@ -1447,6 +1544,10 @@ def trainer_phase(torch, name, smi, bare, keep_ckpt):
         "backward includes its ordered weight-grad sum; the ablation row is "
         "one FULL backward at S=224 (max_abs_err: FULL vs the production "
         "kernel, bit-identical)")
+    log(f"[trainer time] CUDA-core floor per training step: forward with "
+        f"residuals {floors['fwd_resid']:.4f} ms, backward "
+        f"{floors['bwd']:.4f} ms; the ablation's FULL backward at S=224 "
+        f"{conv_floor_ms('bwd', TIME_BATCH, 224):.4f} ms")
     metrics = {"routes": results, "bare_make_train_step": bare,
                "function_err": fn_err,
                "conv_fwd_launches_pallas_route":
@@ -1779,6 +1880,13 @@ def main() -> int:
     log(f"[probe] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
     log(f"[probe] nvcc: {nvcc_version}; triton {triton_state}")
+    from calm_vit_dte_tpu_torch.tools import time_conv as tconv
+
+    CARD["sms"], CARD["clock_hz"] = tconv.card_clock()
+    log(f"[probe] {CARD['sms']} SMs, SM clock at most "
+        f"{CARD['clock_hz'] / 1e6:.0f} MHz: the conv kernels' CUDA-core "
+        f"floor is lane-ops per pixel x pixels / (SMs x 128 x clock), with "
+        f"lane-ops per pixel {tconv.LANE_OPS} (tools/time_conv.py)")
 
     # 2. build
     t0 = time.time()
@@ -1801,6 +1909,23 @@ def main() -> int:
                     f"{kspill} bytes")
             if kspill and any(k in kname for k in NO_SPILL_KERNELS):
                 raise AssertionError(f"{src}: {kname} spills {kspill} bytes")
+    # Every conv kernel instantiation as the card reports it; the bf16 ones
+    # must keep the CTAs an SM their launch bounds ask for, with no spill
+    # (csrc/conv_residual{,_bwd}.cu notes).
+    want_ctas = {
+        "conv_fwd_bf16_kernel<0>": kc.MIN_CTAS_BF16["forward"],
+        "conv_fwd_bf16_kernel<1> (save)":
+            kc.MIN_CTAS_BF16["forward with residuals"],
+        "conv_bwd_bf16_kernel<31>": kc.MIN_CTAS_BF16["backward"]}
+    for kname, o in kc.card_occupancy().items():
+        log(f"[build] conv: {kname}: {o['registers']} registers, spill "
+            f"{o['spill_bytes']} bytes, {o['smem_bytes']} bytes of shared "
+            f"memory a CTA, {o['ctas_per_sm']} CTAs per SM")
+        if kname in want_ctas and (o["ctas_per_sm"] < want_ctas[kname]
+                                   or o["spill_bytes"]):
+            raise AssertionError(f"{kname}: {o['ctas_per_sm']} CTAs per SM "
+                                 f"(want {want_ctas[kname]}), spill "
+                                 f"{o['spill_bytes']} bytes")
 
     # 3. kernel vs plain at every flagship shape (and imagenet-cls-256's)
     cfg = get_config("imagenet-cls-224")
@@ -1862,6 +1987,30 @@ def main() -> int:
             f"err {max_err(out, ref):.3e}; bf16 err kernel "
             f"{errs[True][0]:.3e} vs plain {errs[True][1]:.3e} (mask off "
             f"{errs[False][0]:.3e} vs {errs[False][1]:.3e})")
+    # The bf16 conv kernels' launches against the wrapper's helpers (which
+    # the CPU tests hold to the sources' notes), and their GELU's error.
+    for s in sorted(set(conv_sizes) | set(conv256), reverse=True):
+        want = {"forward": (*kc.fwd_bf16_grid(CHECK_BATCH, s),
+                            kc.THREADS_BF16,
+                            kc.fwd_bf16_smem() - kc._FWD_WEIGHTS_SMEM),
+                "backward": (*kc.bwd_bf16_grid(CHECK_BATCH, s),
+                             kc.THREADS_BF16, kc.bwd_bf16_smem()),
+                "bwd_rows": math.prod(kc.bwd_bf16_grid(CHECK_BATCH, s))}
+        got = kc.card_geometry(CHECK_BATCH, s)
+        if got != want:
+            raise AssertionError(f"conv geometry at S={s}: the C launches "
+                                 f"{got}, the wrapper {want}")
+    grid = torch.linspace(-10.0, 10.0, 2**20 + 1, device=dev)
+    erf_err = max_err(kc.erf_bf16_probe(grid)[0],
+                      torch.erf(grid * 0.7071067811865476))
+    if not erf_err <= kc.ERF_BF16_MAX_ERR:
+        raise AssertionError(f"bf16 conv erf error {erf_err:.3e} > "
+                             f"{kc.ERF_BF16_MAX_ERR}")
+    log(f"[check] bf16 conv kernels' grids, threads, shared memory and "
+        f"partial rows equal the wrapper's helpers at every conv S; their "
+        f"erf within {erf_err:.3e} of erff over [-10, 10] (bound "
+        f"{kc.ERF_BF16_MAX_ERR})")
+    del grid
     per_conv: dict[int, dict] = {}
     for i, s in enumerate(sorted(set(conv_sizes) | set(conv256),
                                  reverse=True)):
@@ -1872,6 +2021,8 @@ def main() -> int:
         torch.testing.assert_close(out, ref, rtol=2e-4, atol=2e-5)
         a16 = (args[0].to(bf16),) + args[1:]
         k16 = kc.fused_conv_residual(*a16, dtype=bf16)
+        if not torch.equal(k16, kc.fused_conv_residual(*a16, dtype=bf16)):
+            raise AssertionError(f"conv S={s}: two bf16 launches differ")
         p16 = kc.fused_conv_residual_plain(*a16, dtype=bf16)
         ref16 = kc.fused_conv_residual_plain(a16[0].float(), *args[1:],
                                              dtype=f32)
@@ -1882,7 +2033,8 @@ def main() -> int:
         per_conv[s] = {"fp32_err": max_err(out, ref), "bf16_err": e_k,
                        "plain_bf16_err": e_p}
         log(f"[check] conv S={s}: fp32 max err {max_err(out, ref):.3e}; "
-            f"bf16 err kernel {e_k:.3e} vs plain {e_p:.3e}")
+            f"bf16 err kernel {e_k:.3e} vs plain {e_p:.3e}, two launches "
+            "bit-identical")
 
     # The attention kernels with no rope half (Dr = 0: the function of the
     # JAX package's `_make_fused`), which `ops.attention.masked_attention`
@@ -2263,6 +2415,7 @@ def main() -> int:
     # imagenet-cls-256 are not on the flagship's path (launches 0): they
     # time the `_make_fused` case and the other config.
     attn_rows, bwd_rows, conv_rows = [], [], []
+    conv_floor = 0.0   # per flagship forward, for the log
     timed = [(shape, attn_shapes[shape], per_attn[shape], None)
              for shape in sorted(attn_shapes, reverse=True)]
     timed += [(shape, 0, per_attn[shape], attn256[shape])
@@ -2338,6 +2491,8 @@ def main() -> int:
         plain = cuda_ms(torch, lambda: kc.fused_conv_residual_plain(
             *args, dtype=bf16), 3, warmup=1)
         t_bytes, t_ops = conv_bound(TIME_BATCH, s, 2)
+        floor = conv_floor_ms("fwd", TIME_BATCH, s)
+        conv_floor += conv_sizes[s] * floor
         row = dict(S=s, launches=conv_sizes[s], ms=ms, plain_ms=plain,
                    bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -2345,8 +2500,14 @@ def main() -> int:
         conv_rows.append(row)
         log(f"[time] conv S={s}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
             f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
-            f"{row['bound_ms'] / ms:.1%} of bound")
+            f"{row['bound_ms'] / ms:.1%} of bound; CUDA-core floor "
+            f"{floor:.4f} ms, {floor / ms:.1%} of it")
         del args
+    log(f"[time] conv forward, flagship sum over one forward: kernel "
+        f"{sum(r['launches'] * r['ms'] for r in conv_rows):.3f} ms, plain "
+        f"{sum(r['launches'] * r['plain_ms'] for r in conv_rows):.3f} ms, "
+        f"bound {sum(r['launches'] * r['bound_ms'] for r in conv_rows):.4f} "
+        f"ms, CUDA-core floor {conv_floor:.4f} ms; on {name} ({smi})")
 
     pred.classify(images)   # warm
     torch.cuda.synchronize()
@@ -2500,6 +2661,11 @@ def main() -> int:
         f"trainer_{TRAINER_STEPS}_steps_pallas_route"] = \
         trainer["conv_fwd_launches_pallas_route"]
     kernels[2]["launches"] += trainer["conv_fwd_launches_pallas_route"]
+    hires_conv = hires.pop("conv_fwd")
+    kernels[2]["per_shape"] += hires_conv["rows"]
+    kernels[2]["hires_per_forward"] = hires_conv["per_forward"]
+    kernels[2]["launches_by_path"].update(hires_conv["launches"])
+    kernels[2]["launches"] += sum(hires_conv["launches"].values())
     for k, key in ((kernels[0], "attention"), (kernels[2], "conv")):
         k["launches_by_path"]["serve_evaluate_int8_phase10"] = \
             serve_launches[key]

@@ -256,11 +256,17 @@ def test_rope_attention_function_matches_autograd(cuda_device, s, dc, dr):
             assert _norm_err(x, y) <= 1e-4, name
 
 
+# Conv shapes (S, B): flagship sizes, ragged S that no tile divides (the
+# bf16 forward's 64 x 16 and backward's 16 x 32 tiles, the fp32 kernels'
+# 8 x 32), B = 1, and a hires-cls-1024 conv S at B = 1.
+CONV_SHAPES = [(80, 2), (224, 2), (83, 2), (20, 2), (176, 1), (1024, 1)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("s", [80, 224])
-def test_conv_residual_kernel_matches_plain(cuda_device, s):
+@pytest.mark.parametrize("s,b", CONV_SHAPES)
+def test_conv_residual_kernel_matches_plain(cuda_device, s, b):
     rng = np.random.default_rng(s)
-    args = [_normal(rng, cuda_device, 2, s, s, 3),
+    args = [_normal(rng, cuda_device, b, s, s, 3),
             _normal(rng, cuda_device, 32, 3, scale=0.3),
             _normal(rng, cuda_device, 32, scale=0.1),
             _normal(rng, cuda_device, 3, 3, 32, scale=0.3),
@@ -273,6 +279,26 @@ def test_conv_residual_kernel_matches_plain(cuda_device, s):
     assert kc.fused_conv_residual.launches == n0 + 1
     ref = kc.fused_conv_residual_plain(*args, dtype=torch.float32)
     torch.testing.assert_close(out, ref, rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,b", CONV_SHAPES)
+def test_conv_residual_bf16_kernel_matches_plain(cuda_device, s, b):
+    """The bf16 forward: within twice the plain bf16 version's error against
+    the fp32 plain version; two launches bit-identical."""
+    args, _ = _conv_args(np.random.default_rng(s + 3), cuda_device, b, s,
+                         torch.bfloat16)
+    n0 = kc.fused_conv_residual.launches
+    got = kc.fused_conv_residual(*args, dtype=torch.bfloat16)
+    again = kc.fused_conv_residual(*args, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert kc.fused_conv_residual.launches == n0 + 2
+    assert got.dtype == torch.bfloat16 and torch.equal(got, again)
+    plain = kc.fused_conv_residual_plain(*args, dtype=torch.bfloat16)
+    ref = kc.fused_conv_residual_plain(args[0].float(), *args[1:],
+                                       dtype=torch.float32)
+    assert (got.float() - ref).abs().max() <= 2 * (
+        plain.float() - ref).abs().max()
 
 
 def _conv_args(rng, device, b, s, dtype=torch.float32):
@@ -289,12 +315,13 @@ def _conv_args(rng, device, b, s, dtype=torch.float32):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("s", [80, 224])
+@pytest.mark.parametrize("s,b", CONV_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_conv_fwd_resid_kernel_matches_plain(cuda_device, s, dtype):
+def test_conv_fwd_resid_kernel_matches_plain(cuda_device, s, b, dtype):
     """y, h and acc: fp32 at rtol 2e-4 / atol 2e-5; bf16 each within twice
-    the plain bf16 version's error against the fp32 plain version."""
-    args, _ = _conv_args(np.random.default_rng(s + 1), cuda_device, 2, s,
+    the plain bf16 version's error against the fp32 plain version, and two
+    launches bit-identical."""
+    args, _ = _conv_args(np.random.default_rng(s + 1), cuda_device, b, s,
                          dtype)
     n0 = kc.conv_residual_fwd_resid.launches
     got = kc.conv_residual_fwd_resid(*args, dtype=dtype)
@@ -305,6 +332,9 @@ def test_conv_fwd_resid_kernel_matches_plain(cuda_device, s, dtype):
         for x, y in zip(got, plain):
             torch.testing.assert_close(x, y, rtol=2e-4, atol=2e-5)
         return
+    again = kc.conv_residual_fwd_resid(*args, dtype=dtype)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
     ref = kc.conv_residual_fwd_resid_plain(args[0].float(), *args[1:],
                                            dtype=torch.float32)
     for name, x, y, r in zip(("y", "h", "acc"), got, plain, ref):
@@ -319,14 +349,14 @@ def _conv_bwd_outputs(dx, wg):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("s", [80, 224])
+@pytest.mark.parametrize("s,b", CONV_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_conv_bwd_kernel_matches_plain(cuda_device, s, dtype):
+def test_conv_bwd_kernel_matches_plain(cuda_device, s, b, dtype):
     """fp32: dx and every weight-grad column within 1e-4 of its largest
     value; bf16: within twice the plain bf16 version's error against the
     fp32 plain version. Each call launches the kernel and the ordered
     weight-grad sum once."""
-    args, g = _conv_args(np.random.default_rng(s + 2), cuda_device, 2, s,
+    args, g = _conv_args(np.random.default_rng(s + 2), cuda_device, b, s,
                          dtype)
     w = args[1:6]
     n0 = kc.conv_residual_bwd.launches
@@ -351,6 +381,29 @@ def test_conv_bwd_kernel_matches_plain(cuda_device, s, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("s,b", [(83, 2), (20, 1)])
+def test_conv_bwd_bf16_partial_rows_match_staged_plain(cuda_device, s, b):
+    """The bf16 backward's first launch at a ragged S: each of its
+    partial weight-grad rows (one a CTA, in the grid's order) and dx within
+    twice the staged plain version's bf16 error against its fp32 one."""
+    args, g = _conv_args(np.random.default_rng(s + 5), cuda_device, b, s,
+                         torch.bfloat16)
+    w = args[1:6]
+    dx, part = kc.launch_bwd(args[0], g, *w, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    plain = kc.conv_residual_bwd_partials_plain(args[0], g, *w,
+                                                dtype=torch.bfloat16)
+    ref = kc.conv_residual_bwd_partials_plain(args[0].float(), g.float(), *w,
+                                              dtype=torch.float32)
+    assert part.shape == plain[1].shape == ref[1].shape
+    assert _norm_err(dx, ref[0]) <= 2 * _norm_err(plain[0], ref[0]) + 1e-6
+    # One column of the row per (channel, sum): 32 x 17.
+    for k in range(17):
+        got, p, r = (t_[:, k::17] for t_ in (part, plain[1], ref[1]))
+        assert _norm_err(got, r) <= 2 * _norm_err(p, r) + 1e-6, k
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_conv_bwd_kernel_deterministic(cuda_device, dtype):
     """No atomics: two launches give the same bits."""
@@ -360,6 +413,53 @@ def test_conv_bwd_kernel_deterministic(cuda_device, dtype):
     two = kc.conv_residual_bwd(args[0], g, *args[1:6], dtype=dtype)
     torch.cuda.synchronize()
     assert torch.equal(one[0], two[0]) and torch.equal(one[1], two[1])
+
+
+@pytest.mark.gpu
+def test_conv_bf16_gelu_error_bound(cuda_device):
+    """The bf16 kernels' erf (csrc/conv_residual_common.cuh) within its
+    stated bound of erff over 2^20 + 1 points of [-10, 10]; their GELU and
+    its derivative within the bounds that follow (|x| / 2 and 1 / 2 times
+    the erf's), plus a few fp32 ulps for the rounding and the SFU's exp."""
+    x = torch.linspace(-10.0, 10.0, 2**20 + 1, device=cuda_device)
+    erf, gelu, dgelu = kc.erf_bf16_probe(x)
+    torch.cuda.synchronize()
+    bound = kc.ERF_BF16_MAX_ERR
+    err = float((erf - torch.erf(x * 0.7071067811865476)).abs().max())
+    assert err <= bound, err
+    x64 = x.double().cpu()
+    want = kc.erf_bf16_probe(x64)   # the exact functions, float64
+    ulp = 2.0 ** -23
+    scale_g = x64.abs() / 2 * bound + ulp * want[1].abs() + 1e-12
+    scale_d = 0.5 * bound + 4 * ulp
+    for name, got, w, scale in (("gelu", gelu, want[1], scale_g),
+                                ("dgelu", dgelu, want[2], scale_d)):
+        over = (got.cpu().double() - w).abs() / scale
+        assert float(over.max()) <= 1.0, (name, float(over.max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [224, 83, 1024])
+def test_conv_bf16_geometry_matches_helpers(cuda_device, s):
+    """The C launches' grid, threads, shared memory and partial rows are
+    the Python helpers' (which the CPU tests hold to the sources' notes);
+    every bf16 kernel keeps the CTAs an SM its launch bound asks for and
+    spills nothing."""
+    got = kc.card_geometry(3, s)
+    assert got["forward"] == (*kc.fwd_bf16_grid(3, s), kc.THREADS_BF16,
+                              kc.fwd_bf16_smem() - kc._FWD_WEIGHTS_SMEM)
+    assert got["backward"] == (*kc.bwd_bf16_grid(3, s), kc.THREADS_BF16,
+                               kc.bwd_bf16_smem())
+    assert got["bwd_rows"] == math.prod(kc.bwd_bf16_grid(3, s))
+    occ = kc.card_occupancy()
+    for name, smem, what in (
+            ("conv_fwd_bf16_kernel<0>", kc.fwd_bf16_smem(), "forward"),
+            ("conv_fwd_bf16_kernel<1> (save)", kc.fwd_bf16_smem(),
+             "forward with residuals"),
+            ("conv_bwd_bf16_kernel<31>", kc.bwd_bf16_smem(), "backward")):
+        assert occ[name]["smem_bytes"] == smem, name
+        assert occ[name]["ctas_per_sm"] >= kc.MIN_CTAS_BF16[what], name
+        assert occ[name]["spill_bytes"] == 0, name
 
 
 @pytest.mark.gpu
