@@ -13,10 +13,12 @@ Layer map (bottom-up), module for module the same as the JAX package's:
             masked attention (dispatches to the kernel on a CUDA tensor)
   kernels/  CUDA C++ kernels written for Hopper (csrc/*.cu) with their
             ctypes wrappers and plain PyTorch versions
-  models/   VMLA layer, CALM Block, EncoderDecoder8, ViT wrapper (eval and
-            training forward)
-  data/     sharded sampler, threaded loader, augmentation and CutMix/MixUp
-            on the device, the preprocessing callables of the steps
+  models/   VMLA layer, CALM Block, EncoderDecoder8, Encoder8,
+            CALMLatentDiffusion, ViT wrapper (eval and training forward)
+  data/     sharded sampler, threaded loader with the native JPEG decoder
+            (native/decoder.cpp through ctypes), augmentation and
+            CutMix/MixUp on the device, the preprocessing callables of the
+            steps, the generated JPEG corpus, the CSV dataset
   train/    losses, fused AdamW and schedules, TrainState, the train and
             eval steps (hoisted spectral-norm pre-pass, microbatches,
             activation checkpointing that keeps the kernels' outputs),
@@ -25,7 +27,8 @@ Layer map (bottom-up), module for module the same as the JAX package's:
   compat/   weight and optimizer-state carry from the JAX package's pytrees
   utils/    named configs, device selection, checkpointing with kept
             tensors, metric logging
-  tools/    profiling on the card (the conv backward's ablation)
+  tools/    profiling on the card (the conv backward's ablation, kernel
+            timers, layout canaries) and the training proof
   serve.py  Predictor: frozen eval-normalized weights, classify/reconstruct
 
 Every entry point takes `device=` and defaults to "cuda"; without a card it

@@ -8,6 +8,12 @@ names (encoder_blocks.N, block_bottle_neck_1, proj.0/2/4, mlp.0/3,
 linear_mask.0/2, head.0/2, weight_orig/weight_u/weight_v), so the result
 loads with `model.load_state_dict(sd)`. The pytrees arrive as nested dicts
 of numpy arrays (or anything np.asarray takes); nothing of JAX is imported.
+
+`state_dict_from_jax` carries the ViT and Encoder8 (its block_{i} become
+encoder_blocks.{i}, the golden encoder8.npz's names).
+`latent_diffusion_state_dict_from_jax` carries CALMLatentDiffusion by a
+table of its own (LATENT_DIFFUSION_NAMES: its seven top-level names; a tree
+with any other, such as EncoderDecoder8's bottlenecks, raises).
 """
 
 from __future__ import annotations
@@ -92,6 +98,32 @@ def state_dict_from_jax(params: dict,
             walk_state(v, path + [k])
 
     walk_state(sn_state, [])
+    return sd
+
+
+# CALMLatentDiffusion's top-level JAX names -> the port's module names.
+LATENT_DIFFUSION_NAMES = {
+    **{f"encoder_{i}": f"encoder_blocks.{i}" for i in range(3)},
+    **{f"decoder_{i}": f"decoder_blocks.{i}" for i in range(3)},
+    "ln_final": "ln_final",
+}
+
+
+def latent_diffusion_state_dict_from_jax(
+        params: dict, sn_state: dict) -> dict[str, torch.Tensor]:
+    """CALMLatentDiffusion's JAX (params, sn_state) -> the port's fp32
+    state_dict: encoder_{i} -> encoder_blocks.{i}, decoder_{i} ->
+    decoder_blocks.{i} (i = 0, 1, 2), ln_final -> ln_final; inside each
+    block the shared names (proj.0/2/4, mlp.0/3, weight_orig, ...). Raises
+    KeyError on any other top-level name."""
+    if set(params) != set(LATENT_DIFFUSION_NAMES) or not set(sn_state) <= \
+            set(LATENT_DIFFUSION_NAMES):
+        raise KeyError(f"not a CALMLatentDiffusion tree: {sorted(params)}")
+    sd = {}
+    for jax_name, port_name in LATENT_DIFFUSION_NAMES.items():
+        sub = state_dict_from_jax(params[jax_name],
+                                  sn_state.get(jax_name, {}))
+        sd.update({f"{port_name}.{k}": v for k, v in sub.items()})
     return sd
 
 

@@ -1,4 +1,5 @@
-"""The data plane (JAX counterpart: calm_vit_dte_tpu/data): sampler, loader,
-augmentation and CutMix/MixUp on the device, and the preprocessing callables
-of the train and eval steps. The native decode, the corpus and the CSV
-dataset are not ported yet."""
+"""The data plane (JAX counterpart: calm_vit_dte_tpu/data): sampler, loader
+with the native batch decoder (native.py) and its Pillow fallback,
+augmentation and CutMix/MixUp on the device, the preprocessing callables of
+the train and eval steps, the generated JPEG corpus (corpus.py) and the CSV
+dataset (csv_dataset.py)."""

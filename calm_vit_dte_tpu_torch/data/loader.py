@@ -10,7 +10,9 @@ overlaps device compute.
 
 Datasets:
   ImageFolderDataset  ImageNet-layout tree (root/<split>/<wnid>/*.JPEG),
-                      classes sorted by name, decoded with Pillow;
+                      classes sorted by name, batches decoded by the
+                      native data plane (data/native.py), Pillow per image
+                      where it cannot;
   SyntheticDataset    deterministic index-seeded random images, for
                       benchmarks and tests when no dataset is mounted.
 """
@@ -25,6 +27,7 @@ import time
 
 import numpy as np
 
+from calm_vit_dte_tpu_torch.data import native
 from calm_vit_dte_tpu_torch.data.sampler import ShardedSampler
 
 _EXTS = {".jpeg", ".jpg", ".png", ".bmp", ".webp"}
@@ -43,6 +46,10 @@ class ImageFolderDataset:
             for f in sorted((base / c).iterdir()):
                 if f.suffix.lower() in _EXTS:
                     self.samples.append((str(f), self.class_to_idx[c]))
+        self.decoder: str | None = None
+        self.decoder_reason: str | None = None
+        self.pillow_images = 0
+        self._count_lock = threading.Lock()   # loader threads share it
 
     def __len__(self) -> int:
         return len(self.samples)
@@ -63,14 +70,32 @@ class ImageFolderDataset:
             return np.asarray(im, dtype=np.uint8), label
 
     def load_batch(self, idxs) -> tuple[np.ndarray, np.ndarray]:
-        """Decode a batch with Pillow, one image after another. The JAX
-        package decodes here through its native C++ data plane
-        (libcalmdata.so, GIL-free threads); that port is a later slice."""
+        """Decode a batch through the native C++ data plane (GIL-free
+        threads: JPEG decode + antialiased resize), as the JAX package's
+        loader does, with Pillow per image for what it reports not ok (PNG,
+        CMYK, truncated files). Pillow decodes the whole batch only when the
+        native library is unavailable or CALM_NATIVE_DECODE=0 (the JAX
+        package's switch). `decoder` ("native" or "pillow"),
+        `decoder_reason` (why Pillow, or None) and `pillow_images` (images
+        Pillow decoded so far) say what ran."""
         labels = np.asarray([self.samples[int(i)][1] for i in idxs],
                             np.int32)
-        imgs = np.empty((len(idxs), self.size, self.size, 3), np.uint8)
-        for j, i in enumerate(idxs):
-            imgs[j], _ = self.load(int(i))
+        if os.environ.get("CALM_NATIVE_DECODE") == "0":
+            self.decoder_reason = "CALM_NATIVE_DECODE=0"
+        else:
+            self.decoder_reason = native.unavailable_reason()
+        self.decoder = "pillow" if self.decoder_reason else "native"
+        if self.decoder == "native":
+            paths = [self.samples[int(i)][0] for i in idxs]
+            imgs, ok = native.decode_resize_batch(paths, self.size)
+            failed = np.nonzero(~ok)[0]
+        else:
+            imgs = np.empty((len(idxs), self.size, self.size, 3), np.uint8)
+            failed = range(len(idxs))
+        for j in failed:
+            imgs[j], _ = self.load(int(idxs[j]))
+        with self._count_lock:
+            self.pillow_images += len(failed)
         return imgs, labels
 
 

@@ -7,7 +7,10 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Phases, each fatal on failure (any exception exits non-zero):
   1. probe   card name and count, `nvidia-smi` name/power limit, nvcc,
-             whether triton imports;
+             whether triton imports; g++, whether a program using the
+             system's libjpeg links, and whether the port's native JPEG
+             decoder (data/native.py) builds and loads, which libjpeg it
+             links, or why not;
   2. build   the CUDA kernels with nvcc for sm_90a, one nvcc per source in
              parallel, printing each source's register and spill figures
              from ptxas (the full log stays in build/torch_kernels/); a
@@ -141,7 +144,23 @@ Phases, each fatal on failure (any exception exits non-zero):
              int8 and int8-wo (relative logit error < 0.15, top-1 agreement
              >= 0.75 against bf16, tests/test_quantize.py's limits), every
              forward exactly 24 attention + 8 conv launches; classify
-             images/s and peak memory at B=128 in bf16, int8 and int8-wo.
+             images/s and peak memory at B=128 in bf16, int8 and int8-wo;
+ 11. proof   the slice's new paths, last: (a) a learnable corpus of 64
+             JPEGs at 384 px (data/corpus.py) decoded by the native
+             decoder and by Pillow, all within 2 of each other
+             (tests/test_native.py:46), and the decode images/s of native
+             with all host cores, native on 1 thread and Pillow over the
+             same files; (b) Encoder8 and CALMLatentDiffusion at their
+             default full widths (dim1 672, 12 heads, S 224): a bf16
+             forward at B=8 with exactly 24 attention + 8 conv and 18 + 6
+             launches (one prologue each, no hires kernel), finite outputs,
+             the fp32 forward card vs CPU on 2 inputs at rtol 2e-3 / atol
+             2e-4 (and CALMLatentDiffusion's KL at rtol 1e-3); (c) 100
+             overfit steps through tools/train_proof on the flagship (128
+             memorize images, B=128, bf16, remat off, evals at 50 and
+             100): every loss finite, the last 10 steps' mean below the
+             first 10's, exactly 24 + 24 rope launches a step and 24 + 8
+             per eval forward, decoded by the native decoder.
 
 Every fp32 comparison runs with torch.backends.cuda.matmul.allow_tf32 and
 torch.backends.cudnn.allow_tf32 both False, so the plain versions' products
@@ -168,6 +187,7 @@ device times, the parts' library times and the shared memory per CTA.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import math
 import re
@@ -1823,6 +1843,278 @@ def serving_phase(torch, name, smi, ckpt):
     return kernel, launches, metrics
 
 
+PROOF_DECODE_IMAGES = 64      # phase 11: the decode check's learnable corpus
+PROOF_DECODE_REPS = 3
+PROOF_MODEL_BATCH = 8
+PROOF_STEPS = 100
+PROOF_IMAGES = 128
+NATIVE_PIL_LIMIT = 2          # tests/test_native.py:46
+
+
+def native_probe():
+    """Phase 1: g++, whether a program using the system's libjpeg links,
+    and whether the port's native decoder (data/native.py) builds and loads
+    (and which libjpeg it links), with the reason if it does not."""
+    import shutil
+    import tempfile
+
+    from calm_vit_dte_tpu_torch.data import native
+
+    gxx = shutil.which("g++")
+    version = (subprocess.run([gxx, "--version"], capture_output=True,
+                              text=True, timeout=60).stdout.splitlines()[0]
+               if gxx else "not found")
+    links = "not tried (no g++)"
+    if gxx:
+        with tempfile.TemporaryDirectory() as d:
+            src = Path(d) / "probe.cpp"
+            src.write_text("#include <cstddef>\n#include <cstdio>\n"
+                           "#include <jpeglib.h>\nint main() { "
+                           "jpeg_decompress_struct c; jpeg_error_mgr e; "
+                           "c.err = jpeg_std_error(&e); "
+                           "jpeg_create_decompress(&c); "
+                           "jpeg_destroy_decompress(&c); return 0; }\n")
+            proc = subprocess.run([gxx, str(src), "-o", str(Path(d) / "p"),
+                                   "-ljpeg"], capture_output=True,
+                                  text=True, timeout=120)
+            links = ("links" if proc.returncode == 0 else
+                     f"does not link: {proc.stderr.strip()[-400:]}")
+    t0 = time.time()
+    ok = native.available()
+    state = (f"built and loaded in {time.time() - t0:.1f} s at "
+             f"{native.LIB_PATH.relative_to(ROOT)}, linking "
+             f"{native.libjpeg()}" if ok else native.unavailable_reason())
+    log(f"[probe] g++: {version}; the system's libjpeg {links}; the port's "
+        f"native decoder: {state}")
+    return {"gxx": version, "system_libjpeg": links, "native_decoder": ok,
+            "native_libjpeg": native.libjpeg(),
+            "native_reason": None if ok else state}
+
+
+def proof_phase(torch, name, smi):
+    """Phase 11: the slice's new paths. (a) the native decoder against
+    Pillow on a learnable corpus and its decode rates; (b) Encoder8 and
+    CALMLatentDiffusion at their default full widths: launches, finite
+    outputs, fp32 card vs CPU; (c) a short overfit run through
+    tools/train_proof on the flagship. Returns (launches by path and
+    kernel, metrics)."""
+    import os
+    import shutil
+    import tempfile
+
+    from calm_vit_dte_tpu_torch.data import native
+    from calm_vit_dte_tpu_torch.data.corpus import make_corpus
+    from calm_vit_dte_tpu_torch.data.loader import ImageFolderDataset
+    from calm_vit_dte_tpu_torch.kernels import axial_attention as ka
+    from calm_vit_dte_tpu_torch.kernels import conv_residual as kc
+    from calm_vit_dte_tpu_torch.kernels import hires_attention as kh
+    from calm_vit_dte_tpu_torch.models import (
+        CALMLatentDiffusion,
+        CALMLatentDiffusionConfig,
+        Encoder8,
+        Encoder8Config,
+    )
+    from calm_vit_dte_tpu_torch.nn.spectral_norm import normalize_tree
+    from calm_vit_dte_tpu_torch.serve import WARMUP_POWER_ITERATIONS
+    from calm_vit_dte_tpu_torch.tools import train_proof
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    dev = torch.device("cuda")
+    t_phase = time.time()
+    metrics: dict = {}
+    by_path: dict = {}
+
+    def zero_counts():
+        for w in (ka.fused_rope_attention, ka.fused_rope_attention_bwd):
+            w.launches = w.stage_launches = 0
+        kc.fused_conv_residual.launches = 0
+        for w in (kh.fused_hires_attention, kh.hires_dq, kh.hires_dkv,
+                  kh.hires_weight_grads, kh.fused_attention_forward,
+                  kc.conv_residual_fwd_resid, kc.conv_residual_bwd):
+            w.launches = 0
+
+    def read_counts(path, want):
+        """The path's launches against `want` (attention forward, backward,
+        conv forward); the bf16 rope calls' stage launches (one prologue a
+        forward, six a flagship backward); no hires or conv training
+        kernel."""
+        got = {"attention_fwd": ka.fused_rope_attention.launches,
+               "attention_bwd": ka.fused_rope_attention_bwd.launches,
+               "conv": kc.fused_conv_residual.launches}
+        stages = {"attention_fwd": ka.fused_rope_attention.stage_launches,
+                  "attention_bwd": ka.fused_rope_attention_bwd.stage_launches}
+        others = {w.__name__: w.launches for w in (
+            kh.fused_hires_attention, kh.hires_dq, kh.hires_dkv,
+            kh.hires_weight_grads, kh.fused_attention_forward,
+            kc.conv_residual_fwd_resid, kc.conv_residual_bwd)}
+        if got != want or any(others.values()):
+            raise AssertionError(f"{path}: launches {got} (want {want}), "
+                                 f"other kernels {others}")
+        if stages != {"attention_fwd": got["attention_fwd"],
+                      "attention_bwd": 6 * got["attention_bwd"]}:
+            raise AssertionError(f"{path}: stage launches {stages} for "
+                                 f"{got}")
+        by_path[path] = dict(got, stages=stages)
+        log(f"[proof] {path}: {got['attention_fwd']} attention forward + "
+            f"{got['attention_bwd']} backward + {got['conv']} conv forward "
+            f"launches (stage launches {stages}); no hires or conv "
+            "training kernel")
+
+    # (a) the native decoder against Pillow over the same files.
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_proof_"))
+    try:
+        t0 = time.time()
+        root = make_corpus(work / "learnable", n_train=PROOF_DECODE_IMAGES,
+                           num_classes=10, mode="learnable", seed=12)
+        ds = ImageFolderDataset(str(root), split="train", size=256)
+        paths = [p for p, _ in ds.samples]
+        log(f"[proof] corpus: {len(paths)} learnable JPEGs at 384 px in "
+            f"{time.time() - t0:.1f} s")
+        if not native.available():
+            raise AssertionError(native.unavailable_reason())
+        imgs, ok = native.decode_resize_batch(paths, 256)
+        pil = np.stack([ds.load(i)[0] for i in range(len(ds))])
+        diff = int(np.abs(imgs.astype(int) - pil.astype(int)).max())
+        if not ok.all() or diff > NATIVE_PIL_LIMIT:
+            raise AssertionError(f"native decode: ok {ok.sum()}/{len(ok)}, "
+                                 f"max |native - Pillow| {diff} > "
+                                 f"{NATIVE_PIL_LIMIT}")
+        cores = os.cpu_count()
+
+        def rate(fn):
+            reads = []
+            for _ in range(PROOF_DECODE_REPS):
+                t0 = time.perf_counter()
+                fn()
+                reads.append(len(paths) / (time.perf_counter() - t0))
+            return max(reads), reads
+
+        rates = {
+            f"native_{cores}_threads": rate(
+                lambda: native.decode_resize_batch(paths, 256)),
+            "native_1_thread": rate(
+                lambda: native.decode_resize_batch(paths, 256, 1)),
+            "pillow": rate(lambda: [ds.load(i) for i in range(len(ds))])}
+        metrics["decode"] = {
+            "images": len(paths), "source_px": 384, "out_px": 256,
+            "host_cores": cores, "max_abs_native_vs_pillow": diff,
+            "images_per_s": {k: v[0] for k, v in rates.items()},
+            "images_per_s_reads": {k: v[1] for k, v in rates.items()}}
+        log(f"[proof] native decode within {diff} of Pillow (limit "
+            f"{NATIVE_PIL_LIMIT}) on {len(paths)} JPEGs 384 -> 256 px; "
+            "images/s, best of "
+            f"{PROOF_DECODE_REPS} (host clock, {cores} cores): "
+            + ", ".join(f"{k} {v[0]:.1f}" for k, v in rates.items()))
+
+        # (b) Encoder8 and CALMLatentDiffusion at their default widths.
+        models = {"encoder8": (Encoder8, Encoder8Config(), 24, 8),
+                  "latent_diffusion": (CALMLatentDiffusion,
+                                       CALMLatentDiffusionConfig(), 18, 6)}
+        for path, (cls, mcfg, n_attn, n_conv) in models.items():
+            cpu_model = cls(mcfg, torch.Generator().manual_seed(0)).eval()
+            with torch.no_grad():   # converged sigma, as Predictor.fresh
+                for _ in range(WARMUP_POWER_ITERATIONS):
+                    normalize_tree(cpu_model, training=True)
+            model = copy.deepcopy(cpu_model).to(dev)
+            s = mcfg.seq_length
+            gen = torch.Generator().manual_seed(11)
+            x = torch.randn(PROOF_MODEL_BATCH, s, s, 3, generator=gen)
+            zero_counts()
+            with torch.no_grad():
+                out = model(x.to(dev), dtype=bf16)
+            torch.cuda.synchronize()
+            read_counts(path, {"attention_fwd": n_attn, "attention_bwd": 0,
+                               "conv": n_conv})
+            y = out[0] if isinstance(out, tuple) else out
+            if not torch.isfinite(y).all():
+                raise AssertionError(f"{path}: bf16 outputs not finite")
+            with torch.no_grad():
+                card = model(x[:2].to(dev), dtype=f32)
+                host = cpu_model(x[:2], dtype=f32)
+            card = card if isinstance(card, tuple) else (card,)
+            host = host if isinstance(host, tuple) else (host,)
+            torch.testing.assert_close(card[0].cpu(), host[0], rtol=2e-3,
+                                       atol=2e-4)
+            errs = {"max_abs_err_fp32_card_vs_cpu":
+                    max_err(card[0].cpu(), host[0])}
+            if len(card) == 2:   # the KL, at phase 4's rtol 1e-3
+                torch.testing.assert_close(card[1].cpu(), host[1],
+                                           rtol=1e-3, atol=0)
+                errs["kl_card"], errs["kl_cpu"] = (float(card[1]),
+                                                   float(host[1]))
+            metrics[path] = {"config": dataclasses.asdict(mcfg),
+                             "out_shape": list(y.shape),
+                             "parameters": sum(p.numel() for p in
+                                               model.parameters()), **errs}
+            n_params = sum(p.numel() for p in model.parameters()) / 1e6
+            log(f"[proof] {path} ({n_params:.2f}M parameters): bf16 "
+                f"B={PROOF_MODEL_BATCH} "
+                f"output {tuple(y.shape)} finite; fp32 card vs CPU on 2 "
+                f"inputs max abs err {errs['max_abs_err_fp32_card_vs_cpu']:.3e}"
+                " (rtol 2e-3 / atol 2e-4)"
+                + (f", KL {errs['kl_card']:.6g} vs {errs['kl_cpu']:.6g}"
+                   if len(card) == 2 else ""))
+            del model, cpu_model, out, y, card, host
+            torch.cuda.empty_cache()
+
+        # (c) a short overfit run through the proof tool, flagship, B=128.
+        zero_counts()
+        t0 = time.time()
+        res = train_proof.run([
+            "overfit", "--steps", str(PROOF_STEPS), "--n-train",
+            str(PROOF_IMAGES), "--eval-every", "50", "--lr", "1.5e-3",
+            "--root", str(work / "memorize"), "--out", str(work / "out")])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        losses = res["step_losses"]
+        evals = len(res["history"])
+        path = f"proof_overfit_{PROOF_STEPS}_steps"
+        read_counts(path, {"attention_fwd": 24 * (PROOF_STEPS + evals),
+                           "attention_bwd": 24 * PROOF_STEPS,
+                           "conv": 8 * evals})
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"overfit: a loss is not finite: {losses}")
+        first, last = np.mean(losses[:10]), np.mean(losses[-10:])
+        if not last < first:
+            raise AssertionError(f"overfit: last 10 steps' mean loss {last} "
+                                 f"not below the first 10's {first}")
+        if res["rope_launches_per_step"] != {"attention_fwd": [24],
+                                             "attention_bwd": [24]}:
+            raise AssertionError(f"overfit: launches per step "
+                                 f"{res['rope_launches_per_step']}")
+        if res["eval_launches_per_forward"] != {"attention": 24.0,
+                                                "conv": 8.0}:
+            raise AssertionError(f"overfit: eval launches "
+                                 f"{res['eval_launches_per_forward']}")
+        if res["decoder"] != "native" or res["pillow_images"]:
+            raise AssertionError(f"overfit decoded with {res['decoder']} "
+                                 f"({res['decoder_reason']}), "
+                                 f"{res['pillow_images']} by Pillow")
+        metrics["proof_overfit"] = {
+            k: res[k] for k in ("steps", "batch", "lr", "n_train", "history",
+                                "ms_per_step", "first_step_ms",
+                                "peak_mem_gib", "decoder", "pillow_images",
+                                "rope_launches_per_step",
+                                "eval_launches_per_forward")}
+        metrics["proof_overfit"].update(
+            wall_s=wall, first_10_mean_loss=float(first),
+            last_10_mean_loss=float(last))
+        log(f"[proof] overfit {PROOF_STEPS} steps, {PROOF_IMAGES} memorize "
+            f"images, B={res['batch']}, bf16, remat off: loss "
+            f"{losses[0]:.4f} -> "
+            f"{losses[-1]:.4f} (first 10 mean {first:.4f}, last 10 "
+            f"{last:.4f}); {res['history']}; {res['ms_per_step']:.1f} ms per "
+            f"step after the first ({res['first_step_ms']:.1f}), peak "
+            f"{res['peak_mem_gib']:.2f} GiB, 24 + 24 rope launches a step, "
+            f"24 + 8 per eval forward, decoder {res['decoder']}; {wall:.1f} "
+            f"s on {name} ({smi})")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    metrics["seconds"] = time.time() - t_phase
+    log(f"[proof] phase 11 in {metrics['seconds']:.1f} s")
+    return by_path, metrics
+
+
 def main() -> int:
     if not (ROOT / "calm_vit_dte_tpu_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository "
@@ -1880,6 +2172,7 @@ def main() -> int:
     log(f"[probe] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
     log(f"[probe] nvcc: {nvcc_version}; triton {triton_state}")
+    native_state = native_probe()
     from calm_vit_dte_tpu_torch.tools import time_conv as tconv
 
     CARD["sms"], CARD["clock_hz"] = tconv.card_clock()
@@ -2608,6 +2901,11 @@ def main() -> int:
     finally:
         shutil.rmtree(keep_ckpt, ignore_errors=True)
 
+    # 11. the generated corpus and the native decoder, Encoder8 and
+    # CALMLatentDiffusion, and a short training proof.
+    torch.cuda.empty_cache()
+    proof_launches, proof = proof_phase(torch, name, smi)
+
     def summary(kname, source, replaces, rows, launches):
         t_bytes = sum(r["launches"] * r["bound_ms"] for r in rows
                       if r["bound_by"] == "bytes")
@@ -2670,6 +2968,16 @@ def main() -> int:
         k["launches_by_path"]["serve_evaluate_int8_phase10"] = \
             serve_launches[key]
         k["launches"] += serve_launches[key]
+    for path, got in proof_launches.items():
+        for k, key in ((kernels[0], "attention_fwd"),
+                       (kernels[1], "attention_bwd"), (kernels[2], "conv")):
+            if got[key]:
+                k["launches_by_path"][path] = got[key]
+                k["launches"] += got[key]
+        for k, key in ((kernels[0], "attention_fwd"),
+                       (kernels[1], "attention_bwd")):
+            if got["stages"][key]:
+                k["stage_launches_by_path"][path] = got["stages"][key]
     kernels += hires_kernels + trainer_kernels + [relayout_kernel]
     for k in kernels:
         if k["launches"] < 1:
@@ -2697,7 +3005,8 @@ def main() -> int:
                               "peak_mem_gib": train_peak_gib,
                               "losses": train_losses, "trace": train_trace},
                     "hires-cls-1024": hires, "trainer": trainer,
-                    "serving": serving}))
+                    "serving": serving, "native_probe": native_state,
+                    "proof": proof}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

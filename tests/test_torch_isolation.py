@@ -41,7 +41,10 @@ def test_port_imports_no_jax():
                  "data.loader", "data.augment", "data.mixup",
                  "data.pipeline", "utils.logging", "tools.ablate_conv_bwd",
                  "tools.canary_probes", "kernels.relayout", "quantize",
-                 "train.evaluate", "utils.profiling"):
+                 "train.evaluate", "utils.profiling", "data.corpus",
+                 "data.native", "data.csv_dataset", "tools.train_proof",
+                 "tools.reg_witness",
+                 "models.encoder_decoder"):
         assert f"calm_vit_dte_tpu_torch.{name}" in report["imported"]
     leaked = [m for m in report["modules"]
               if m.split(".")[0].startswith("jax")
