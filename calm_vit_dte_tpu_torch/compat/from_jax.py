@@ -10,7 +10,16 @@ loads with `model.load_state_dict(sd)`. The pytrees arrive as nested dicts
 of numpy arrays (or anything np.asarray takes); nothing of JAX is imported.
 
 `state_dict_from_jax` carries the ViT and Encoder8 (its block_{i} become
-encoder_blocks.{i}, the golden encoder8.npz's names).
+encoder_blocks.{i}, the golden encoder8.npz's names). The way back, for the
+ViT: `jax_path` names the JAX leaf of a port parameter or buffer, and
+`jax_trees` builds the (params, sn_state) trees of a port model.
+
+The AdamW moments come in the JAX package's two layouts
+(calm_vit_dte_tpu/train/checkpoint.py): `fused-flat`, one fp32 vector over
+`ravel_pytree(params)` (the params' leaves in sorted-key order, which is
+not `model.parameters()` order), carried by `adamw_state_from_jax` and
+back by `adamw_state_to_jax`; and `tree`, optax's per-leaf moments keyed
+like params, carried by `adamw_state_from_jax_tree`.
 `latent_diffusion_state_dict_from_jax` carries CALMLatentDiffusion by a
 table of its own (LATENT_DIFFUSION_NAMES: its seven top-level names; a tree
 with any other, such as EncoderDecoder8's bottlenecks, raises).
@@ -66,6 +75,70 @@ def _param_name(path: list[str]) -> str:
     if name in ("ls_att", "ls_mlp"):
         return ".".join(_rename_back(path))
     raise KeyError(f"unmapped param leaf {'.'.join(path)}")
+
+
+_SUFFIX_BACK = {"weight_orig": "w", "bias": "b", "weight": "scale",
+                "inv_freq": "inv_freq", "ls_att": "ls_att",
+                "ls_mlp": "ls_mlp", "weight_u": "u", "weight_v": "v"}
+
+
+def _path_back(parts: list[str]) -> list[str]:
+    """Undo `_rename_back` for the ViT's module names."""
+    out: list[str] = []
+    i = 0
+    while i < len(parts):
+        t, nxt = parts[i], parts[i + 1] if i + 1 < len(parts) else None
+        if t in ("encoder_blocks", "decoder_blocks") and nxt is not None \
+                and nxt.isdigit():
+            out.append(f"{t[:7]}_{nxt}")
+            i += 1
+        elif t == "block_bottle_neck_1":
+            out.append("bottleneck_1")
+        elif t == "block_bottle_neck_2":
+            out.append("bottleneck_2")
+        elif t == "proj" and nxt in ("0", "2", "4"):
+            out += ["proj", f"conv{int(nxt) // 2 + 1}"]
+            i += 1
+        elif t == "mlp" and nxt in ("0", "3"):
+            out.append("mlp_fc1" if nxt == "0" else "mlp_fc2")
+            i += 1
+        elif t in ("0", "2") and out and out[-1] in ("linear_mask", "head"):
+            out.append("fc1" if t == "0" else "fc2")
+        else:
+            out.append(t)
+        i += 1
+    return out
+
+
+def jax_path(name: str) -> tuple[str, list[str]]:
+    """The JAX tree ("params" or "sn_state") and path of the ViT's state_dict
+    entry `name`; the inverse of `_param_name` and of the u/v naming of
+    `state_dict_from_jax`."""
+    parts = name.split(".")
+    leaf = _SUFFIX_BACK.get(parts[-1])
+    if leaf is None:
+        raise KeyError(f"unmapped state_dict entry {name}")
+    tree = "sn_state" if leaf in ("u", "v") else "params"
+    if leaf in ("inv_freq", "ls_att", "ls_mlp"):
+        return tree, _path_back(parts)
+    return tree, _path_back(parts[:-1]) + [leaf]
+
+
+def _put(tree: dict, path: list[str], value) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
+
+
+def jax_trees(state_dict: dict) -> tuple[dict, dict]:
+    """A ViT state_dict as the JAX package's (params, sn_state) trees of
+    fp32 numpy arrays."""
+    trees: dict = {"params": {}, "sn_state": {}}
+    for name, value in state_dict.items():
+        tree, path = jax_path(name)
+        _put(trees[tree], path,
+             value.detach().cpu().float().numpy().copy())
+    return trees["params"], trees["sn_state"]
 
 
 def _leaves(tree: dict, path: list[str] | None = None):
@@ -146,6 +219,34 @@ def adamw_state_from_jax(params: dict, count, mu, nu, model) -> AdamWState:
     return AdamWState(count=int(count), notfinite=0, gnorm=0.0,
                       mu=[_tensor(m).to(dev) for m, _ in moments],
                       nu=[_tensor(n).to(dev) for _, n in moments])
+
+
+def adamw_state_from_jax_tree(count, mu: dict, nu: dict,
+                              model) -> AdamWState:
+    """optax's ScaleByAdamState (the `tree` layout: count and per-leaf
+    moments keyed like params) as the port's AdamWState for `model`."""
+    by_name = {_param_name(path): leaf for path, leaf in _leaves(mu)}
+    nu_by = {_param_name(path): leaf for path, leaf in _leaves(nu)}
+    names = [name for name, _ in model.named_parameters()]
+    if set(by_name) != set(names) or set(nu_by) != set(names):
+        raise ValueError("the moments' leaves are not the model's "
+                         "parameters")
+    dev = next(model.parameters()).device
+    return AdamWState(count=int(count), notfinite=0, gnorm=0.0,
+                      mu=[_tensor(by_name[n]).to(dev) for n in names],
+                      nu=[_tensor(nu_by[n]).to(dev) for n in names])
+
+
+def adamw_state_to_jax(model, opt: AdamWState
+                       ) -> tuple[np.ndarray, np.ndarray]:
+    """The port's moments as the JAX package's flat fp32 mu and nu over
+    `ravel_pytree(params)`: the inverse of `adamw_state_from_jax`."""
+    named = dict(zip((n for n, _ in model.named_parameters()),
+                     zip(opt.mu, opt.nu)))
+    order = sorted(named, key=lambda n: jax_path(n)[1])
+    mu = [named[n][0].detach().cpu().float().reshape(-1) for n in order]
+    nu = [named[n][1].detach().cpu().float().reshape(-1) for n in order]
+    return torch.cat(mu).numpy(), torch.cat(nu).numpy()
 
 
 def params_to_jax(model, params: dict) -> dict:

@@ -41,9 +41,6 @@ from calm_vit_dte_tpu_torch.nn.spectral_norm import (
     normalize_tree,
 )
 from calm_vit_dte_tpu_torch.quantize import quantize_model
-from calm_vit_dte_tpu_torch.train.checkpoint import restore_checkpoint
-from calm_vit_dte_tpu_torch.train.optim import make_optimizer
-from calm_vit_dte_tpu_torch.train.state import create_train_state
 from calm_vit_dte_tpu_torch.utils.configs import get_config
 
 # Power iterations run on a fresh model before its eval weights are frozen
@@ -158,32 +155,14 @@ class Predictor:
                         quantize: str | None = None,
                         device: str | torch.device = "cuda",
                         dtype: torch.dtype = torch.bfloat16) -> "Predictor":
-        """Serve trained weights. `source` is a checkpoint directory of the
-        port's trainer (train/checkpoint.py, step_<n>.pt; the newest step)
-        or a reference-format .pth state dict (as the JAX package's
+        """Serve trained weights: `source` is what `create_vit(weights=)`
+        takes, a checkpoint directory (the newest step_<n>.pt of the port's
+        trainer, or the JAX package's Orbax step directories) or a
+        reference-format .pth state dict (as the JAX package's
         compat/torch_export.py writes it: unknown keys raise, missing ones
         keep their init, as the JAX importer allows)."""
         _check_quantize(quantize)
-        _, model = create_vit(config, device=device)
-        if source.endswith(".pth"):
-            sd = torch.load(source, map_location="cpu", weights_only=True)
-            result = model.load_state_dict(
-                {k: torch.as_tensor(v) for k, v in sd.items()}, strict=False)
-            if result.unexpected_keys:
-                raise KeyError(f"{source}: keys the model does not have: "
-                               f"{result.unexpected_keys}")
-        elif os.path.isdir(source):
-            state = create_train_state(model, make_optimizer(), seed=0)
-            if restore_checkpoint(source, state) is None:
-                if os.listdir(source):
-                    raise ValueError(
-                        f"{source} holds no step_<n>.pt checkpoint of this "
-                        "package; Orbax checkpoint directories of the JAX "
-                        "package cannot be read by the port yet")
-                raise FileNotFoundError(f"no checkpoint under {source}")
-            del state
-        else:
-            raise ValueError(f"unsupported weights source: {source}")
+        _, model = create_vit(config, device=device, weights=source)
         return cls(model, crop=get_config(config).crop, dtype=dtype,
                    config_name=config, quantize=quantize)
 
@@ -281,7 +260,8 @@ def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", default="imagenet-cls-224")
     ap.add_argument("--checkpoint", default=None,
-                    help="a trainer checkpoint directory or a .pth")
+                    help="a checkpoint directory (the trainer's, or the JAX "
+                         "package's Orbax one) or a .pth")
     ap.add_argument("--quantize", default=None, choices=["int8", "int8-wo"],
                     help="serve int8 weights: 'int8' = w8a8 dynamic, "
                          "'int8-wo' = w8a16 weight-only")

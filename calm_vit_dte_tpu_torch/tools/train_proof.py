@@ -118,12 +118,14 @@ def _rope_launches() -> tuple[int, int]:
 
 
 def _build(args, task: str, preprocess, dev: torch.device, init_seed: int,
-           dtype=torch.bfloat16):
+           dtype=torch.bfloat16, weights: str | None = None):
     """The script's `_build`: weights from `init_seed` (the config's, in
-    the script), the optimizer over one epoch of --steps, state seed 1, the
-    step in `dtype` (bf16 in the script) with remat off."""
+    the script; or from `weights`, as create_vit takes them), the optimizer
+    over one epoch of --steps, state seed 1, the step in `dtype` (bf16 in
+    the script) with remat off."""
     cfg = get_config(args.config)
-    _, model = create_vit(args.config, seed=init_seed, device=dev)
+    _, model = create_vit(args.config, seed=init_seed, device=dev,
+                          weights=weights)
     tx = make_optimizer(args.lr, cfg.weight_decay, cfg.beta1, cfg.beta2,
                         epochs=1, steps_per_epoch=args.steps)
     state = create_train_state(model, tx, seed=1)
@@ -322,9 +324,10 @@ def _reconstruct(state, cfg, imgs_u8: torch.Tensor, dtype) -> np.ndarray:
 
 
 def _run_reg(args, dev: torch.device, init_seed: int | None = None,
-             dtype=torch.bfloat16) -> dict:
-    """The reg proof. `init_seed` (default: the config's) and `dtype`
-    (default: bf16, the script's) are for tools/reg_witness.py."""
+             dtype=torch.bfloat16, weights: str | None = None) -> dict:
+    """The reg proof. `init_seed` (default: the config's), `dtype`
+    (default: bf16, the script's) and `weights` (default: none, the seed's
+    init) are for tools/reg_witness.py."""
     t_start = time.time()
     root = args.root or _TMP / "calm_corpus_learnable"
     make_corpus(root, n_train=args.n_train, n_val=args.n_train // 4,
@@ -336,7 +339,7 @@ def _run_reg(args, dev: torch.device, init_seed: int | None = None,
     if init_seed is None:
         init_seed = tcfg.init_seed
     cfg, state, step_fn = _build(args, "reg", make_reg_preprocess(tcfg.crop),
-                                 dev, init_seed, dtype)
+                                 dev, init_seed, dtype, weights)
     out_dir = pathlib.Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
     probe = tr_imgs[:16]

@@ -10,8 +10,16 @@ state_dict (parameters, and the spectral-norm u/v buffers), the AdamW state
 saved too; `TrainState.generator` is a function of (seed, step, stream), so
 a resumed run draws the noise the uninterrupted run would have drawn.
 
-Reading the JAX package's Orbax checkpoints and its optimizer-layout
-migration (`migrate_opt_state`) have no counterpart yet.
+A directory that holds no `step_<n>.pt` but the JAX package's Orbax step
+directories restores too (`restore_checkpoint`, `checkpoint_meta`), through
+compat/orbax.py: both of its formats and both optimizer layouts, so the
+trainers resume a JAX run's `checkpoint_dir`. Reading Orbax needs the
+`tensorstore` package; where it is missing (the card's machine), restore
+raises an ImportError that names it, and `python -m
+calm_vit_dte_tpu_torch.compat.orbax import` converts on a host that has
+it. The way back is `... compat.orbax export`. A state carried from Orbax
+keeps the JAX key's data (`TrainState.jax_rng`) in the meta of the
+checkpoints it saves.
 """
 
 from __future__ import annotations
@@ -45,8 +53,11 @@ def save_checkpoint(path: str, state: TrainState, step: int | None = None,
     step = state.step if step is None else step
     os.makedirs(path, exist_ok=True)
     opt = state.opt_state
+    meta = {"format_version": CKPT_FORMAT_VERSION, "step": step}
+    if state.jax_rng is not None:
+        meta["jax_rng"] = [int(x) for x in state.jax_rng]
     payload = {
-        "meta": {"format_version": CKPT_FORMAT_VERSION, "step": step},
+        "meta": meta,
         "seed": state.seed,
         "model": {k: v.detach().cpu() for k, v in
                   state.model.state_dict().items()},
@@ -77,9 +88,21 @@ def _load(path: str, step: int | None) -> dict | None:
                       weights_only=True)
 
 
+def _orbax_only(path: str) -> bool:
+    """True if `path` holds Orbax step directories and no step_<n>.pt."""
+    from calm_vit_dte_tpu_torch.compat import orbax
+
+    return not _steps(path) and bool(orbax.steps(path))
+
+
 def checkpoint_meta(path: str, step: int | None = None) -> dict | None:
-    """The checkpoint's meta dict (format_version, step); None if there is
-    no checkpoint."""
+    """The checkpoint's meta dict (format_version, step; jax_rng if the
+    state came from Orbax); an Orbax checkpoint's own meta dict, with
+    "orbax": True; None if there is no checkpoint."""
+    if _orbax_only(path):
+        from calm_vit_dte_tpu_torch.compat import orbax
+
+        return dict(orbax.checkpoint_meta(path, step), orbax=True)
     ckpt = _load(path, step)
     return None if ckpt is None else dict(ckpt["meta"])
 
@@ -88,7 +111,12 @@ def checkpoint_meta(path: str, step: int | None = None) -> dict | None:
 def restore_checkpoint(path: str, state: TrainState,
                        step: int | None = None) -> TrainState | None:
     """Load the newest (or the given) checkpoint into `state` in place, on
-    the device its model is on, and return it; None if there is none."""
+    the device its model is on, and return it; None if there is none. An
+    Orbax directory keeps `state.seed`."""
+    if _orbax_only(path):
+        from calm_vit_dte_tpu_torch.compat import orbax
+
+        return orbax.restore_state(path, state, step)
     ckpt = _load(path, step)
     if ckpt is None:
         return None
@@ -102,7 +130,25 @@ def restore_checkpoint(path: str, state: TrainState,
     opt.count, opt.notfinite = saved["count"], saved["notfinite"]
     opt.gnorm = saved["gnorm"].to(state.device)
     state.step, state.seed = ckpt["meta"]["step"], ckpt["seed"]
+    state.jax_rng = ckpt["meta"].get("jax_rng")
     return state
+
+
+def model_state_dict(path: str, step: int | None = None
+                     ) -> dict[str, torch.Tensor] | None:
+    """The model's state_dict (parameters and u/v) of the newest (or the
+    given) checkpoint under `path`, of the port or of Orbax; None if there
+    is none."""
+    if _orbax_only(path):
+        from calm_vit_dte_tpu_torch.compat import orbax
+        from calm_vit_dte_tpu_torch.compat.from_jax import (
+            state_dict_from_jax,
+        )
+
+        ck = orbax.read_orbax(path, step)
+        return state_dict_from_jax(ck["params"], ck["sn_state"])
+    ckpt = _load(path, step)
+    return None if ckpt is None else ckpt["model"]
 
 
 def warm_start_params(path: str, model: torch.nn.Module) -> torch.nn.Module:

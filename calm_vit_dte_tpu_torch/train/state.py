@@ -26,6 +26,10 @@ class TrainState:
     opt_state: AdamWState
     step: int
     seed: int
+    # The JAX PRNG key's data (two uint32) of a state that came from or goes
+    # to an Orbax checkpoint of the JAX package (compat/orbax.py); the
+    # port's noise comes from `seed`.
+    jax_rng: list[int] | None = None
 
     @property
     def device(self) -> torch.device:

@@ -160,7 +160,23 @@ Phases, each fatal on failure (any exception exits non-zero):
              memorize images, B=128, bf16, remat off, evals at 50 and
              100): every loss finite, the last 10 steps' mean below the
              first 10's, exactly 24 + 24 rope launches a step and 24 + 8
-             per eval forward, decoded by the native decoder.
+             per eval forward, decoded by the native decoder;
+ 12. jaxinit the JAX package's own seed-0 imagenet-reg-224 weights: (a)
+             rebuilt on this host with numpy from the committed table
+             (compat/jax_init.py), every leaf's digest matched (numpy's
+             version printed); (b) a bf16 reconstruct at B=8 from them, u/v
+             converged as Predictor.fresh does (exactly 24 attention + 9
+             conv launches), the fp32 forward card vs CPU on 2 images at
+             rtol 2e-3 / atol 2e-4, KL rtol 1e-3; (c) three train_reg.main
+             steps at B=128 warm-started from a reference-format .pth of
+             them (the first step's weights the table's bit for bit,
+             exactly 24 + 24 rope launches a step and 24 + 9 for the epoch
+             end's samples, finite loss, finite nonzero gradient norm), the
+             step_3.pt restored bit for bit and
+             served through create_vit(weights=<dir>), its weights the
+             trained ones bit for bit, u/v converged (24 + 9 launches,
+             outputs in [0, 1]); (d) whether
+             tensorstore imports: Orbax conversion runs host-side.
 
 Every fp32 comparison runs with torch.backends.cuda.matmul.allow_tf32 and
 torch.backends.cudnn.allow_tf32 both False, so the plain versions' products
@@ -2115,6 +2131,280 @@ def proof_phase(torch, name, smi):
     return by_path, metrics
 
 
+JAXINIT_CONFIG = "imagenet-reg-224"   # phase 12: the committed JAX init table
+JAXINIT_BATCH = 8
+JAXINIT_STEPS = 3
+
+
+def jax_weights_phase(torch, name, smi):
+    """Phase 12: the JAX package's seed-0 imagenet-reg-224 weights in the
+    port. (a) rebuilt on this host from the committed table
+    (compat/jax_init.py), every leaf's digest matched; (b) a bf16
+    reconstruct at B=8 from them (24 attention + 9 conv launches) and the
+    fp32 forward card vs CPU on 2 images; (c) three train_reg.main steps at
+    B=128 warm-started from a reference-format .pth of them (24 + 24 rope
+    launches a step, 24 + 9 for the samples, the first step's weights the table's bit for bit,
+    finite loss, nonzero gradient norm), the step_<n>.pt restored bit for
+    bit and served through create_vit(weights=<dir>); (d) whether
+    tensorstore imports (Orbax conversion is host-side either way).
+    Returns (launches by path and kernel, metrics)."""
+    import contextlib
+    import io
+    import os
+    import shutil
+    import tempfile
+
+    from calm_vit_dte_tpu_torch.compat import jax_init
+    from calm_vit_dte_tpu_torch.kernels import axial_attention as ka
+    from calm_vit_dte_tpu_torch.kernels import conv_residual as kc
+    from calm_vit_dte_tpu_torch.kernels import hires_attention as kh
+    from calm_vit_dte_tpu_torch.models.factory import create_vit
+    from calm_vit_dte_tpu_torch.nn.spectral_norm import normalize_tree
+    from calm_vit_dte_tpu_torch.serve import (
+        WARMUP_POWER_ITERATIONS,
+        Predictor,
+    )
+    from calm_vit_dte_tpu_torch.train import checkpoint as ckpt_mod
+    from calm_vit_dte_tpu_torch.train import train_reg
+    from calm_vit_dte_tpu_torch.train import trainer as trainer_mod
+    from calm_vit_dte_tpu_torch.train.optim import make_optimizer
+    from calm_vit_dte_tpu_torch.train.state import create_train_state
+    from calm_vit_dte_tpu_torch.utils.configs import get_config
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    t_phase = time.time()
+    cfg = get_config(JAXINIT_CONFIG)
+    metrics: dict = {}
+    by_path: dict = {}
+    others = (kh.fused_hires_attention, kh.hires_dq, kh.hires_dkv,
+              kh.hires_weight_grads, kh.fused_attention_forward,
+              kc.conv_residual_fwd_resid, kc.conv_residual_bwd)
+
+    def zero_counts():
+        for w in (ka.fused_rope_attention, ka.fused_rope_attention_bwd):
+            w.launches = w.stage_launches = 0
+        for w in (kc.fused_conv_residual, *others):
+            w.launches = 0
+
+    def read_counts(path, want):
+        got = {"attention_fwd": ka.fused_rope_attention.launches,
+               "attention_bwd": ka.fused_rope_attention_bwd.launches,
+               "conv": kc.fused_conv_residual.launches}
+        stages = {"attention_fwd": ka.fused_rope_attention.stage_launches,
+                  "attention_bwd": ka.fused_rope_attention_bwd.stage_launches}
+        other = {w.__name__: w.launches for w in others}
+        if got != want or any(other.values()):
+            raise AssertionError(f"{path}: launches {got} (want {want}), "
+                                 f"other kernels {other}")
+        by_path[path] = dict(got, stages=stages)
+        log(f"[jaxinit] {path}: {got['attention_fwd']} attention forward + "
+            f"{got['attention_bwd']} backward + {got['conv']} conv forward "
+            f"launches (stage launches {stages})")
+
+    # (a) the weights, rebuilt from the table with numpy alone.
+    t0 = time.time()
+    table_path = jax_init.table_path(JAXINIT_CONFIG, 0)
+    table = jax_init.load_table(table_path)
+    sd = jax_init.state_dict_from_jax_init(table_path)
+    n_values = sum(v.numel() for v in sd.values())
+    metrics["table"] = {
+        "file": table_path.name, "entries": len(sd), "values": n_values,
+        "numpy_here": np.__version__, "seconds": time.time() - t0,
+        **{k: table[k] for k in ("jax_version", "jax_threefry_partitionable",
+                                 "numpy_version", "draws")}}
+    log(f"[jaxinit] {table_path.name}: {len(sd)} entries, {n_values} values "
+        f"rebuilt with numpy {np.__version__} in "
+        f"{metrics['table']['seconds']:.1f} s, every digest matched (the "
+        f"table: jax {table['jax_version']}, threefry_partitionable "
+        f"{table['jax_threefry_partitionable']}, numpy "
+        f"{table['numpy_version']}, {table['draws']} draws)")
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_jaxinit_")
+    try:
+        pth = os.path.join(work, "jax_init.pth")
+        torch.save(sd, pth)
+        images = np.random.default_rng(1200).integers(
+            0, 256, (JAXINIT_BATCH, cfg.image_size, cfg.image_size, 3),
+            dtype=np.uint8)
+
+        # (b) reconstruct from those weights, u/v converged as
+        # Predictor.fresh converges them.
+        t0 = time.time()
+        _, model = create_vit(JAXINIT_CONFIG, device="cuda", weights=pth)
+        with torch.no_grad():
+            for _ in range(WARMUP_POWER_ITERATIONS):
+                normalize_tree(model, training=True)
+        pred = Predictor(model, crop=cfg.crop, dtype=bf16,
+                         config_name=JAXINIT_CONFIG)
+        zero_counts()
+        recon = pred.reconstruct(images)
+        read_counts("jaxinit_reconstruct", {"attention_fwd": 24,
+                                            "attention_bwd": 0, "conv": 9})
+        if recon.shape != (JAXINIT_BATCH, cfg.crop, cfg.crop, 3) or not (
+                np.isfinite(recon).all() and recon.min() >= 0
+                and recon.max() <= 1):
+            raise AssertionError("jaxinit reconstruct: bad shape or values "
+                                 "outside [0, 1]")
+        p32 = Predictor(pred.model, crop=cfg.crop, dtype=f32)
+        card, kl_card = p32.predict(images[:2])
+        host = Predictor(copy.deepcopy(pred.model).cpu(), crop=cfg.crop,
+                         dtype=f32)
+        want, kl_host = host.predict(images[:2])
+        torch.testing.assert_close(card.cpu(), want, rtol=2e-3, atol=2e-4)
+        torch.testing.assert_close(kl_card.cpu(), kl_host, rtol=1e-3,
+                                   atol=0.0)
+        metrics["reconstruct"] = {
+            "batch": JAXINIT_BATCH, "range": [float(recon.min()),
+                                              float(recon.max())],
+            "max_abs_err_fp32_card_vs_cpu": max_err(card.cpu(), want),
+            "kl_card": float(kl_card), "kl_cpu": float(kl_host),
+            "seconds": time.time() - t0}
+        log(f"[jaxinit] reconstruct B={JAXINIT_BATCH} bf16 from the JAX "
+            f"weights: range [{recon.min():.4f}, {recon.max():.4f}]; fp32 "
+            f"card vs CPU on 2 images max abs err "
+            f"{metrics['reconstruct']['max_abs_err_fp32_card_vs_cpu']:.3e} "
+            f"(rtol 2e-3 / atol 2e-4), KL {float(kl_card):.6g} vs "
+            f"{float(kl_host):.6g}")
+        del model, pred, p32, host, card
+        torch.cuda.empty_cache()
+
+        # (c) three train_reg.main steps warm-started from the .pth.
+        t0 = time.time()
+        orig_make_step = trainer_mod.make_train_step
+        per_step: list[dict] = []
+        losses: list[float] = []
+        gnorms: list[float] = []
+        first_weights: list[bool] = []
+
+        def launch_counts():
+            return (ka.fused_rope_attention.launches,
+                    ka.fused_rope_attention_bwd.launches)
+
+        def recording_make_step(*a, **k):
+            step = orig_make_step(*a, **k)
+
+            def wrapped(state, batch):
+                if not first_weights:
+                    now = state.model.state_dict()
+                    first_weights.append(all(
+                        torch.equal(now[k_].cpu(), v) for k_, v in
+                        sd.items()))
+                before = launch_counts()
+                state, m = step(state, batch)
+                after = launch_counts()
+                per_step.append({"attention_fwd": after[0] - before[0],
+                                 "attention_bwd": after[1] - before[1]})
+                losses.append(float(m["loss"]))
+                gnorms.append(float(m["grad_norm"]))
+                return state, m
+
+            return wrapped
+
+        ckpt = os.path.join(work, "ckpt")
+        samples = os.path.join(work, "samples")
+        trainer_mod.make_train_step = recording_make_step
+        zero_counts()
+        try:
+            text = io.StringIO()
+            with contextlib.redirect_stdout(text):
+                state = train_reg.main(
+                    ["--config", JAXINIT_CONFIG, "--max-steps",
+                     str(JAXINIT_STEPS), f"global_batch_size={TIME_BATCH}",
+                     "dataset_root=synthetic", f"checkpoint_dir={ckpt}",
+                     f"warm_start={pth}", f"save_samples_dir={samples}",
+                     "log_every=1"])
+            torch.cuda.synchronize()
+        finally:
+            trainer_mod.make_train_step = orig_make_step
+        # The steps, and the epoch end's sample forward (24 + 9).
+        read_counts(f"jaxinit_train_reg_{JAXINIT_STEPS}_steps",
+                    {"attention_fwd": 24 * JAXINIT_STEPS + 24,
+                     "attention_bwd": 24 * JAXINIT_STEPS, "conv": 9})
+        if not os.listdir(samples):
+            raise AssertionError("jaxinit train_reg wrote no samples")
+        if (f"warm-started from {pth}" not in text.getvalue()
+                or first_weights != [True]):
+            raise AssertionError("train_reg did not start from the JAX "
+                                 f"weights: {text.getvalue()[-2000:]}")
+        if (per_step != [{"attention_fwd": 24, "attention_bwd": 24}]
+                * JAXINIT_STEPS or not all(np.isfinite(losses))
+                or not all(np.isfinite(g) and g > 0 for g in gnorms)
+                or state.step != JAXINIT_STEPS):
+            raise AssertionError(f"jaxinit train_reg: per step {per_step}, "
+                                 f"losses {losses}, grad norms {gnorms}, "
+                                 f"step {state.step}")
+        _, fresh = create_vit(JAXINIT_CONFIG, seed=7, device="cuda")
+        other = create_train_state(fresh, make_optimizer(), seed=0)
+        ckpt_mod.restore_checkpoint(ckpt, other)
+        saved = state.model.state_dict()
+        same = all(torch.equal(v, saved[k_]) for k_, v in
+                   other.model.state_dict().items())
+        same &= all(torch.equal(a, b) for a, b in zip(
+            other.opt_state.mu + other.opt_state.nu,
+            state.opt_state.mu + state.opt_state.nu))
+        same &= (other.step, other.seed, other.opt_state.count) == (
+            state.step, state.seed, state.opt_state.count)
+        if not same:
+            raise AssertionError("jaxinit: the restored state differs from "
+                                 "the saved")
+        del fresh, other
+        torch.cuda.empty_cache()
+        # Served through create_vit(weights=<dir>): the checkpoint's
+        # weights bit for bit, u/v then converged as Predictor.fresh does
+        # (three steps' power iterations leave sigma under-estimated).
+        _, served_model = create_vit(JAXINIT_CONFIG, device="cuda",
+                                     weights=ckpt)
+        if not all(torch.equal(v, saved[k_]) for k_, v in
+                   served_model.state_dict().items()):
+            raise AssertionError("jaxinit: create_vit(weights=<dir>) differs "
+                                 "from the trained state")
+        with torch.no_grad():
+            for _ in range(WARMUP_POWER_ITERATIONS):
+                normalize_tree(served_model, training=True)
+        served = Predictor(served_model, crop=cfg.crop, dtype=bf16,
+                           config_name=JAXINIT_CONFIG)
+        zero_counts()
+        recon = served.reconstruct(images)
+        read_counts("jaxinit_serve_checkpoint",
+                    {"attention_fwd": 24, "attention_bwd": 0, "conv": 9})
+        if recon.shape != (JAXINIT_BATCH, cfg.crop, cfg.crop, 3) or not (
+                np.isfinite(recon).all() and recon.min() >= 0
+                and recon.max() <= 1):
+            raise AssertionError("jaxinit: serving the checkpoint gave bad "
+                                 "reconstructions")
+        metrics["train_reg"] = {
+            "batch": TIME_BATCH, "steps": JAXINIT_STEPS, "losses": losses,
+            "grad_norms": gnorms, "per_step": per_step[0],
+            "seconds": time.time() - t0}
+        log(f"[jaxinit] train_reg.main {JAXINIT_CONFIG} B={TIME_BATCH} bf16 "
+            f"warm-started from the JAX weights (first step's weights the "
+            f"table's bit for bit): losses {[round(x, 5) for x in losses]}, "
+            f"grad norms {[round(g, 4) for g in gnorms]}, 24 + 24 rope "
+            f"launches a step; step_{JAXINIT_STEPS}.pt restored bit for bit "
+            f"and served through create_vit(weights=<dir>) (24 + 9 "
+            f"launches)")
+        del state, served, served_model, saved
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    # (d) Orbax conversion runs where tensorstore is.
+    try:
+        import tensorstore  # noqa: F401
+        have_ts = True
+    except ImportError:
+        have_ts = False
+    metrics["tensorstore_imports"] = have_ts
+    metrics["seconds"] = time.time() - t_phase
+    log(f"[jaxinit] tensorstore {'imports' if have_ts else 'does not import'}"
+        " here; Orbax checkpoints are converted host-side (python -m "
+        "calm_vit_dte_tpu_torch.compat.orbax import|export) and the card "
+        "loads the step_<n>.pt")
+    log(f"[jaxinit] phase 12 in {metrics['seconds']:.1f} s on {name} "
+        f"({smi})")
+    return by_path, metrics
+
+
 def main() -> int:
     if not (ROOT / "calm_vit_dte_tpu_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository "
@@ -2906,6 +3196,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     proof_launches, proof = proof_phase(torch, name, smi)
 
+    # 12. the JAX package's seed-0 imagenet-reg-224 weights: rebuilt,
+    # reconstructed, trained through train_reg.main, saved and served.
+    torch.cuda.empty_cache()
+    jaxinit_launches, jaxinit = jax_weights_phase(torch, name, smi)
+
     def summary(kname, source, replaces, rows, launches):
         t_bytes = sum(r["launches"] * r["bound_ms"] for r in rows
                       if r["bound_by"] == "bytes")
@@ -2968,7 +3263,7 @@ def main() -> int:
         k["launches_by_path"]["serve_evaluate_int8_phase10"] = \
             serve_launches[key]
         k["launches"] += serve_launches[key]
-    for path, got in proof_launches.items():
+    for path, got in {**proof_launches, **jaxinit_launches}.items():
         for k, key in ((kernels[0], "attention_fwd"),
                        (kernels[1], "attention_bwd"), (kernels[2], "conv")):
             if got[key]:
@@ -3006,7 +3301,7 @@ def main() -> int:
                               "losses": train_losses, "trace": train_trace},
                     "hires-cls-1024": hires, "trainer": trainer,
                     "serving": serving, "native_probe": native_state,
-                    "proof": proof}))
+                    "proof": proof, "jax_weights": jaxinit}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from _sn_warmup import converged_sn_state
 from calm_vit_dte_tpu.models.vit import ViTConfig as JViTConfig
 from calm_vit_dte_tpu.models.vit import vit_apply, vit_init
 from calm_vit_dte_tpu.nn.spectral_norm import normalize_tree as jax_normalize
@@ -68,9 +69,7 @@ def test_bf16_gradient_departs_from_fp32_as_jax_does():
         "heads", "seq_length", "in_features", "dim_step", "mean_var_hidden",
         "seq_len_step", "seq_len_reduce", "out_features", "generate")})
     params, sn = vit_init(jcfg, jax.random.PRNGKey(0))
-    sn = jax.jit(lambda p, s: jax.lax.fori_loop(
-        0, 30, lambda _, s: jax_normalize(p, s, training=True)[1], s))(
-        params, sn)
+    sn = converged_sn_state(cfg, params, sn)
     image = np.clip(np.random.default_rng(0).standard_normal(
         (8, 48, 48, 3)) * 0.6, -2, 2).astype(np.float32)
 

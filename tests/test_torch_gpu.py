@@ -823,3 +823,41 @@ def test_quantized_tiny_predictor_card_vs_cpu(cuda_device, quantize):
     w = torch.from_numpy(rng.integers(-127, 128, (36, 44), dtype=np.int8))
     assert torch.equal(int8_matmul(a.to(cuda_device), w.to(cuda_device))
                        .cpu(), int8_matmul(a, w))
+
+
+@pytest.mark.gpu
+def test_jax_init_weights_reconstruct_on_the_card(cuda_device):
+    """The JAX package's seed-0 imagenet-reg-224 weights, rebuilt from the
+    committed table with every digest matched, go to the card, and one
+    bf16 reconstruct at B=2 runs through 24 attention and 9 conv launches
+    with outputs in [0, 1]."""
+    from calm_vit_dte_tpu_torch.compat import jax_init
+    from calm_vit_dte_tpu_torch.models.vit import ViT
+    from calm_vit_dte_tpu_torch.nn.spectral_norm import normalize_tree
+    from calm_vit_dte_tpu_torch.serve import (
+        WARMUP_POWER_ITERATIONS,
+        Predictor,
+    )
+    from calm_vit_dte_tpu_torch.utils.configs import get_config
+
+    cfg = get_config("imagenet-reg-224")
+    sd = jax_init.state_dict_from_jax_init(
+        jax_init.table_path("imagenet-reg-224", 0))
+    model = ViT(cfg.model, torch.Generator().manual_seed(1))
+    model.load_state_dict(sd)
+    model = model.eval().to(cuda_device)
+    for k, v in model.state_dict().items():
+        assert torch.equal(v.cpu(), sd[k]), k
+    with torch.no_grad():
+        for _ in range(WARMUP_POWER_ITERATIONS):
+            normalize_tree(model, training=True)
+    pred = Predictor(model, crop=cfg.crop, config_name="imagenet-reg-224")
+    images = np.random.default_rng(5).integers(
+        0, 256, (2, cfg.image_size, cfg.image_size, 3), dtype=np.uint8)
+    n_attn = ka.fused_rope_attention.launches
+    n_conv = kc.fused_conv_residual.launches
+    recon = pred.reconstruct(images)
+    assert ka.fused_rope_attention.launches - n_attn == 24
+    assert kc.fused_conv_residual.launches - n_conv == 9
+    assert recon.shape == (2, cfg.crop, cfg.crop, 3)
+    assert np.isfinite(recon).all() and 0 <= recon.min() <= recon.max() <= 1

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from _sn_warmup import converged_sn_state
 from calm_vit_dte_tpu.kernels.axial_attention import (
     fused_attention_forward as jax_fused_attention_forward,
 )
@@ -279,9 +280,7 @@ def test_tiny_cls_logits_hires_route_match_jax():
     from calm_vit_dte_tpu.models.vit import vit_apply
 
     cfg, params, state = jax_create_vit("tiny-cls", seed=0)
-    state = jax.jit(lambda p, s: jax.lax.fori_loop(
-        0, 30, lambda _, s_: jax_normalize_tree(p, s_, training=True)[1],
-        s))(params, state)
+    state = converged_sn_state(configs.TINY_VIT, params, state)
     x = np.random.default_rng(1).standard_normal((2, 48, 48, 3)).astype(
         np.float32)
     ref, kl_ref = jax.jit(lambda p, s, x_: vit_apply(

@@ -43,7 +43,7 @@ def test_port_imports_no_jax():
                  "tools.canary_probes", "kernels.relayout", "quantize",
                  "train.evaluate", "utils.profiling", "data.corpus",
                  "data.native", "data.csv_dataset", "tools.train_proof",
-                 "tools.reg_witness",
+                 "tools.reg_witness", "compat.orbax", "compat.jax_init",
                  "models.encoder_decoder"):
         assert f"calm_vit_dte_tpu_torch.{name}" in report["imported"]
     leaked = [m for m in report["modules"]
