@@ -24,6 +24,9 @@ Layer map (bottom-up), module for module the same as the JAX package's:
             activation checkpointing that keeps the kernels' outputs),
             checkpoints, sample PNGs, the trainer and its CLIs
             (train_cls, train_reg)
+  parallel/ the (data, model) mesh over torch.distributed ranks (torchrun:
+            NCCL on cards, gloo on the CPU), the tensor-parallel rule and
+            the collectives of the data- and tensor-parallel step
   compat/   weight and optimizer-state carry from the JAX package's pytrees
   utils/    named configs, device selection, checkpointing with kept
             tensors, metric logging

@@ -30,6 +30,8 @@ from __future__ import annotations
 
 import torch
 
+from calm_vit_dte_tpu_torch.parallel.mesh import local_rows
+
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
@@ -113,25 +115,32 @@ def _gaussian_blur3(img: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
 
 
 def _uniform(generator, b, lo, hi, device) -> torch.Tensor:
-    return lo + (hi - lo) * torch.rand(b, generator=generator,
-                                       device=device)
+    return lo + (hi - lo) * local_rows(
+        lambda n: torch.rand(n, generator=generator, device=device), b)
 
 
 def draw_augment_params(generator: torch.Generator, batch: int, height: int,
                         width: int, crop: int = 224) -> dict:
     """Every random draw of one batch's augmentation, per image, on the
     generator's device: crop corners (tops, lefts), jitter factors (fb, fc,
-    fs, fh), the solarize, flip and grayscale coins and the blur sigma."""
+    fs, fh), the solarize, flip and grayscale coins and the blur sigma.
+    Under data parallelism (parallel.mesh.batch_shard) each is drawn for
+    the global batch and this rank keeps its rows."""
     dev = generator.device
 
+    def rand(n):
+        return torch.rand(n, generator=generator, device=dev)
+
     def coin(p):
-        return torch.rand(batch, generator=generator, device=dev) < p
+        return local_rows(rand, batch) < p
+
+    def corner(limit):
+        return local_rows(lambda n: torch.randint(
+            0, limit, (n,), generator=generator, device=dev), batch)
 
     return {
-        "tops": torch.randint(0, height - crop + 1, (batch,),
-                              generator=generator, device=dev),
-        "lefts": torch.randint(0, width - crop + 1, (batch,),
-                               generator=generator, device=dev),
+        "tops": corner(height - crop + 1),
+        "lefts": corner(width - crop + 1),
         "fb": _uniform(generator, batch, 0.5, 1.0, dev),
         "fc": _uniform(generator, batch, 0.5, 1.0, dev),
         "fs": _uniform(generator, batch, 0.5, 1.0, dev),

@@ -17,7 +17,9 @@ Draws and arithmetic are split as in data/augment.py. The batch-level draws
 samplers, seeded from the torch.Generator's seed (torch has no Beta sampler
 that takes a generator), so the step needs no device sync for them; the
 arithmetic runs in fp32 on the images' device, with the box's integers and
-lam computed in fp32 as the JAX package computes them.
+lam computed in fp32 as the JAX package computes them. Under data
+parallelism (parallel.mesh.batch_shard) the partner is the global batch
+rolled by 1: a rank's first row pairs with the previous rank's last.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from calm_vit_dte_tpu_torch.parallel.mesh import previous_rows
 
 
 def _one_hot(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
@@ -49,8 +53,8 @@ def draw_mix_params(generator: torch.Generator, height: int, width: int,
 
 def mixup(images: torch.Tensor, labels1h: torch.Tensor, lam: float):
     lam_t = torch.tensor(lam, dtype=torch.float32, device=images.device)
-    mixed = lam_t * images + (1.0 - lam_t) * torch.roll(images, 1, 0)
-    mixed_y = lam_t * labels1h + (1.0 - lam_t) * torch.roll(labels1h, 1, 0)
+    mixed = lam_t * images + (1.0 - lam_t) * previous_rows(images)
+    mixed_y = lam_t * labels1h + (1.0 - lam_t) * previous_rows(labels1h)
     return mixed, mixed_y
 
 
@@ -63,12 +67,12 @@ def cutmix(images: torch.Tensor, labels1h: torch.Tensor, lam: float,
     x1, x2 = np.clip(r_x - half_w, 0, w), np.clip(r_x + half_w, 0, w)
     y1, y2 = np.clip(r_y - half_h, 0, h), np.clip(r_y + half_h, 0, h)
     mixed = images.clone()
-    mixed[:, y1:y2, x1:x2, :] = torch.roll(images, 1, 0)[:, y1:y2, x1:x2, :]
+    mixed[:, y1:y2, x1:x2, :] = previous_rows(images)[:, y1:y2, x1:x2, :]
     lam_adj = np.float32(1.0) - np.float32((x2 - x1) * (y2 - y1)) / \
         np.float32(w * h)
     lam_t = torch.tensor(float(lam_adj), dtype=torch.float32,
                          device=images.device)
-    mixed_y = lam_t * labels1h + (1.0 - lam_t) * torch.roll(labels1h, 1, 0)
+    mixed_y = lam_t * labels1h + (1.0 - lam_t) * previous_rows(labels1h)
     return mixed, mixed_y
 
 

@@ -6,7 +6,9 @@ git-ignored `build/`), for sm_90a, with a plain C interface. A library is
 built at first use and rebuilt when its source (or a shared `csrc/*.cuh`
 header) is newer; nothing is compiled
 when a module is imported. `build()` starts one nvcc per source at once, so
-building every kernel costs the time of the slowest one.
+building every kernel costs the time of the slowest one. Under
+torch.distributed, `build_once_per_host` builds on each host's local rank
+0 alone.
 """
 
 from __future__ import annotations
@@ -73,6 +75,35 @@ def build(names: list[str]) -> dict[str, str]:
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return {name: _paths(name)[2].read_text() for name in names}
+
+
+def sources() -> list[str]:
+    """The names of every csrc/<name>.cu."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def build_once_per_host(names: list[str]) -> None:
+    """Under torch.distributed, local rank 0 builds the named sources while
+    the host's other ranks wait at a barrier, then every rank loads the
+    same libraries (the counterpart of the JAX trainer's compilation
+    cache); a failed build raises on every rank. Alone: `build(names)`."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        build(names)
+        return
+    error = None
+    if int(os.environ.get("LOCAL_RANK", "0")) == 0:
+        try:
+            build(names)
+        except RuntimeError as exc:
+            error = exc
+    dist.barrier()
+    if error is not None:
+        raise error
+    missing = [name for name in names if _stale(name)]
+    if missing:
+        raise RuntimeError(f"local rank 0 did not build {missing}")
 
 
 def library(name: str) -> ctypes.CDLL:

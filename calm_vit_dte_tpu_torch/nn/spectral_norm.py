@@ -88,8 +88,9 @@ class SpectralNormed(nn.Module):
         return w
 
 
-def normalize_tree(model: nn.Module, *,
-                   training: bool) -> dict[SpectralNormed, torch.Tensor]:
+def normalize_tree(model: nn.Module, *, training: bool,
+                   weights: dict[SpectralNormed, torch.Tensor] | None = None
+                   ) -> dict[SpectralNormed, torch.Tensor]:
     """Normalize every spectral-normed weight of `model` in one pre-pass.
 
     Weights are batched by their (out, in) 2-D shape, so ~150 per-layer
@@ -100,18 +101,24 @@ def normalize_tree(model: nn.Module, *,
     tensors: u and v are constants and sigma = u^T W v carries the gradient
     back to `weight_orig`, so one backward through them is the pre-pass's
     pull-back. Per-weight math is that of spectral_normalize up to fp32
-    reduction order.
+    reduction order. `weights` gives the raw weight of some layers in place
+    of their `weight_orig` (the full weights a tensor-parallel rank
+    gathered from its row shards); the gradient then flows to those.
     """
+    weights = weights or {}
+
+    def raw(m):
+        return weights.get(m, m.weight_orig)
+
     groups: dict[tuple[int, int], list[SpectralNormed]] = {}
     for m in model.modules():
         if not isinstance(m, SpectralNormed):
             continue
-        w = m.weight_orig
+        w = raw(m)
         groups.setdefault((w.shape[0], w[0].numel()), []).append(m)
     out: dict[SpectralNormed, torch.Tensor] = {}
     for shape2d, mods in groups.items():
-        ws = torch.stack([m.weight_orig.float().reshape(shape2d)
-                          for m in mods])
+        ws = torch.stack([raw(m).float().reshape(shape2d) for m in mods])
         us = torch.stack([m.weight_u for m in mods])
         vs = torch.stack([m.weight_v for m in mods])
         if training:
@@ -124,7 +131,7 @@ def normalize_tree(model: nn.Module, *,
         sigma = torch.einsum("no,noi,ni->n", us, ws, vs)
         wn = ws / sigma[:, None, None]
         for m, w in zip(mods, wn):
-            out[m] = w.reshape(m.weight_orig.shape)
+            out[m] = w.reshape(raw(m).shape)
     return out
 
 

@@ -8,7 +8,8 @@ KL = -0.5 * mean(1 + 2 log sigma - mu^2 - sigma^2).
 Noise comes from an explicit torch.Generator on the tensor's device, or from
 an injected source (`noise_override`, the JAX package's hook of the same
 name): torch's and JAX's generators never agree at equal seeds, so the
-parity tests feed both packages the same numpy noise.
+parity tests feed both packages the same numpy noise. Under data
+parallelism every draw has the global batch's shape, as under GSPMD.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
+from calm_vit_dte_tpu_torch.parallel.mesh import local_rows
 from calm_vit_dte_tpu_torch.utils.remat import replayed
 
 _NOISE_OVERRIDE: ContextVar[Callable | None] = ContextVar(
@@ -43,13 +45,22 @@ def noise_override(normal: Callable | None = None,
 
 
 def _draw(override: Callable | None, shape, device, generator, sample):
-    if override is not None:
-        return torch.as_tensor(override(tuple(shape)), dtype=torch.float32,
-                               device=device)
-    if generator is None:
+    """Noise of `shape` (batch first). Under data parallelism
+    (parallel.mesh.batch_shard) the draw, injected or sampled, has the
+    global batch's shape and this rank keeps its rows, as in the JAX
+    step."""
+    if override is None and generator is None:
         raise ValueError("training-mode sampling requires a torch.Generator "
                          "on the tensor's device (or noise_override)")
-    return sample(torch.empty(shape, dtype=torch.float32, device=device))
+
+    def draw(rows):
+        full = (rows, *shape[1:])
+        if override is not None:
+            return torch.as_tensor(override(full), dtype=torch.float32,
+                                   device=device)
+        return sample(torch.empty(full, dtype=torch.float32, device=device))
+
+    return local_rows(draw, shape[0])
 
 
 def softplus_var(var_raw: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

@@ -20,6 +20,11 @@ calm_vit_dte_tpu_torch.compat.orbax import` converts on a host that has
 it. The way back is `... compat.orbax export`. A state carried from Orbax
 keeps the JAX key's data (`TrainState.jax_rng`) in the meta of the
 checkpoints it saves.
+
+A run over a mesh saves the same full file (global rank 0 writes it, the
+tensor-parallel shards gathered first), so a checkpoint written at any
+mesh restores at any other: every rank restores the full state, and the
+trainer then keeps each rank's shard (`train.state.place_state`).
 """
 
 from __future__ import annotations
@@ -28,8 +33,9 @@ import os
 import re
 
 import torch
+import torch.distributed as dist
 
-from calm_vit_dte_tpu_torch.train.state import TrainState
+from calm_vit_dte_tpu_torch.train.state import TrainState, full_tensors
 
 CKPT_FORMAT_VERSION = 1
 _NAME = re.compile(r"^step_(\d+)\.pt$")
@@ -49,29 +55,34 @@ def _file(path: str, step: int) -> str:
 def save_checkpoint(path: str, state: TrainState, step: int | None = None,
                     keep: int = 3) -> str:
     """Write `<path>/step_<step>.pt` atomically and keep the newest `keep`.
-    Returns the file's path."""
+    Returns the file's path. On a mesh every rank calls it: the sharded
+    weights and moments are gathered, global rank 0 writes the full state
+    (the same file at any mesh), and all ranks leave together."""
     step = state.step if step is None else step
-    os.makedirs(path, exist_ok=True)
-    opt = state.opt_state
-    meta = {"format_version": CKPT_FORMAT_VERSION, "step": step}
-    if state.jax_rng is not None:
-        meta["jax_rng"] = [int(x) for x in state.jax_rng]
-    payload = {
-        "meta": meta,
-        "seed": state.seed,
-        "model": {k: v.detach().cpu() for k, v in
-                  state.model.state_dict().items()},
-        "opt": {"count": opt.count, "notfinite": opt.notfinite,
-                "gnorm": torch.as_tensor(opt.gnorm).detach().cpu(),
-                "mu": [m.detach().cpu() for m in opt.mu],
-                "nu": [n.detach().cpu() for n in opt.nu]},
-    }
+    model_sd, mu, nu = full_tensors(state)
     final = _file(path, step)
-    tmp = f"{final}.{os.getpid()}.tmp"
-    torch.save(payload, tmp)
-    os.replace(tmp, final)
-    for old in _steps(path)[:-keep]:
-        os.remove(_file(path, old))
+    if state.mesh is None or state.mesh.rank == 0:
+        os.makedirs(path, exist_ok=True)
+        opt = state.opt_state
+        meta = {"format_version": CKPT_FORMAT_VERSION, "step": step}
+        if state.jax_rng is not None:
+            meta["jax_rng"] = [int(x) for x in state.jax_rng]
+        payload = {
+            "meta": meta,
+            "seed": state.seed,
+            "model": {k: v.detach().cpu() for k, v in model_sd.items()},
+            "opt": {"count": opt.count, "notfinite": opt.notfinite,
+                    "gnorm": torch.as_tensor(opt.gnorm).detach().cpu(),
+                    "mu": [m.detach().cpu() for m in mu],
+                    "nu": [n.detach().cpu() for n in nu]},
+        }
+        tmp = f"{final}.{os.getpid()}.tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, final)
+        for old in _steps(path)[:-keep]:
+            os.remove(_file(path, old))
+    if state.mesh is not None:
+        dist.barrier()
     return final
 
 
@@ -113,6 +124,9 @@ def restore_checkpoint(path: str, state: TrainState,
     """Load the newest (or the given) checkpoint into `state` in place, on
     the device its model is on, and return it; None if there is none. An
     Orbax directory keeps `state.seed`."""
+    if state.sharded:
+        raise ValueError("restore into the full state, then place it on the "
+                         "mesh (train.state.place_state)")
     if _orbax_only(path):
         from calm_vit_dte_tpu_torch.compat import orbax
 

@@ -21,6 +21,8 @@ from typing import Callable
 
 import torch
 
+from calm_vit_dte_tpu_torch.parallel.mesh import all_reduce_
+
 Schedule = Callable[[int], float]
 
 
@@ -93,11 +95,22 @@ class FusedAdamW:
 
     @torch.no_grad()
     def update(self, params: list[torch.Tensor], grads: list[torch.Tensor],
-               state: AdamWState) -> None:
-        """One step, in place on `params` and `state`."""
+               state: AdamWState, sharded: list[bool] | None = None,
+               mesh=None) -> None:
+        """One step, in place on `params` and `state`. Under tensor
+        parallelism (`mesh.model` > 1) `sharded` marks the parameters that
+        are this rank's rows of a sharded weight: the clip's global norm
+        counts their squares over the model ranks and every replicated
+        parameter's once, the same value on every rank."""
         grads = [g.float() for g in grads]
-        gnorm = torch.linalg.vector_norm(
-            torch.stack(torch._foreach_norm(grads)))
+        norms = torch.stack(torch._foreach_norm(grads))
+        if mesh is None or mesh.model == 1:
+            gnorm = torch.linalg.vector_norm(norms)
+        else:
+            is_shard = torch.tensor(sharded, device=norms.device)
+            sq = torch.where(is_shard, norms.square(),
+                             norms.square() / mesh.model).sum()
+            gnorm = all_reduce_(sq, mesh.model_group).sqrt()
         state.gnorm = gnorm
         gn = float(gnorm)   # the one host sync of the step
         if (self.skip_nonfinite and not math.isfinite(gn)

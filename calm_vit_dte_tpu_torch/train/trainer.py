@@ -15,9 +15,23 @@ Host to device: the next uint8 batch is pinned and copied on a side stream
 while the current step runs (the JAX prefetch's counterpart); the step's
 stream waits for the copy before it reads the batch.
 
-Left out, having no single-card counterpart: the multi-host init, the
-persistent compilation cache and the compile barrier (JAX :59-139), and the
-mesh: `mesh_model` other than 1 raises until the parallel slice.
+Across processes (torchrun: one process a card with NCCL, or processes on
+the CPU with gloo), the counterparts of the JAX trainer's :59-168:
+  * multi-host init: `maybe_init_distributed` reads torchrun's RANK,
+    WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and MASTER_PORT. Where the JAX
+    trainer goes on single-process after a failed init, this one raises:
+    N processes that each believe they are alone would train N models and
+    overwrite each other's checkpoints;
+  * the persistent compilation cache: each host's local rank 0 builds the
+    CUDA kernels while its other ranks wait (`kernels/_build.py`);
+  * the compile barrier: a barrier before the first step;
+  * the mesh: `make_mesh(model=cfg.mesh_model)`; the sampler shards over
+    the data ranks and each rank loads `global_batch_size // D` rows; the
+    initial state (fresh, warm-started or restored) is rank 0's on every
+    rank, then each rank keeps its tensor-parallel shards
+    (`train.state.place_state`);
+  * the SIGTERM flag is agreed by all ranks each step, so every rank
+    enters the checkpoint's collective at the same step.
 """
 
 from __future__ import annotations
@@ -31,6 +45,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from calm_vit_dte_tpu_torch.data.loader import (
     BatchLoader,
@@ -42,10 +57,16 @@ from calm_vit_dte_tpu_torch.data.pipeline import (
     make_reg_preprocess,
 )
 from calm_vit_dte_tpu_torch.data.sampler import ShardedSampler
+from calm_vit_dte_tpu_torch.kernels import _build
 from calm_vit_dte_tpu_torch.models.factory import create_vit
 from calm_vit_dte_tpu_torch.nn.spectral_norm import (
     normalize_tree,
     prenormalized_scope,
+)
+from calm_vit_dte_tpu_torch.parallel.mesh import (
+    any_rank,
+    host_local_batch_size,
+    make_mesh,
 )
 from calm_vit_dte_tpu_torch.train.checkpoint import (
     restore_checkpoint,
@@ -54,11 +75,17 @@ from calm_vit_dte_tpu_torch.train.checkpoint import (
 )
 from calm_vit_dte_tpu_torch.train.optim import make_optimizer
 from calm_vit_dte_tpu_torch.train.samples import save_samples
-from calm_vit_dte_tpu_torch.train.state import TrainState, create_train_state
+from calm_vit_dte_tpu_torch.train.state import (
+    TrainState,
+    create_train_state,
+    full_weights,
+    place_state,
+)
 from calm_vit_dte_tpu_torch.train.step import make_train_step
 from calm_vit_dte_tpu_torch.utils.configs import TrainConfig
 from calm_vit_dte_tpu_torch.utils.device import resolve_device
 from calm_vit_dte_tpu_torch.utils.logging import MetricLogger, is_chief
+from calm_vit_dte_tpu_torch.utils.profiling import launch_counts
 
 
 def build_dataset(cfg: TrainConfig, split: str = "train"):
@@ -103,19 +130,46 @@ class _DeviceFeed:
         return batch
 
 
+def maybe_init_distributed(device: torch.device) -> torch.device:
+    """Join the torch.distributed world torchrun describes in the
+    environment (NCCL on `cuda:LOCAL_RANK`, gloo on the CPU) and return
+    this rank's device; without WORLD_SIZE, return `device` and stay one
+    process. An init that fails raises."""
+    env = os.environ
+    if "WORLD_SIZE" not in env:
+        return device
+    if device.type == "cuda":
+        device = torch.device("cuda", int(env.get("LOCAL_RANK", "0")))
+        torch.cuda.set_device(device)
+    if dist.is_initialized():
+        return device
+    try:
+        dist.init_process_group(
+            "nccl" if device.type == "cuda" else "gloo",
+            init_method="env://", world_size=int(env["WORLD_SIZE"]),
+            rank=int(env["RANK"]))
+    except (KeyError, RuntimeError, ValueError) as exc:
+        raise RuntimeError(
+            f"torch.distributed init failed ({exc!r}); not training as a "
+            "single process, which would write the checkpoints of the "
+            "others") from exc
+    return device
+
+
 def train(cfg: TrainConfig, max_steps: int | None = None,
           device: str | torch.device = "cuda") -> TrainState:
     """Train `cfg` for its epochs (or `max_steps` steps) on `device`,
     resuming from `cfg.checkpoint_dir` when it holds a checkpoint. Returns
-    the final state."""
-    dev = resolve_device(device)
-    if cfg.mesh_model != 1:
-        raise NotImplementedError(
-            f"mesh_model={cfg.mesh_model}: tensor parallelism is not ported "
-            "yet; the port trains on one card (mesh_model=1)")
+    the final state (this rank's, under torchrun)."""
+    dev = maybe_init_distributed(resolve_device(device))
+    mesh = make_mesh(model=cfg.mesh_model)
+    if dev.type == "cuda" and dist.is_initialized():
+        _build.build_once_per_host(_build.sources())
     dataset = build_dataset(cfg)
-    sampler = ShardedSampler(len(dataset), 1, 0, seed=cfg.sampler_seed)
-    loader = BatchLoader(dataset, sampler, cfg.global_batch_size,
+    sampler = ShardedSampler(len(dataset), mesh.data, mesh.data_rank,
+                             seed=cfg.sampler_seed)
+    loader = BatchLoader(dataset, sampler,
+                         host_local_batch_size(cfg.global_batch_size, mesh),
                          num_workers=cfg.num_workers)
     steps_per_epoch = max(1, loader.steps_per_epoch())
 
@@ -140,6 +194,7 @@ def train(cfg: TrainConfig, max_steps: int | None = None,
     if restore_checkpoint(cfg.checkpoint_dir, state) is not None \
             and is_chief():
         print(f"resumed from step {state.step}", flush=True)
+    place_state(state, mesh, cfg.tp_min_shard_dim)
 
     preprocess = (make_cls_preprocess(cfg.model.out_features, cfg.crop)
                   if cfg.task == "cls" else make_reg_preprocess(cfg.crop))
@@ -157,6 +212,8 @@ def train(cfg: TrainConfig, max_steps: int | None = None,
         previous = signal.signal(signal.SIGTERM, _on_sigterm)
     except ValueError:
         previous = None   # not the main thread: no handler
+    if dist.is_initialized():
+        dist.barrier()    # every rank enters the first step together
     try:
         return _loop(cfg, state, step_fn, loader, sampler, steps_per_epoch,
                      max_steps, stop_requested, _DeviceFeed(dev))
@@ -176,6 +233,7 @@ def _loop(cfg, state, step_fn, loader, sampler, steps_per_epoch, max_steps,
         sampler.set_epoch(epoch)
         epoch_t0 = time.time()
         epoch_tick0 = len(logger.step_times)
+        launches0 = launch_counts()
         it = iter(loader)
         batch = feed.put(next(it, None))
         i = 0
@@ -191,7 +249,10 @@ def _loop(cfg, state, step_fn, loader, sampler, steps_per_epoch, max_steps,
             logger.log(epoch, i, metrics)
             i += 1
             total += 1
-            if stop_requested["flag"]:
+            stop = stop_requested["flag"]
+            if state.mesh is not None:   # agreed, so all ranks save
+                stop = any_rank(stop, state.device)
+            if stop:
                 save_checkpoint(cfg.checkpoint_dir, state)
                 if is_chief():
                     print(f"SIGTERM: checkpointed at step {state.step}; "
@@ -200,14 +261,17 @@ def _loop(cfg, state, step_fn, loader, sampler, steps_per_epoch, max_steps,
             if max_steps is not None and total >= max_steps:
                 break
         save_checkpoint(cfg.checkpoint_dir, state)
+        dump = (cfg.task == "reg" and cfg.save_samples_dir
+                and last_batch is not None)
+        # The full weights for the samples: a collective under TP.
+        weights = full_weights(state) if dump else None
         if is_chief():
             print(f"checkpoint saved at step {state.step}", flush=True)
             if cfg.epoch_stats_path:
                 _write_epoch_stats(cfg, logger, epoch, i, epoch_t0,
-                                   epoch_tick0, metrics)
-            if (cfg.task == "reg" and cfg.save_samples_dir
-                    and last_batch is not None):
-                _dump_samples(cfg, state, last_batch)
+                                   epoch_tick0, metrics, launches0)
+            if dump:
+                _dump_samples(cfg, state, last_batch, weights)
         if max_steps is not None and total >= max_steps:
             break
     if is_chief():
@@ -221,8 +285,9 @@ def _loop(cfg, state, step_fn, loader, sampler, steps_per_epoch, max_steps,
 
 def _write_epoch_stats(cfg: TrainConfig, logger: MetricLogger, epoch: int,
                        steps: int, epoch_t0: float, epoch_tick0: int,
-                       metrics) -> None:
-    """One JSONL line per epoch boundary: timing, throughput, peak RSS."""
+                       metrics, launches0: dict[str, int]) -> None:
+    """One JSONL line per epoch boundary: timing, throughput, peak RSS, and
+    the kernels this process launched in the epoch."""
     wall = time.time() - epoch_t0
     times = logger.step_times[epoch_tick0:]
     p50 = float(np.percentile(times, 50)) if times else None
@@ -237,6 +302,8 @@ def _write_epoch_stats(cfg: TrainConfig, logger: MetricLogger, epoch: int,
         if wall > 0 else None,
         "rss_mb": round(rss_mb, 1),
         "loss": float(metrics["loss"]) if metrics else None,
+        "kernel_launches": {k: n - launches0[k] for k, n in
+                            launch_counts().items() if n > launches0[k]},
         "ts": time.time(),
     }
     with open(cfg.epoch_stats_path, "a") as f:
@@ -244,16 +311,20 @@ def _write_epoch_stats(cfg: TrainConfig, logger: MetricLogger, epoch: int,
 
 
 @torch.no_grad()
-def _dump_samples(cfg: TrainConfig, state: TrainState, batch: dict) -> None:
+def _dump_samples(cfg: TrainConfig, state: TrainState, batch: dict,
+                  weights: dict | None = None) -> None:
     """The eval-normalized bf16 forward (the function the eval step runs) on
-    the batch, augmented with a generator seeded 0, written as PNGs."""
+    the batch, augmented with a generator seeded 0, written as PNGs.
+    `weights`: the full weights of a tensor-parallel state
+    (`full_weights`)."""
     model = state.model
     gen = torch.Generator(state.device).manual_seed(0)
     proc = make_reg_preprocess(cfg.crop)(gen, batch)
     was_training = model.training
     model.eval()
     try:
-        with prenormalized_scope(normalize_tree(model, training=False)):
+        with prenormalized_scope(normalize_tree(model, training=False,
+                                                weights=weights)):
             tokens, _ = model(proc["image"], dtype=torch.bfloat16)
     finally:
         model.train(was_training)

@@ -14,9 +14,10 @@ from calm_vit_dte_tpu_torch.models.vit import ViTConfig
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """Every field of the JAX package's TrainConfig, with its defaults. The
-    port runs on one card: `mesh_model` other than 1 and `tp_min_shard_dim`
-    wait for the parallel slice (train/trainer.py raises on the first)."""
+    """Every field of the JAX package's TrainConfig, with its defaults.
+    `mesh_model` and `tp_min_shard_dim` lay out a run over several ranks
+    (parallel/mesh.py): the model axis's size and the smallest output axis
+    it shards."""
     name: str
     model: ViTConfig
     task: str  # 'cls' | 'reg'

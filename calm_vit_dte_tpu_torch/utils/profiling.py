@@ -88,3 +88,19 @@ def mfu(step_time_s: float, flops: float,
         device_name: str | None = None) -> float:
     """Model FLOP utilization: flops per second over the card's bf16 peak."""
     return flops / step_time_s / (chip_peak_tflops(device_name) * 1e12)
+
+
+def launch_counts() -> dict[str, int]:
+    """Every kernel wrapper's launch counter (kernels/*.py), by name: each
+    adds one where it launches its kernel on the card."""
+    from calm_vit_dte_tpu_torch.kernels import axial_attention as ka
+    from calm_vit_dte_tpu_torch.kernels import conv_residual as kc
+    from calm_vit_dte_tpu_torch.kernels import hires_attention as kh
+    from calm_vit_dte_tpu_torch.kernels import relayout as kr
+
+    return {fn.__name__: fn.launches for fn in (
+        ka.fused_rope_attention, ka.fused_rope_attention_bwd,
+        kc.fused_conv_residual, kc.conv_residual_fwd_resid,
+        kc.conv_residual_bwd, kc.conv_weight_grad_sum,
+        kh.fused_hires_attention, kh.hires_dq, kh.hires_weight_grads,
+        kh.hires_dkv, kh.fused_attention_forward, kr.swap_seq_heads)}

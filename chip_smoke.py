@@ -177,6 +177,21 @@ Phases, each fatal on failure (any exception exits non-zero):
              trained ones bit for bit, u/v converged (24 + 9 launches,
              outputs in [0, 1]); (d) whether
              tensorstore imports: Orbax conversion runs host-side.
+ 13. parallel data and tensor parallelism (parallel/mesh.py) on the one
+             card: (a) `torchrun --standalone --nproc_per_node=1 -m
+             calm_vit_dte_tpu_torch.train.train_cls --max-steps 3` on the
+             flagship at B=128 (NCCL at world 1; every loss finite; 24 +
+             24 rope launches a step; its checkpoint restored bit for bit
+             equal to that of the same steps without torchrun); (b) two
+             processes sharing the card over gloo (tools/parallel_step.py),
+             the flagship at full width in fp32, global batch 8, injected
+             global noise: DP 2x1 and TP 1x2 (tp_min_shard_dim 512, 59
+             weights) against the single-process card step (loss rtol
+             1e-5; state rtol 3e-3 / atol 3e-5 for DP, 3e-4 for TP), the
+             ranks bit-identical, 24 + 24 rope launches a step on every
+             rank; each rank's stored bytes under TP against DP (13,267,968
+             elements x 12 B less), host ms a step at world 1 and 2, and
+             the ms the global noise draw adds.
 
 Every fp32 comparison runs with torch.backends.cuda.matmul.allow_tf32 and
 torch.backends.cudnn.allow_tf32 both False, so the plain versions' products
@@ -2405,6 +2420,238 @@ def jax_weights_phase(torch, name, smi):
     return by_path, metrics
 
 
+PARALLEL_STEPS = 3        # phase 13 (a): torchrun at world 1; (b) steps
+PARALLEL_BATCH = 8        # phase 13 (b): global batch, fp32
+ROPE_PER_STEP = {"fused_rope_attention": 24, "fused_rope_attention_bwd": 24}
+
+
+def parallel_phase(torch, name, smi):
+    """Phase 13: data and tensor parallelism (parallel/mesh.py) on the one
+    card. (a) `torchrun --standalone --nproc_per_node=1 -m
+    calm_vit_dte_tpu_torch.train.train_cls --max-steps 3` on
+    imagenet-cls-224 at B=128, synthetic data: NCCL at world 1, every
+    loss finite, 24 + 24 rope launches a step (the epoch-stats line's
+    counters), its checkpoint restored bit for bit equal to the same three
+    steps of train_cls in a process without torchrun. (b)
+    tools/parallel_step.py:
+    two processes sharing the card over gloo (NCCL refuses two ranks on
+    one GPU), imagenet-cls-224 at full width, fp32, global batch 8,
+    injected global noise, from a carried state (u/v converged, one step
+    taken, as tests/test_torch_parallel.py does), DP (2x1) and TP (1x2,
+    tp_min_shard_dim 512), three steps each, held against the
+    single-process card step: DP loss rtol 1e-5, state rtol 3e-3 / atol
+    3e-5; TP loss rtol 1e-5, state rtol 3e-3 / atol 3e-4
+    (tests/test_sharding.py's limits); the ranks' states bit for bit
+    equal; 24 + 24 rope launches a step on every rank. Prints each rank's
+    stored bytes of parameters and moments under TP against DP, the host
+    ms a step at world 1 and 2, and the ms the global noise draw adds.
+    Returns (launches by path and kernel, metrics)."""
+    import os
+    import shutil
+    import tempfile
+
+    from calm_vit_dte_tpu_torch.models.factory import create_vit
+    from calm_vit_dte_tpu_torch.tools import parallel_step as ps
+    from calm_vit_dte_tpu_torch.train.checkpoint import restore_checkpoint
+    from calm_vit_dte_tpu_torch.train.optim import make_optimizer
+    from calm_vit_dte_tpu_torch.train.state import create_train_state
+    from calm_vit_dte_tpu_torch.utils.profiling import launch_counts
+
+    t_phase = time.time()
+    config = "imagenet-cls-224"
+    metrics: dict = {}
+    by_path: dict = {}
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_parallel_"))
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("CALM_CONV_")}   # the trainer's chain route
+    env["PYTHONPATH"] = str(ROOT)
+    saved_env = {k: os.environ.pop(k) for k in list(os.environ)
+                 if k.startswith("CALM_CONV_")}
+
+    def record(path, per_step, steps):
+        for step, got in enumerate(per_step):
+            if got != ROPE_PER_STEP:
+                raise AssertionError(f"parallel {path}: step {step + 1} "
+                                     f"launched {got}, want {ROPE_PER_STEP}")
+        by_path[path] = {"attention_fwd": 24 * steps,
+                         "attention_bwd": 24 * steps, "conv": 0,
+                         "stages": {"attention_fwd": 0, "attention_bwd": 0}}
+
+    try:
+        # (a) torchrun at world 1 (NCCL) and the same steps in a plain
+        # process, both at once on the card (their checkpoints must agree
+        # bit for bit; their step times share the card).
+        t0 = time.time()
+        args = ["--config", config, "--max-steps", str(PARALLEL_STEPS),
+                f"global_batch_size={TIME_BATCH}", "dataset_root=synthetic",
+                "log_every=1"]
+        stats = work / "epochs.jsonl"
+        procs = [subprocess.Popen(
+            [sys.executable, *launcher,
+             "calm_vit_dte_tpu_torch.train.train_cls", *args,
+             f"checkpoint_dir={work / sub}", *extra],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for sub, launcher, extra in (
+                ("torchrun", ["-m", "torch.distributed.run", "--standalone",
+                              "--nproc_per_node=1", "-m"],
+                 [f"epoch_stats_path={stats}"]),
+                ("plain", ["-m"], []))]
+        try:
+            outs = [p.communicate(timeout=600) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for p, (out, err) in zip(procs, outs):
+            if p.returncode != 0:
+                raise AssertionError(f"train_cls failed ({p.args[:6]}):\n"
+                                     + out[-3000:] + err[-3000:])
+        run_out, plain_out = outs[0][0], outs[1][0]
+        losses = [float(x) for x in re.findall(
+            r"^Epoch: 1, Batch: \d+, loss: ([-+0-9.eEnaif]+)", run_out,
+            re.M)]
+        row = json.loads(stats.read_text().splitlines()[-1])
+        if len(losses) != PARALLEL_STEPS or not all(np.isfinite(losses)):
+            raise AssertionError(f"torchrun train_cls losses {losses}")
+        launches = row["kernel_launches"]
+        record("parallel_torchrun_world1", [
+            {k: n // PARALLEL_STEPS for k, n in launches.items()}],
+            PARALLEL_STEPS)
+        if any(n % PARALLEL_STEPS for n in launches.values()):
+            raise AssertionError(f"torchrun launches {launches}")
+        torchrun_s = time.time() - t0
+        p50 = re.search(r"p50 step: ([0-9.]+)s", run_out)
+        p50_plain = re.search(r"p50 step: ([0-9.]+)s", plain_out)
+        states = []
+        for sub in ("torchrun", "plain"):
+            _, fresh = create_vit(config, seed=7, device="cuda")
+            states.append(create_train_state(fresh, make_optimizer(), seed=0))
+            restore_checkpoint(str(work / sub), states[-1])
+        a, b = states
+        same = all(torch.equal(v, b.model.state_dict()[k])
+                   for k, v in a.model.state_dict().items())
+        same &= all(torch.equal(x, y) for x, y in zip(
+            a.opt_state.mu + a.opt_state.nu, b.opt_state.mu + b.opt_state.nu))
+        same &= (a.step, a.opt_state.count) == (
+            b.step, b.opt_state.count) == (PARALLEL_STEPS,) * 2
+        if not same:
+            raise AssertionError("parallel: the torchrun checkpoint differs "
+                                 "from the one-process run's")
+        metrics["torchrun_world1"] = {
+            "batch": TIME_BATCH, "steps": PARALLEL_STEPS, "losses": losses,
+            "kernel_launches": launches, "p50_ms": float(p50.group(1)) * 1e3,
+            "one_process_p50_ms": float(p50_plain.group(1)) * 1e3,
+            "seconds": torchrun_s}
+        log(f"[parallel] torchrun --standalone --nproc_per_node=1 train_cls "
+            f"{config} B={TIME_BATCH} bf16 (NCCL, world 1): losses "
+            f"{[round(x, 5) for x in losses]}, launches {launches} over "
+            f"{PARALLEL_STEPS} steps, p50 {float(p50.group(1)) * 1e3:.1f} ms"
+            f" a step (the plain process beside it on the card "
+            f"{float(p50_plain.group(1)) * 1e3:.1f}); the two checkpoints "
+            f"restored bit for bit equal; {torchrun_s:.1f} s with start-up")
+        del states, a, b, fresh
+        torch.cuda.empty_cache()
+
+        # (b) two ranks over gloo on the one card, against one process.
+        spec_run = {"name": "flagship", "config": config,
+                    "batch": PARALLEL_BATCH, "steps": PARALLEL_STEPS,
+                    "preprocess": False, "noise_seed": 1000,
+                    "state_seed": 3, "restore": str(work / "carried"),
+                    "meshes": [[2, 1], [1, 2]], "min_shard_dim": 512,
+                    "time_noise": True}
+        ps.carry_state(spec_run, spec_run["restore"],
+                       torch.device("cuda", 0))
+        torch.cuda.empty_cache()
+        zero = launch_counts()
+        single = ps.run_one(spec_run, None, torch.device("cuda", 0))
+        if any(n != zero[k] + 24 * PARALLEL_STEPS
+               for k, n in launch_counts().items() if k in ROPE_PER_STEP):
+            raise AssertionError("parallel: single-process launches")
+        record("parallel_single_fp32", single["launches"], PARALLEL_STEPS)
+        torch.cuda.empty_cache()
+        spec = {"out": str(work / "ranks"), "device": "cuda",
+                "timeout_s": 600, "runs": [spec_run]}
+        spec_path = work / "spec.json"
+        spec_path.write_text(json.dumps(spec))
+        t0 = time.time()
+        ps.collect(ps.spawn(str(spec_path), 2, env=env), timeout=600)
+        ranks_s = time.time() - t0
+        recs = {layout: [torch.load(work / "ranks" /
+                                    f"flagship_{layout}_rank{r}.pt",
+                                    weights_only=False) for r in range(2)]
+                for layout in ("2x1", "1x2")}
+
+        summary = {}
+        for layout, atol in (("2x1", 3e-5), ("1x2", 3e-4)):
+            rec = recs[layout]
+            for r, one in enumerate(rec):
+                record(f"parallel_{layout}_rank{r}", one["launches"],
+                       PARALLEL_STEPS)
+                apart = {k: float((one["state"][k] - v).abs().max())
+                         for k, v in rec[0]["state"].items()
+                         if not torch.equal(one["state"][k], v)}
+                if apart:
+                    raise AssertionError(
+                        f"parallel {layout}: rank {r}'s state differs from "
+                        f"rank 0's in {len(apart)} tensors, e.g. "
+                        f"{sorted(apart.items(), key=lambda x: -x[1])[:8]}")
+            losses_l = [m["loss"] for m in rec[0]["metrics"]]
+            losses_1 = [m["loss"] for m in single["metrics"]]
+            rel = max(abs(a - b) / abs(b) for a, b in zip(losses_l,
+                                                          losses_1))
+            excess = ps.excess(rec[0], single, 3e-3, atol)
+            if rel > 1e-5 or excess > 0:
+                raise AssertionError(
+                    f"parallel {layout} against one process: loss rel "
+                    f"{rel:.3g} (limit 1e-5), state beyond rtol 3e-3 / atol "
+                    f"{atol} by {excess:.3g}")
+            summary[layout] = {
+                "losses": losses_l, "loss_max_rel": rel,
+                "ms_per_step": [float(np.median(one["ms"][1:]))
+                                for one in rec],
+                "stored_bytes": [one["stored"]["params"]
+                                 + one["stored"]["moments"] for one in rec],
+                "sharded_weights": len(rec[0]["stored"]["sharded"]),
+                "noise_global_ms": rec[0]["noise_global_ms"],
+                "noise_local_ms": rec[0]["noise_local_ms"]}
+        single_ms = float(np.median(single["ms"][1:]))
+        saved = summary["2x1"]["stored_bytes"][0] - \
+            summary["1x2"]["stored_bytes"][0]
+        if saved != 13_267_968 * 12 or summary["1x2"]["sharded_weights"] \
+                != 59:
+            raise AssertionError(f"parallel TP stores {saved} B less than "
+                                 "DP; want 13,267,968 x 12")
+        metrics["gloo_two_ranks"] = dict(
+            summary, single_ms_per_step=single_ms,
+            single_losses=[m["loss"] for m in single["metrics"]],
+            tp_saves_bytes_per_rank=saved, seconds_ranks=ranks_s)
+        dp = summary["2x1"]
+        log(f"[parallel] {config} fp32 B={PARALLEL_BATCH}, 2 ranks over gloo "
+            f"on one card against one process: DP 2x1 loss rel "
+            f"{dp['loss_max_rel']:.3g}, TP 1x2 (59 weights sharded at 512) "
+            f"{summary['1x2']['loss_max_rel']:.3g}; ranks bit-identical; "
+            "24 + 24 rope launches a step on every rank")
+        log(f"[parallel] stored params + moments per rank: DP "
+            f"{dp['stored_bytes'][0] / 1e6:.1f} MB, TP "
+            f"{summary['1x2']['stored_bytes'][0] / 1e6:.1f} MB "
+            f"({saved / 1e6:.1f} MB less = 13,267,968 elements x 12 B)")
+        log(f"[parallel] host ms a step: world 1 {single_ms:.1f}; world 2 "
+            f"DP {dp['ms_per_step']}, TP {summary['1x2']['ms_per_step']}; "
+            f"the step's noise from a generator at the global shapes "
+            f"{dp['noise_global_ms']:.3f} ms against the local "
+            f"{dp['noise_local_ms']:.3f} ms (adds "
+            f"{dp['noise_global_ms'] - dp['noise_local_ms']:.3f}); ranks "
+            f"{ranks_s:.1f} s with start-up")
+    finally:
+        os.environ.update(saved_env)
+        shutil.rmtree(work, ignore_errors=True)
+    metrics["seconds"] = time.time() - t_phase
+    log(f"[parallel] phase 13 in {metrics['seconds']:.1f} s on {name} "
+        f"({smi}); one card: no multi-card speed is measured")
+    return by_path, metrics
+
+
 def main() -> int:
     if not (ROOT / "calm_vit_dte_tpu_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository "
@@ -3201,6 +3448,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     jaxinit_launches, jaxinit = jax_weights_phase(torch, name, smi)
 
+    # 13. data and tensor parallelism: torchrun at world 1, and two ranks
+    # over gloo sharing the card.
+    torch.cuda.empty_cache()
+    parallel_launches, parallel = parallel_phase(torch, name, smi)
+
     def summary(kname, source, replaces, rows, launches):
         t_bytes = sum(r["launches"] * r["bound_ms"] for r in rows
                       if r["bound_by"] == "bytes")
@@ -3263,7 +3515,8 @@ def main() -> int:
         k["launches_by_path"]["serve_evaluate_int8_phase10"] = \
             serve_launches[key]
         k["launches"] += serve_launches[key]
-    for path, got in {**proof_launches, **jaxinit_launches}.items():
+    for path, got in {**proof_launches, **jaxinit_launches,
+                      **parallel_launches}.items():
         for k, key in ((kernels[0], "attention_fwd"),
                        (kernels[1], "attention_bwd"), (kernels[2], "conv")):
             if got[key]:
@@ -3301,7 +3554,8 @@ def main() -> int:
                               "losses": train_losses, "trace": train_trace},
                     "hires-cls-1024": hires, "trainer": trainer,
                     "serving": serving, "native_probe": native_state,
-                    "proof": proof, "jax_weights": jaxinit}))
+                    "proof": proof, "jax_weights": jaxinit,
+                    "parallel": parallel}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -44,7 +44,8 @@ def test_port_imports_no_jax():
                  "train.evaluate", "utils.profiling", "data.corpus",
                  "data.native", "data.csv_dataset", "tools.train_proof",
                  "tools.reg_witness", "compat.orbax", "compat.jax_init",
-                 "models.encoder_decoder"):
+                 "models.encoder_decoder", "parallel.mesh",
+                 "tools.parallel_step", "tools.parallel_cards"):
         assert f"calm_vit_dte_tpu_torch.{name}" in report["imported"]
     leaked = [m for m in report["modules"]
               if m.split(".")[0].startswith("jax")

@@ -1,8 +1,8 @@
 """The port's trainer end to end on the CPU, at the tiny configs: the
 counterparts of tests/test_trainer_e2e.py (synthetic or image-folder data ->
 loader -> on-device preprocessing -> step -> checkpoint -> resume), through
-the CLI's `main(argv)` with `--device cpu`. The tensor-parallel case waits
-for the parallel slice: `mesh_model` other than 1 raises.
+the CLI's `main(argv)` with `--device cpu`, in one process; the runs over
+several processes are tests/test_torch_parallel_trainer.py's.
 """
 
 import json
@@ -159,8 +159,11 @@ def test_epoch_stats_jsonl_over_an_image_folder(tmp_path):
 
 
 def test_mesh_model_raises(tmp_path):
+    """One process cannot hold a model axis of 2: the mesh must cover the
+    world (tests/test_torch_parallel_trainer.py runs mesh_model=2 on four
+    processes)."""
     cfg = get_config("tiny-cls", checkpoint_dir=str(tmp_path), mesh_model=2)
-    with pytest.raises(NotImplementedError, match="mesh_model=2"):
+    with pytest.raises(ValueError, match="mesh_model=2"):
         train(cfg, device="cpu")
 
 
