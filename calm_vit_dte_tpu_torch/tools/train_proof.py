@@ -45,7 +45,6 @@ import argparse
 import json
 import math
 import pathlib
-import subprocess
 import tempfile
 import time
 
@@ -66,14 +65,13 @@ from calm_vit_dte_tpu_torch.kernels import conv_residual as kc
 from calm_vit_dte_tpu_torch.models.factory import create_vit
 from calm_vit_dte_tpu_torch.nn.spectral_norm import normalize_tree
 from calm_vit_dte_tpu_torch.serve import WARMUP_POWER_ITERATIONS
+from calm_vit_dte_tpu_torch.tools._common import OUT, card, sync
 from calm_vit_dte_tpu_torch.train.optim import make_optimizer
 from calm_vit_dte_tpu_torch.train.state import create_train_state
 from calm_vit_dte_tpu_torch.train.step import make_eval_step, make_train_step
 from calm_vit_dte_tpu_torch.utils.configs import get_config
 from calm_vit_dte_tpu_torch.utils.device import resolve_device
 
-OUT = pathlib.Path(__file__).resolve().parents[2] / "docs" / "evidence" \
-    / "torch_h100"
 _TMP = pathlib.Path(tempfile.gettempdir())   # the corpora's default home
 
 
@@ -95,21 +93,6 @@ def _decoder_record(*datasets) -> dict:
             "decoder_reason": datasets[0].decoder_reason,
             "native_libjpeg": native.libjpeg(),
             "pillow_images": sum(ds.pillow_images for ds in datasets)}
-
-
-def _card(dev: torch.device) -> dict:
-    if dev.type != "cuda":
-        return {"name": None, "nvidia_smi": None}
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
-    return {"name": torch.cuda.get_device_name(dev), "nvidia_smi": smi}
-
-
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
 
 
 def _rope_launches() -> tuple[int, int]:
@@ -178,10 +161,10 @@ class _Steps:
 
     def __call__(self, state, batch):
         f0, b0 = _rope_launches()
-        _sync(self.dev)
+        sync(self.dev)
         t0 = time.perf_counter()
         state, metrics = self.step_fn(state, batch)
-        _sync(self.dev)
+        sync(self.dev)
         self.ms.append((time.perf_counter() - t0) * 1e3)
         f1, b1 = _rope_launches()
         self.launches.append((f1 - f0, b1 - b0))
@@ -292,7 +275,7 @@ def _run_cls(args, mode: str, dev: torch.device) -> dict:
                1.0 / (n_classes if mode == "overfit" else 10), 4),
            "wall_s": time.time() - t_start, "backend": dev.type,
            "init_seed": init_seed,
-           "card": _card(dev), "corpus_size": args.corpus_size,
+           "card": card(dev), "corpus_size": args.corpus_size,
            "remat": False, "dtype": "bfloat16",
            **_decoder_record(*datasets), **steps.record(),
            "eval_launches_per_forward": eval_launches, "history": history}
@@ -389,7 +372,7 @@ def _run_reg(args, dev: torch.device, init_seed: int | None = None,
            "n_train": len(tr_imgs),
            "wall_s": time.time() - t_start, "backend": dev.type,
            "init_seed": init_seed,
-           "card": _card(dev), "corpus_size": args.corpus_size,
+           "card": card(dev), "corpus_size": args.corpus_size,
            "remat": False, "dtype": str(dtype).removeprefix("torch."),
            **_decoder_record(tr_ds), **steps.record(), "history": history}
     _write(out_dir, "reg", out)

@@ -92,6 +92,8 @@ def evaluate(cfg: TrainConfig, max_batches: int | None = None,
         loader_wait += time.time() - t
         t = time.time()
         logits, _ = predictor.predict(batch["image"])
+        # .cpu() waits for the card, so device_s holds the forward's device
+        # time and not only its launches: keep a synchronising read-back.
         pred = logits.argmax(dim=-1).cpu()
         label = torch.from_numpy(batch["label"]).long()
         valid = torch.from_numpy(batch["valid"])

@@ -97,22 +97,34 @@ class FusedAdamW:
     def update(self, params: list[torch.Tensor], grads: list[torch.Tensor],
                state: AdamWState, sharded: list[bool] | None = None,
                mesh=None) -> None:
-        """One step, in place on `params` and `state`. Under tensor
-        parallelism (`mesh.model` > 1) `sharded` marks the parameters that
-        are this rank's rows of a sharded weight: the clip's global norm
-        counts their squares over the model ranks and every replicated
-        parameter's once, the same value on every rank."""
+        """One step, in place on `params` and `state`: the clip's global
+        norm, then `apply`. Under tensor parallelism (`mesh.model` > 1)
+        `sharded` marks the parameters that are this rank's rows of a
+        sharded weight: the clip's global norm counts their squares over
+        the model ranks and every replicated parameter's once, the same
+        value on every rank."""
         grads = [g.float() for g in grads]
+        state.gnorm = self.global_norm(grads, sharded, mesh)
+        self.apply(params, grads, state, float(state.gnorm))   # host sync
+
+    @torch.no_grad()
+    def global_norm(self, grads: list[torch.Tensor],
+                    sharded: list[bool] | None = None,
+                    mesh=None) -> torch.Tensor:
+        """The pre-clip global norm of fp32 `grads` (see `update`)."""
         norms = torch.stack(torch._foreach_norm(grads))
         if mesh is None or mesh.model == 1:
-            gnorm = torch.linalg.vector_norm(norms)
-        else:
-            is_shard = torch.tensor(sharded, device=norms.device)
-            sq = torch.where(is_shard, norms.square(),
-                             norms.square() / mesh.model).sum()
-            gnorm = all_reduce_(sq, mesh.model_group).sqrt()
-        state.gnorm = gnorm
-        gn = float(gnorm)   # the one host sync of the step
+            return torch.linalg.vector_norm(norms)
+        is_shard = torch.tensor(sharded, device=norms.device)
+        sq = torch.where(is_shard, norms.square(),
+                         norms.square() / mesh.model).sum()
+        return all_reduce_(sq, mesh.model_group).sqrt()
+
+    @torch.no_grad()
+    def apply(self, params: list[torch.Tensor], grads: list[torch.Tensor],
+              state: AdamWState, gn: float) -> None:
+        """The step after the norm: skip a non-finite `gn`, else clip fp32
+        `grads` by it and update the moments and `params` in place."""
         if (self.skip_nonfinite and not math.isfinite(gn)
                 and state.notfinite < self.max_consecutive_errors):
             state.notfinite += 1

@@ -191,7 +191,27 @@ Phases, each fatal on failure (any exception exits non-zero):
              ranks bit-identical, 24 + 24 rope launches a step on every
              rank; each rank's stored bytes under TP against DP (13,267,968
              elements x 12 B less), host ms a step at world 1 and 2, and
-             the ms the global noise draw adds.
+             the ms the global noise draw adds;
+ 14. tools   the ported scripts (calm_vit_dte_tpu_torch/tools/), each run
+             in this process at a reduced size into a temporary directory
+             and checked for what it is for: stage_dataset (a local tar
+             staged, skipped on a re-run, extracted); bench_dataplane (256
+             corpus JPEGs, B=128, 6 steps each of the resident, loader-only
+             and from-disk runs: finite rates and losses, the native
+             decoder, no image by Pillow); bench_eval_50k (1,024 staged val
+             JPEGs: top-1, loader wait + device seconds within the wall);
+             soak (the train_cls CLI over 4 x 64 JPEGs at B=128, SIGTERM
+             after 3 epochs: the checkpoint, at most 3 kept, a one-step
+             resume from it; its processes run beside the tools that
+             follow the dataplane, whose times are marked so and are not
+             comparable with the full runs'); bench_hires_train (B=2, 2
+             steps);
+             bench_hires_serve (B=1, bf16, int8, int8-wo); bench_quantize
+             (B=32, both int8 modes within tests/test_quantize.py's limits);
+             profile_opt (3 repetitions). Exact launches on every path: 24 +
+             24 rope a step, 24 + 8 a flagship forward, 24 + 24 + 24 hires a
+             hires step, 24 forward-only + 8 conv a hires forward; a tool
+             that fails fails the run.
 
 Every fp32 comparison runs with torch.backends.cuda.matmul.allow_tf32 and
 torch.backends.cudnn.allow_tf32 both False, so the plain versions' products
@@ -2652,6 +2672,343 @@ def parallel_phase(torch, name, smi):
     return by_path, metrics
 
 
+TOOLS_DATAPLANE_STEPS = 6   # phase 14: the from-disk dataplane run
+TOOLS_EVAL_IMAGES = (4, 256)  # phase 14: staged val classes x images each
+TOOLS_SOAK_EPOCHS = 3       # phase 14: epochs before the soak's SIGTERM
+# The kernel line's entry of each wrapper that phase 14's paths launch.
+TOOLS_KERNEL_NAMES = {
+    "fused_rope_attention": "fused_rope_attention_fwd",
+    "fused_rope_attention_bwd": "fused_rope_attention_bwd",
+    "fused_conv_residual": "fused_conv_residual_fwd",
+    "conv_residual_fwd_resid": "conv_residual_fwd_resid",
+    "conv_residual_bwd": "conv_residual_bwd",
+    "fused_hires_attention": "hires_attention_fwd_res",
+    "hires_dq": "hires_attention_dq",
+    "hires_dkv": "hires_attention_dkv",
+    "fused_attention_forward": "hires_attention_fwd_only",
+}
+
+
+def _stage_counts():
+    """The stage launches of the rope and hires wrappers, by wrapper."""
+    from calm_vit_dte_tpu_torch.kernels import axial_attention as ka
+    from calm_vit_dte_tpu_torch.kernels import hires_attention as kh
+
+    return {fn.__name__: fn.stage_launches for fn in (
+        ka.fused_rope_attention, ka.fused_rope_attention_bwd,
+        kh.fused_hires_attention, kh.hires_dq, kh.fused_attention_forward)}
+
+
+def tools_phase(torch, name, smi):
+    """Phase 14: the ported scripts (calm_vit_dte_tpu_torch/tools/), each at
+    a reduced size, checked for what it is for, with the kernels each path
+    launched (counters read before and after it): stage_dataset (a local
+    tar staged, skipped on a re-run, extracted); bench_dataplane (256
+    corpus JPEGs, B=128, a chain of 6 steps each of the synthetic, the
+    loader-only and the from-disk runs: finite rates and losses, the native
+    decoder and no Pillow image, 24 + 24 rope launches a step);
+    bench_eval_50k (1,024 staged val JPEGs: top-1 in [0, 1], loader wait
+    plus device seconds within the wall, 24 + 8 launches a batch); soak
+    (4 classes x 64 JPEGs at 256 px, B=128, SIGTERM after 3 epochs: the
+    checkpoint written, at most 3 kept, a one-step resume from it, 24 + 24
+    launches a step in every epoch line; its trainer processes run beside
+    the tools after the dataplane, whose metrics and log lines say so:
+    their times are not comparable with the full runs'); bench_hires_train
+    (B=2, 2 steps,
+    bf16 moments: 24 + 24 + 24 hires launches a step); bench_hires_serve
+    (B=1, bf16, int8, int8-wo: finite, 24 forward-only + 8 conv launches a
+    forward); bench_quantize (B=32, both int8 modes within the limits, 24 +
+    8 a forward); profile_opt (3 repetitions, 5 flagship steps: every
+    variant's ms between CUDA events and busy ms from a trace, the
+    flagship step's). Every tool writes under a temporary directory.
+    Returns (launches and stage launches by path and wrapper, metrics)."""
+    import contextlib
+    import gc
+    import io
+    import os
+    import shutil
+    import tarfile
+    import tempfile
+    import threading
+
+    from calm_vit_dte_tpu_torch.tools import (
+        bench_dataplane,
+        bench_eval_50k,
+        bench_hires_serve,
+        bench_hires_train,
+        bench_quantize,
+        profile_opt,
+        soak,
+        stage_dataset,
+    )
+    from calm_vit_dte_tpu_torch.utils.profiling import launch_counts
+
+    t_phase = time.time()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_tools_"))
+    out = str(work / "out")
+    by_path: dict = {}
+    metrics: dict = {}
+    saved_env = {k: os.environ.pop(k) for k in list(os.environ)
+                 if k.startswith("CALM_CONV_")}   # the trainer's chain route
+    soaker = None
+
+    def soaking():
+        return soaker is not None and soaker.is_alive()
+
+    def run(path, fn):
+        """fn() with the launches it made recorded under `path`, and
+        whether the soak's trainer shared the card meanwhile."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        counts, stages = launch_counts(), _stage_counts()
+        shared = soaking()
+        t0 = time.time()
+        result = fn()
+        torch.cuda.synchronize()
+        shared = shared or soaking()
+        by_path[path] = {
+            "launches": {k: n - counts[k] for k, n in launch_counts().items()
+                         if n != counts[k]},
+            "stages": {k: n - stages[k] for k, n in _stage_counts().items()
+                       if n != stages[k]}}
+        metrics[path] = {"seconds": time.time() - t0,
+                         "beside_soak_trainer": shared}
+        return result, by_path[path]["launches"]
+
+    def beside(path):
+        """The log's mark on a time taken while the soak trained."""
+        return (" [timed beside the soak's trainer: not comparable with the "
+                "full runs]" if metrics[path]["beside_soak_trainer"] else "")
+
+    def want(path, got, **per):
+        for k, n in per.items():
+            if got.get(k, 0) != n:
+                raise AssertionError(f"tools {path}: {k} launched "
+                                     f"{got.get(k, 0)} times, want {n}")
+
+    try:
+        # stage_dataset: a local-path stage, re-run and skipped, extracted.
+        src = work / "imagenet_src"
+        src.mkdir()
+        inner = io.BytesIO()
+        with tarfile.open(fileobj=inner, mode="w") as tf:
+            for i in range(3):
+                info = tarfile.TarInfo(f"n01440764_{i}.JPEG")
+                info.size = 4
+                tf.addfile(info, io.BytesIO(b"img%d" % i))
+        with tarfile.open(src / "ILSVRC2012_img_train.tar", "w") as tf:
+            info = tarfile.TarInfo("n01440764.tar")
+            info.size = len(inner.getvalue())
+            tf.addfile(info, io.BytesIO(inner.getvalue()))
+        with tarfile.open(src / "ILSVRC2012_img_val.tar", "w") as tf:
+            info = tarfile.TarInfo("ILSVRC2012_val_00000001.JPEG")
+            info.size = 3
+            tf.addfile(info, io.BytesIO(b"val"))
+        (src / "ILSVRC2012_devkit_t12.tar.gz").write_bytes(b"devkit")
+        argv = ["--src", str(src), "--dest", str(work / "imagenet"),
+                "--extract"]
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            stage_dataset.main(argv)
+            stage_dataset.main(argv)
+        dest = work / "imagenet"
+        if (printed.getvalue().count("already staged") != 3
+                or sorted(os.listdir(dest / "train" / "n01440764"))
+                != [f"n01440764_{i}.JPEG" for i in range(3)]
+                or os.listdir(dest / "val")
+                != ["ILSVRC2012_val_00000001.JPEG"]):
+            raise AssertionError("tools stage_dataset:\n" + printed.getvalue())
+        log("[tools] stage_dataset: 3 local files staged, the re-run skipped "
+            "all 3 (.staged.json), --extract wrote train/n01440764/ (3) and "
+            "val/ (1)")
+
+        # bench_dataplane: the loader from disk feeding the flagship step.
+        dp, got = run("tools_dataplane", lambda: bench_dataplane.main([
+            "--images", "256", "--n-train", "256",
+            "--steps", str(TOOLS_DATAPLANE_STEPS), "--batch", str(TIME_BATCH),
+            "--chains", "1", "--repeat", "1",
+            "--root", str(work / "dp_corpus"), "--out", out]))
+        integ = dp["integrated"]
+        steps = 1 + TOOLS_DATAPLANE_STEPS   # warm-up + the chain, twice
+        want("dataplane", got, fused_rope_attention=24 * 2 * steps,
+             fused_rope_attention_bwd=24 * 2 * steps)
+        rates = [integ[k] for k in ("synthetic_img_per_s",
+                                    "loader_only_img_per_s",
+                                    "real_loader_img_per_s")]
+        if (integ["decoder"] != "native" or integ["pillow_images"]
+                or not integ["losses_finite"]
+                or not all(np.isfinite(rates)) or min(rates) <= 0):
+            raise AssertionError(f"tools dataplane: {integ}")
+        metrics["tools_dataplane"].update(
+            standalone=dp["standalone"], integrated=integ,
+            stall_analysis=dp["stall_analysis"])
+        log(f"[tools] bench_dataplane B={TIME_BATCH}, 256 JPEGs, a chain of "
+            f"{TOOLS_DATAPLANE_STEPS} steps: synthetic "
+            f"{integ['synthetic_img_per_s']} images/s, loader alone "
+            f"{integ['loader_only_img_per_s']}, from disk "
+            f"{integ['real_loader_img_per_s']} (ratio {integ['ratio']}), "
+            f"decoder {integ['decoder']}, Pillow images "
+            f"{integ['pillow_images']}; native 1 thread "
+            f"{dp['standalone'].get('native_1t_img_per_s')}, Pillow "
+            f"{dp['standalone']['pil_img_per_s']} images/s; launches {got}")
+
+        # soak: the trainer CLI over 3 epochs, SIGTERM, a one-step resume,
+        # in its own processes while the tools below run in this one (the
+        # trainer's launches are its epoch lines', not this process's).
+        soak_result: dict = {}
+
+        def soak_thread():
+            t0 = time.time()
+            try:
+                soak_result["summary"] = soak.main([
+                    "--classes", "4", "--per-class", "64", "--img-size",
+                    "256", "--batch", str(TIME_BATCH), "--microbatch", "1",
+                    "--minutes", "10",
+                    "--sigterm-after-epochs", str(TOOLS_SOAK_EPOCHS),
+                    "--resume-steps", "1", "--log-every", "1",
+                    "--corpus", str(work / "soak_corpus"),
+                    "--ckpt-dir", str(work / "soak_ckpt"),
+                    "--out", str(work / "soak_out")])
+            except BaseException as exc:   # re-raised after the join
+                soak_result["error"] = exc
+            soak_result["seconds"] = time.time() - t0
+
+        soaker = threading.Thread(target=soak_thread)
+        soaker.start()
+
+        # bench_eval_50k: evaluate() over staged val JPEGs.
+        classes, per = TOOLS_EVAL_IMAGES
+        ev, got = run("tools_eval", lambda: bench_eval_50k.main([
+            "--classes", str(classes), "--per-class", str(per),
+            "--batch", str(TIME_BATCH), "--corpus", str(work / "eval"),
+            "--out", out]))
+        batches = -(-classes * per // TIME_BATCH)
+        want("eval", got, fused_rope_attention=24 * batches,
+             fused_conv_residual=8 * batches)
+        if not (ev["images"] == classes * per and 0 <= ev["top1"] <= 1
+                and ev["loader_wait_s"] + ev["device_s"]
+                <= ev["wall_s"] + 0.01):
+            raise AssertionError(f"tools eval: {ev}")
+        metrics["tools_eval"].update(ev)
+        log(f"[tools] bench_eval_50k over {ev['images']} staged JPEGs "
+            f"(staged in {ev['stage_s']} s): top-1 {ev['top1']}, "
+            f"{ev['img_per_s']} images/s, wall {ev['wall_s']} s, loader wait "
+            f"{ev['loader_wait_s']} s, device {ev['device_s']} s; launches "
+            f"{got}{beside('tools_eval')}")
+
+        # bench_hires_train: the hires step at B=2, bf16 moments.
+        ht, got = run("tools_hires_train", lambda: bench_hires_train.main([
+            "--batch", "2", "--steps", "2", "--out", out]))
+        want("hires_train", got, fused_hires_attention=48, hires_dq=48,
+             hires_dkv=48)
+        if ht["status"] != "trained":
+            raise AssertionError(f"tools hires_train: {ht}")
+        metrics["tools_hires_train"].update(
+            {k: v for k, v in ht.items() if k != "losses"})
+        log(f"[tools] bench_hires_train B=2, 2 steps, bf16 moments: losses "
+            f"{ht['losses']}, peak {ht['hbm_peak_gb']} GiB of "
+            f"{ht['hbm_limit_gb']} GiB; states {ht['accounting']} ; "
+            f"launches {got}{beside('tools_hires_train')}")
+
+        # bench_hires_serve: B=1 in bf16, int8 and int8-wo.
+        hs, got = run("tools_hires_serve", lambda: bench_hires_serve.main([
+            "--batch", "1", "--out", out]))
+        for r in hs["rows"]:
+            want(f"hires_serve {r['mode']}", r["kernel_launches_per_forward"],
+                 fused_attention_forward=24, fused_conv_residual=8)
+        metrics["tools_hires_serve"].update(rows=hs["rows"])
+        log("[tools] bench_hires_serve B=1: " + "; ".join(
+            f"{r['mode']} {r['img_s_chip']} images/s, p50 {r['p50_ms']} ms, "
+            f"finite {r['finite']}, peak {r['peak_mem_gib']:.3f} GiB"
+            for r in hs["rows"]) + beside("tools_hires_serve"))
+
+        # bench_quantize: bf16 against both int8 modes at B=32.
+        qz, got = run("tools_quantize", lambda: bench_quantize.main([
+            "--batches", "32", "--out", out]))
+        for r in qz["rows"]:
+            want(f"quantize {r['mode']}", r["kernel_launches_per_forward"],
+                 fused_rope_attention=24, fused_conv_residual=8)
+        metrics["tools_quantize"].update(rows=qz["rows"])
+        log("[tools] bench_quantize B=32: " + "; ".join(
+            f"{r['mode']} {r['int8_img_s']} vs bf16 {r['bf16_img_s']} "
+            f"images/s (x{r['speedup']}), logit rel err "
+            f"{r['logit_rel_err']}, top-1 agree {r['top1_agree']}"
+            for r in qz["rows"]) + beside("tools_quantize"))
+
+        # profile_opt: FusedAdamW alone, beside the flagship step.
+        po, got = run("tools_profile_opt", lambda: profile_opt.main([
+            "--reps", "3", "--warmup", "1", "--step-reps", "2",
+            "--out", out]))
+        steps = 1 + 2 + 2   # warm-up, 2 timed, 2 traced
+        want("profile_opt", got, fused_rope_attention=24 * steps,
+             fused_rope_attention_bwd=24 * steps)
+        if not all(v["event_ms"] > 0
+                   and (v["busy_ms"] is None or v["busy_ms"] > 0)
+                   for v in po["variants"].values()):
+            raise AssertionError(f"tools profile_opt: {po}")
+        metrics["tools_profile_opt"].update(
+            variants=po["variants"], step=po["step"],
+            optimizer_share_of_step=po["optimizer_share_of_step"])
+        log("[tools] profile_opt ms between CUDA events / device-busy ms "
+            "(None: the trace saw no device work): " + ", ".join(
+                f"{k} {v['event_ms']:.3f} / {v['busy_ms']}"
+                for k, v in po["variants"].items())
+            + f"; flagship step B={po['step']['batch']} "
+            f"{po['step']['ms']:.1f} / {po['step']['busy_ms']} ms (optimizer "
+            f"{po['optimizer_share_of_step']:.1%} by events)"
+            + beside("tools_profile_opt"))
+        soaker.join()
+        if "error" in soak_result:
+            raise soak_result["error"]
+        sk = soak_result["summary"]
+        metrics["tools_soak"] = {"seconds": soak_result["seconds"]}
+        rows = [json.loads(line) for line in (
+            work / "soak_out" / "soak_epochs.jsonl").read_text().splitlines()]
+        for r in rows:
+            want(f"soak epoch {r['epoch']}", r["kernel_launches"],
+                 fused_rope_attention=24 * r["steps"],
+                 fused_rope_attention_bwd=24 * r["steps"])
+        resume = sk["resume"]
+        if not (sk["sigterm_sent"] and sk["sigterm_checkpointed"]
+                and sk["epochs_completed"] >= TOOLS_SOAK_EPOCHS
+                and sk["max_to_keep_respected"]
+                and sk["sigterm_step"] in sk["checkpoints_kept"]
+                and resume["rc"] == 0
+                and resume["resumed_from_step"] == sk["sigterm_step"]
+                and max(resume["checkpoints_kept"]) == sk["sigterm_step"] + 1
+                and sk["resumed_segments"] >= 1):
+            raise AssertionError(f"tools soak: {sk}")
+        # The SIGTERM-cut epoch writes no line: its launches are not read.
+        by_path["tools_soak"] = {"launches": {
+            k: sk["kernel_launches"].get(k, 0)
+            + resume["kernel_launches"].get(k, 0)
+            for k in set(sk["kernel_launches"]) | set(
+                resume["kernel_launches"])}, "stages": {}}
+        metrics["tools_soak"].update({k: v for k, v in sk.items()
+                                      if k != "resume"},
+                                     resume={k: v for k, v in resume.items()
+                                             if k != "rows"})
+        log(f"[tools] soak B={TIME_BATCH}, 256 JPEGs (beside the tools "
+            f"above): {sk['epochs_completed']} epochs of 2 steps, p50 "
+            f"{sk['p50_all']} s (an epoch's first step carries the last "
+            f"one's checkpoint), peak RSS {sk['rss_mb_first']} -> "
+            f"{sk['rss_mb_last']} MB; SIGTERM checkpointed at step "
+            f"{sk['sigterm_step']}, kept {sk['checkpoints_kept']}; resumed "
+            f"from step {resume['resumed_from_step']} for 1 step (kept "
+            f"{resume['checkpoints_kept']}); launches "
+            f"{by_path['tools_soak']['launches']}")
+    finally:
+        if soaker is not None:
+            soaker.join()   # its trainer processes end before the cleanup
+        os.environ.update(saved_env)
+        shutil.rmtree(work, ignore_errors=True)
+    metrics["seconds"] = time.time() - t_phase
+    log(f"[tools] phase 14 in {metrics['seconds']:.1f} s on {name} ({smi}): "
+        + ", ".join(f"{k.removeprefix('tools_')} {v['seconds']:.1f} s"
+                    for k, v in metrics.items() if k != "seconds"))
+    return by_path, metrics
+
+
 def main() -> int:
     if not (ROOT / "calm_vit_dte_tpu_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository "
@@ -3453,6 +3810,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     parallel_launches, parallel = parallel_phase(torch, name, smi)
 
+    # 14. the ported scripts (tools/), each at a reduced size.
+    torch.cuda.empty_cache()
+    tools_launches, tools = tools_phase(torch, name, smi)
+
     def summary(kname, source, replaces, rows, launches):
         t_bytes = sum(r["launches"] * r["bound_ms"] for r in rows
                       if r["bound_by"] == "bytes")
@@ -3527,6 +3888,16 @@ def main() -> int:
             if got["stages"][key]:
                 k["stage_launches_by_path"][path] = got["stages"][key]
     kernels += hires_kernels + trainer_kernels + [relayout_kernel]
+    by_name = {k["name"]: k for k in kernels}
+    for path, got in tools_launches.items():
+        for wrapper, n in got["launches"].items():
+            k = by_name.get(TOOLS_KERNEL_NAMES.get(wrapper))
+            if k is not None and n:
+                k["launches_by_path"][path] = n
+                k["launches"] += n
+        for wrapper, n in got["stages"].items():
+            k = by_name[TOOLS_KERNEL_NAMES[wrapper]]
+            k.setdefault("stage_launches_by_path", {})[path] = n
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} was not launched on the main "
@@ -3555,7 +3926,7 @@ def main() -> int:
                     "hires-cls-1024": hires, "trainer": trainer,
                     "serving": serving, "native_probe": native_state,
                     "proof": proof, "jax_weights": jaxinit,
-                    "parallel": parallel}))
+                    "parallel": parallel, "tools": tools}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -861,3 +861,69 @@ def test_jax_init_weights_reconstruct_on_the_card(cuda_device):
     assert kc.fused_conv_residual.launches - n_conv == 9
     assert recon.shape == (2, cfg.crop, cfg.crop, 3)
     assert np.isfinite(recon).all() and 0 <= recon.min() <= recon.max() <= 1
+
+
+@pytest.mark.gpu
+def test_stage_dataset_on_the_cards_host(cuda_device, tmp_path, capsys):
+    """tools/stage_dataset.py on the card's machine: a local tar staged,
+    skipped on a re-run, and extracted to the class layout."""
+    import io
+    import tarfile
+
+    from calm_vit_dte_tpu_torch.tools import stage_dataset
+
+    src = tmp_path / "src"
+    src.mkdir()
+    inner = io.BytesIO()
+    with tarfile.open(fileobj=inner, mode="w") as tf:
+        info = tarfile.TarInfo("n01440764_1.JPEG")
+        info.size = 3
+        tf.addfile(info, io.BytesIO(b"img"))
+    with tarfile.open(src / "ILSVRC2012_img_train.tar", "w") as tf:
+        info = tarfile.TarInfo("n01440764.tar")
+        info.size = len(inner.getvalue())
+        tf.addfile(info, io.BytesIO(inner.getvalue()))
+    argv = ["--src", str(src), "--dest", str(tmp_path / "dest"), "--files",
+            "ILSVRC2012_img_train.tar", "--extract"]
+    stage_dataset.main(argv)
+    stage_dataset.main(argv)
+    assert "already staged" in capsys.readouterr().out
+    assert (tmp_path / "dest" / "train" / "n01440764" /
+            "n01440764_1.JPEG").read_bytes() == b"img"
+
+
+@pytest.mark.gpu
+def test_dataplane_standalone_decode_on_the_cards_host(cuda_device,
+                                                       tmp_path):
+    """tools/bench_dataplane.py's standalone decode at 16 images: the native
+    decoder builds and decodes on the card's host, beside Pillow."""
+    from calm_vit_dte_tpu_torch.tools import bench_dataplane
+
+    out = bench_dataplane.main([
+        "--images", "16", "--n-train", "16", "--repeat", "1",
+        "--skip-integrated", "--root", str(tmp_path / "corpus"),
+        "--out", str(tmp_path / "out")])
+    sa = out["standalone"]
+    assert sa["n_images"] == 16 and "native" not in sa, sa
+    assert all(sa[f"native_{t}t_img_per_s"] > 0 for t in (1, 2, 4))
+    assert out["card"]["nvidia_smi"]
+
+
+@pytest.mark.gpu
+def test_profile_opt_on_the_card(cuda_device, tmp_path):
+    """tools/profile_opt.py at 2 repetitions: FusedAdamW's variants and the
+    yardsticks in ms between CUDA events and in device-busy ms from a
+    profiler trace, beside a training step."""
+    from calm_vit_dte_tpu_torch.tools import profile_opt
+
+    out = profile_opt.main(["--reps", "2", "--warmup", "1", "--step-reps",
+                            "2", "--step-batch", "8", "--out",
+                            str(tmp_path)])
+    assert out["timing"] == "event_ms"
+    assert {"fused_adamw_fp32", "fused_adamw_bf16", "global_norm",
+            "apply_fp32", "apply_bf16", "torch_adamw_fused",
+            "torch_clip_adamw_fused"} == set(out["variants"])
+    assert all(v["event_ms"] > 0 for v in out["variants"].values())
+    assert all(v["busy_ms"] is None or v["busy_ms"] > 0
+               for v in out["variants"].values())
+    assert out["step"]["ms"] > 0

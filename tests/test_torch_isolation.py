@@ -45,7 +45,11 @@ def test_port_imports_no_jax():
                  "data.native", "data.csv_dataset", "tools.train_proof",
                  "tools.reg_witness", "compat.orbax", "compat.jax_init",
                  "models.encoder_decoder", "parallel.mesh",
-                 "tools.parallel_step", "tools.parallel_cards"):
+                 "tools.parallel_step", "tools.parallel_cards",
+                 "tools.stage_dataset", "tools.bench_dataplane",
+                 "tools.bench_eval_50k", "tools.soak",
+                 "tools.bench_hires_train", "tools.bench_hires_serve",
+                 "tools.bench_quantize", "tools.profile_opt"):
         assert f"calm_vit_dte_tpu_torch.{name}" in report["imported"]
     leaked = [m for m in report["modules"]
               if m.split(".")[0].startswith("jax")
