@@ -65,11 +65,16 @@
 //     NV = ceil(Dv / 64) size the accumulators (PERF.md §6 has ptxas's
 //     count). Columns past pad16(D) or pad16(Dv) are skipped k-steps, not
 //     zero products;
-//   * the fp32 route's attention kernel (hires_attention_kernel): 64-key
-//     tiles of k and v through fp32 shared memory, every product an fp32 FMA
-//     on the CUDA cores.
-// The bf16 route takes S, D and Dv that are multiples of 8 (16-byte rows);
-// the wrapper raises for any other shape.
+//   * the CUDA-core attention kernel (hires_attention_kernel), which runs
+//     every fp32 call and every bf16 call the tensor-core kernel does not
+//     take: two passes over 64-key tiles (the row max and sum of exp, then
+//     p = exp(logit - lse), rounded, times v), the scores' contraction over
+//     D staged through shared memory 64 columns at a time, every product an
+//     fp32 FMA. It takes any D and Dv: past 256 columns of o the grid's z
+//     axis splits them, each CTA recomputing the scores for its slice.
+// The tensor-core kernel takes bf16 S, D and Dv that are multiples of 8
+// (16-byte rows) with D, Dv <= 256 (family_of, hires_common.cuh); the C
+// entry takes any shape.
 
 #include "hires_mma.cuh"
 
@@ -81,18 +86,21 @@ __global__ void __launch_bounds__(kThreads) hires_attention_kernel(
     const float* __restrict__ m, T* __restrict__ o, float* __restrict__ lse,
     int H, int S, int D, int Dv, float scale) {
   extern __shared__ float smem[];
-  const int ldq = D | 1;
-  const int ldkv = (D > Dv ? D : Dv) | 1;
-  float* sQ = smem;                  // 64 x ldq    q tile
-  float* sKV = sQ + kTile * ldq;     // 64 x ldkv   k tile, then v tile
-  float* sP = sKV + kTile * ldkv;    // 64 x kLdP   p, rounded
+  const int c0 = blockIdx.z * kSlice;   // this CTA's columns of o
+  const int W = min(kSlice, Dv - c0);
+  const int ldx = slice_ld(Dv);
+  float* sA = smem;                 // 64 x kLdC  q chunk
+  float* sB = sA + kTile * kLdC;    // 64 x kLdC  k chunk
+  float* sX = sB + kTile * kLdC;    // 64 x ldx   v tile, the slice's columns
+  float* sP = sX + kTile * ldx;     // 64 x kLdP  p, rounded
 
   const int q0 = blockIdx.x * kTile;
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const size_t head = (size_t)bh * S;
-  load_tile<T>(sQ, ldq, q + head * D, q0, S, D);
+  const T* qh = q + head * D;
+  const T* kh = k + head * D;
 
   // m[b, q, t] for this thread's rows (0 where there is no mask).
   auto mask = [&](int i, int t) -> float {
@@ -105,12 +113,9 @@ __global__ void __launch_bounds__(kThreads) hires_attention_kernel(
 #pragma unroll
   for (int i = 0; i < 4; ++i) mx[i] = -INFINITY, se[i] = 0.f;
   for (int t0 = 0; t0 < S; t0 += kTile) {
-    __syncthreads();
-    load_tile<T>(sKV, ldkv, k + head * D, t0, S, D);
-    __syncthreads();
     float s[4][4];
     zero(s);
-    mm_nt<4>(s, sQ, ldq, sKV, ldkv, D);
+    scores_chunked<T>(s, sA, sB, qh, q0, kh, t0, S, D);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       float tmax = -INFINITY;
@@ -133,19 +138,17 @@ __global__ void __launch_bounds__(kThreads) hires_attention_kernel(
   for (int i = 0; i < 4; ++i) {
     l[i] = mx[i] + logf(se[i]);
     const int r = q0 + ty + 16 * i;
-    if (kResiduals && tx == 0 && r < S) lse[head + r] = l[i];
+    if (kResiduals && blockIdx.z == 0 && tx == 0 && r < S) lse[head + r] = l[i];
   }
 
-  // Pass 2: p = exp(logit - lse), rounded, times v.
+  // Pass 2: p = exp(logit - lse), rounded, times the slice of v.
   float acc[4][CJ];
   zero(acc);
   for (int t0 = 0; t0 < S; t0 += kTile) {
-    __syncthreads();  // the previous tile is done with sKV and sP
-    load_tile<T>(sKV, ldkv, k + head * D, t0, S, D);
-    __syncthreads();
     float s[4][4];
     zero(s);
-    mm_nt<4>(s, sQ, ldq, sKV, ldkv, D);
+    // (its first barrier: the previous tile is done with sX and sP)
+    scores_chunked<T>(s, sA, sB, qh, q0, kh, t0, S, D);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -155,10 +158,9 @@ __global__ void __launch_bounds__(kThreads) hires_attention_kernel(
             t < S ? expf(s[i][j] * scale + mask(i, t) - l[i]) : 0.f;
         sP[(ty + 16 * i) * kLdP + tx + 16 * j] = rnd<T>(p);
       }
-    __syncthreads();  // every warp is done with k
-    load_tile<T>(sKV, ldkv, v + head * Dv, t0, S, Dv);
+    load_cols<T>(sX, ldx, v + head * Dv, Dv, t0, S, c0, W);
     __syncthreads();
-    mm_nn<CJ>(acc, sP, kLdP, sKV, ldkv, Dv);
+    mm_nn<CJ>(acc, sP, kLdP, sX, ldx, W);
   }
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -167,7 +169,7 @@ __global__ void __launch_bounds__(kThreads) hires_attention_kernel(
 #pragma unroll
     for (int j = 0; j < CJ; ++j) {
       const int c = tx + 16 * j;
-      if (c < Dv) o[(head + r) * Dv + c] = from_f<T>(acc[i][j]);
+      if (c < W) o[(head + r) * Dv + c0 + c] = from_f<T>(acc[i][j]);
     }
   }
 }
@@ -357,10 +359,11 @@ cudaError_t attention_bf16(const bf16* q, const bf16* k, const bf16* v,
   }
 }
 
-size_t attention_smem(int D, int Dv) {
-  const int ldkv = (D > Dv ? D : Dv) | 1;
-  return sizeof(float) *
-         ((size_t)kTile * (D | 1) + (size_t)kTile * ldkv + kTile * kLdP);
+// Dynamic shared memory of the CUDA-core attention CTA: the q and k
+// chunks, a slice of v and p (115,712 bytes at Dv >= 256).
+size_t attention_smem(int Dv) {
+  return sizeof(float) * kTile *
+         ((size_t)2 * kLdC + slice_ld(Dv) + kLdP);
 }
 
 template <typename T, int CJ, bool kResiduals>
@@ -369,34 +372,36 @@ cudaError_t launch_attention(const T* q, const T* k, const T* v,
                              int S, int D, int Dv, float scale,
                              cudaStream_t st, Report& rep) {
   auto kern = hires_attention_kernel<T, CJ, kResiduals>;
-  const size_t smem = attention_smem(D, Dv);
+  const size_t smem = attention_smem(Dv);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + kTile - 1) / kTile, B * H);
+  const dim3 grid((S + kTile - 1) / kTile, B * H, slices_of(Dv));
   kern<<<grid, kThreads, smem, st>>>(q, k, v, m, o, lse, H, S, D, Dv, scale);
   return rep.done(smem);
 }
 
+// The attention pass: bf16 on the tensor cores where the family allows
+// (tc), every other call on the CUDA-core kernel.
 template <typename T, bool kResiduals>
 cudaError_t attention(const T* q, const T* k, const T* v, const float* m,
                       T* o, float* lse, int B, int H, int S, int D, int Dv,
-                      float scale, cudaStream_t st, Report& rep) {
+                      float scale, bool tc, cudaStream_t st, Report& rep) {
   if constexpr (std::is_same<T, bf16>::value) {
-    return attention_bf16<kResiduals>(q, k, v, m, o, lse, B, H, S, D, Dv,
-                                      scale, st, rep);
-  } else {
-    switch (cols_per_thread(Dv)) {
-      case 4:
-        return launch_attention<T, 4, kResiduals>(q, k, v, m, o, lse, B, H,
-                                                  S, D, Dv, scale, st, rep);
-      case 8:
-        return launch_attention<T, 8, kResiduals>(q, k, v, m, o, lse, B, H,
-                                                  S, D, Dv, scale, st, rep);
-      default:
-        return launch_attention<T, 16, kResiduals>(q, k, v, m, o, lse, B, H,
-                                                   S, D, Dv, scale, st, rep);
-    }
+    if (tc)
+      return attention_bf16<kResiduals>(q, k, v, m, o, lse, B, H, S, D, Dv,
+                                        scale, st, rep);
+  }
+  switch (cols_per_thread(slice_ld(Dv))) {
+    case 4:
+      return launch_attention<T, 4, kResiduals>(q, k, v, m, o, lse, B, H, S,
+                                                D, Dv, scale, st, rep);
+    case 8:
+      return launch_attention<T, 8, kResiduals>(q, k, v, m, o, lse, B, H, S,
+                                                D, Dv, scale, st, rep);
+    default:
+      return launch_attention<T, 16, kResiduals>(q, k, v, m, o, lse, B, H,
+                                                 S, D, Dv, scale, st, rep);
   }
 }
 
@@ -405,7 +410,8 @@ cudaError_t run(int residuals, int use_mask, const void* q, const void* k,
                 const void* v, const void* w1t, const float* b1,
                 const void* w2t, const float* b2, void* ssum, void* a,
                 float* m, void* o, float* lse, int B, int H, int S, int D,
-                int Dv, float scale, cudaStream_t st, Report& rep) {
+                int Dv, float scale, Family fam, cudaStream_t st,
+                Report& rep) {
   cudaError_t err;
   if (use_mask) {
     const long long S2 = 2LL * S, R = (long long)B * S;
@@ -417,19 +423,22 @@ cudaError_t run(int residuals, int use_mask, const void* q, const void* k,
     g.sAk = 1;
     g.sBz = g.sAz; g.sBo = g.sAo; g.sBk = 1; g.sBn = D;
     g.sCz = (long long)S * S; g.ldc = S;
-    if ((err = gemm<T>(g, B, st, rep)) != cudaSuccess) return err;
+    if ((err = gemm<T>(g, B, fam.aligned, st, rep)) != cudaSuccess)
+      return err;
     // a = round(gelu(ssum W1^T + b1)) over all B*S rows.
     g = Gemm{};
     g.A = ssum; g.B = w1t; g.C = a; g.bias = b1; g.epilogue = kGelu;
     g.M = (int)R; g.N = (int)S2; g.K = S; g.KO = 1;
     g.sAm = S; g.sAk = 1; g.sBk = S2; g.sBn = 1; g.ldc = S2;
-    if ((err = gemm<T>(g, 1, st, rep)) != cudaSuccess) return err;
+    if ((err = gemm<T>(g, 1, fam.aligned, st, rep)) != cudaSuccess)
+      return err;
     // m = a W2^T + b2, fp32.
     g = Gemm{};
     g.A = a; g.B = w2t; g.C = m; g.bias = b2; g.epilogue = kStoreF32;
     g.M = (int)R; g.N = S; g.K = (int)S2; g.KO = 1;
     g.sAm = S2; g.sAk = 1; g.sBk = S; g.sBn = 1; g.ldc = S;
-    if ((err = gemm<T>(g, 1, st, rep)) != cudaSuccess) return err;
+    if ((err = gemm<T>(g, 1, fam.aligned, st, rep)) != cudaSuccess)
+      return err;
   }
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
@@ -437,9 +446,9 @@ cudaError_t run(int residuals, int use_mask, const void* q, const void* k,
   const float* mm = use_mask ? m : nullptr;
   if (residuals)
     return attention<T, true>(qt, kt, vt, mm, static_cast<T*>(o), lse, B, H,
-                              S, D, Dv, scale, st, rep);
+                              S, D, Dv, scale, fam.tc, st, rep);
   return attention<T, false>(qt, kt, vt, mm, static_cast<T*>(o), nullptr, B,
-                             H, S, D, Dv, scale, st, rep);
+                             H, S, D, Dv, scale, fam.tc, st, rep);
 }
 
 }  // namespace
@@ -449,10 +458,10 @@ cudaError_t run(int residuals, int use_mask, const void* q, const void* k,
 // (2S) and b2 (S) fp32; scratch ssum (B,S,S) and a (B,S,2S) in the compute
 // type; m (B,S,S) fp32 (an output when residuals is 1); lse (B,H,S) fp32,
 // written when residuals is 1. With use_mask 0 the weights, ssum, a and m
-// may be null (and residuals must be 0). All contiguous. bf16 takes S, D
-// and Dv that are multiples of 8. Sets *launched to the number of kernels
-// the call launched and *smem to the largest dynamic shared memory (bytes)
-// one of their CTAs asked for.
+// may be null (and residuals must be 0). All contiguous. Takes any S, D and
+// Dv; family_of(is_bf16, S, D, Dv) picks the kernels. Sets *launched to
+// the number of kernels the call launched and *smem to the largest dynamic
+// shared memory (bytes) one of their CTAs asked for.
 extern "C" int hires_attention_fwd(
     int is_bf16, int residuals, int use_mask, const void* q, const void* k,
     const void* v, const void* w1t, const float* b1, const void* w2t,
@@ -461,19 +470,20 @@ extern "C" int hires_attention_fwd(
     int* launched, long long* smem) {
   *launched = 0;
   *smem = 0;
-  if (B < 1 || H < 1 || S < 1 || D < 1 || D > 256 || Dv < 1 || Dv > 256 ||
-      (is_bf16 && (S % 8 || D % 8 || Dv % 8)) ||
+  if (B < 1 || H < 1 || S < 1 || D < 1 || Dv < 1 ||
       (residuals && (!use_mask || !lse)) ||
       (use_mask && (!w1t || !b1 || !w2t || !b2 || !ssum || !a || !m)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Family fam = family_of(is_bf16, S, D, Dv);
   Report rep;
   const cudaError_t err =
       is_bf16 ? run<bf16>(residuals, use_mask, q, k, v, w1t, b1, w2t, b2,
-                          ssum, a, m, o, lse, B, H, S, D, Dv, scale, st, rep)
+                          ssum, a, m, o, lse, B, H, S, D, Dv, scale, fam, st,
+                          rep)
               : run<float>(residuals, use_mask, q, k, v, w1t, b1, w2t, b2,
-                           ssum, a, m, o, lse, B, H, S, D, Dv, scale, st,
-                           rep);
+                           ssum, a, m, o, lse, B, H, S, D, Dv, scale, fam,
+                           st, rep);
   *launched = rep.launched;
   *smem = (long long)rep.smem;
   return (int)err;

@@ -92,8 +92,16 @@
 //     head) streams the query tiles: scores and dp transposed (key rows), dv
 //     += round(p)^T g and dk += ds^T q from shared memory; m and dssum read
 //     transposed by their indexing.
-// The bf16 route takes S, D and Dv that are multiples of 8 (16-byte rows);
-// the wrapper and the C entries refuse any other shape.
+//   * The CUDA-core kernels (hires_dm_ssum_kernel, hires_dq_kernel,
+//     hires_dkv_kernel) take any D and Dv: every contraction over D or Dv
+//     streams through shared memory 64 columns at a time (scores_chunked,
+//     hires_common.cuh), and an output wider than 256 columns is split over
+//     the grid's z axis, each CTA recomputing the scores for its slice. They
+//     run every fp32 call and every bf16 call the tensor-core kernels do not
+//     take (family_of: D or Dv over 256, or S, D, Dv off the multiple of 8),
+//     reading bf16 and rounding at the same points.
+// The bf16 tensor-core kernels take S, D and Dv that are multiples of 8
+// (16-byte rows) and D, Dv <= 256; the C entries take any shape.
 
 #include "hires_mma.cuh"
 
@@ -121,9 +129,8 @@ __global__ void __launch_bounds__(kThreads) hires_dm_ssum_kernel(
     T* __restrict__ dm, T* __restrict__ ssum) {
   extern __shared__ float smem[];
   const int H = R.H, S = R.S;
-  const int ld = (D > Dv ? D : Dv) | 1;
-  float* sA = smem;               // 64 x ld   q_h rows, then g_h rows
-  float* sB = sA + kTile * ld;    // 64 x ld   k_h rows, then v_h rows
+  float* sA = smem;               // 64 x kLdC   q_h chunk, then g_h chunk
+  float* sB = sA + kTile * kLdC;  // 64 x kLdC   k_h chunk, then v_h chunk
   const int t0 = blockIdx.x * kTile, q0 = blockIdx.y * kTile;
   const int b = blockIdx.z;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
@@ -140,19 +147,12 @@ __global__ void __launch_bounds__(kThreads) hires_dm_ssum_kernel(
     }
   for (int h = 0; h < H; ++h) {
     const size_t head = ((size_t)b * H + h) * S;
-    __syncthreads();
-    load_tile<T>(sA, ld, q + head * D, q0, S, D);
-    load_tile<T>(sB, ld, k + head * D, t0, S, D);
-    __syncthreads();
     float s[4][4], dp[4][4];
     zero(s);
     zero(dp);
-    mm_nt<4>(s, sA, ld, sB, ld, D);
-    __syncthreads();
-    load_tile<T>(sA, ld, g + head * Dv, q0, S, Dv);
-    load_tile<T>(sB, ld, v + head * Dv, t0, S, Dv);
-    __syncthreads();
-    mm_nt<4>(dp, sA, ld, sB, ld, Dv);
+    scores_chunked<T>(s, sA, sB, q + head * D, q0, k + head * D, t0, S, D);
+    scores_chunked<T>(dp, sA, sB, g + head * Dv, q0, v + head * Dv, t0, S,
+                      Dv);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = q0 + ty + 16 * i;
@@ -182,6 +182,8 @@ __global__ void __launch_bounds__(kThreads) hires_dm_ssum_kernel(
   }
 }
 
+// dq of 64 query rows of one (batch element, head), columns [c0, c0 + W)
+// of it (the grid's z slice).
 template <typename T, int CJ>
 __global__ void __launch_bounds__(kThreads) hires_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -189,18 +191,20 @@ __global__ void __launch_bounds__(kThreads) hires_dq_kernel(
     const float* __restrict__ dssum, int D, int Dv, T* __restrict__ dq) {
   extern __shared__ float smem[];
   const int H = R.H, S = R.S;
-  const int ldq = D | 1, ldg = Dv | 1;
-  const int ldx = (D > Dv ? D : Dv) | 1;
-  float* sQ = smem;                // 64 x ldq   q rows
-  float* sG = sQ + kTile * ldq;    // 64 x ldg   g rows
-  float* sX = sG + kTile * ldg;    // 64 x ldx   v tile, then k tile
+  const int c0 = blockIdx.z * kSlice, W = min(kSlice, D - c0);
+  const int ldx = slice_ld(D);
+  float* sA = smem;                // 64 x kLdC  g or q chunk
+  float* sB = sA + kTile * kLdC;   // 64 x kLdC  v or k chunk
+  float* sX = sB + kTile * kLdC;   // 64 x ldx   k tile, the slice's columns
   float* sS = sX + kTile * ldx;    // 64 x kLdP  ds, rounded
   const int q0 = blockIdx.x * kTile;
   const int bh = blockIdx.y, b = bh / H;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const size_t head = (size_t)bh * S;
-  load_tile<T>(sQ, ldq, q + head * D, q0, S, D);
-  load_tile<T>(sG, ldg, g + head * Dv, q0, S, Dv);
+  const T* qh = q + head * D;
+  const T* kh = k + head * D;
+  const T* gh = g + head * Dv;
+  const T* vh = v + head * Dv;
   float l[4], de[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -211,17 +215,12 @@ __global__ void __launch_bounds__(kThreads) hires_dq_kernel(
   float acc[4][CJ];
   zero(acc);
   for (int t0 = 0; t0 < S; t0 += kTile) {
-    __syncthreads();  // the previous tile is done with sX and sS
-    load_tile<T>(sX, ldx, v + head * Dv, t0, S, Dv);
-    __syncthreads();
     float s[4][4], dp[4][4];
     zero(s);
     zero(dp);
-    mm_nt<4>(dp, sG, ldg, sX, ldx, Dv);
-    __syncthreads();
-    load_tile<T>(sX, ldx, k + head * D, t0, S, D);
-    __syncthreads();
-    mm_nt<4>(s, sQ, ldq, sX, ldx, D);
+    // (the first barrier: the previous tile is done with sX and sS)
+    scores_chunked<T>(dp, sA, sB, gh, q0, vh, t0, S, Dv);
+    scores_chunked<T>(s, sA, sB, qh, q0, kh, t0, S, D);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = q0 + ty + 16 * i;
@@ -239,8 +238,9 @@ __global__ void __launch_bounds__(kThreads) hires_dq_kernel(
         sS[(ty + 16 * i) * kLdP + tx + 16 * j] = ds;
       }
     }
+    load_cols<T>(sX, ldx, kh, D, t0, S, c0, W);
     __syncthreads();
-    mm_nn<CJ>(acc, sS, kLdP, sX, ldx, D);
+    mm_nn<CJ>(acc, sS, kLdP, sX, ldx, W);
   }
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -249,11 +249,14 @@ __global__ void __launch_bounds__(kThreads) hires_dq_kernel(
 #pragma unroll
     for (int j = 0; j < CJ; ++j) {
       const int c = tx + 16 * j;
-      if (c < D) dq[(head + r) * D + c] = from_f<T>(acc[i][j]);
+      if (c < W) dq[(head + r) * D + c0 + c] = from_f<T>(acc[i][j]);
     }
   }
 }
 
+// dk and dv of 64 keys of one (batch element, head), columns [c0, c0 +
+// Wk) of dk and [c0, c0 + Wv) of dv (the grid's z slice; either may be
+// empty where D and Dv differ).
 template <typename T, int CJ>
 __global__ void __launch_bounds__(kThreads) hires_dkv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -262,35 +265,34 @@ __global__ void __launch_bounds__(kThreads) hires_dkv_kernel(
     T* __restrict__ dv) {
   extern __shared__ float smem[];
   const int H = R.H, S = R.S;
-  const int ldk = D | 1, ldv = Dv | 1;
-  const int ldx = (D > Dv ? D : Dv) | 1;
-  float* sK = smem;                // 64 x ldk   k rows (this CTA's keys)
-  float* sV = sK + kTile * ldk;    // 64 x ldv   v rows
-  float* sX = sV + kTile * ldv;    // 64 x ldx   q tile, g tile, q tile
+  const int c0 = blockIdx.z * kSlice;
+  const int Wk = max(0, min(kSlice, D - c0));
+  const int Wv = max(0, min(kSlice, Dv - c0));
+  const int ldx = slice_ld(D > Dv ? D : Dv);
+  float* sA = smem;                // 64 x kLdC  k or v chunk (this CTA's keys)
+  float* sB = sA + kTile * kLdC;   // 64 x kLdC  q or g chunk
+  float* sX = sB + kTile * kLdC;   // 64 x ldx   g tile, then q tile: slices
   float* sP = sX + kTile * ldx;    // 64 x kLdP  round(p)^T
   float* sD = sP + kTile * kLdP;   // 64 x kLdP  ds^T
   const int t0 = blockIdx.x * kTile;
   const int bh = blockIdx.y, b = bh / H;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const size_t head = (size_t)bh * S;
-  load_tile<T>(sK, ldk, k + head * D, t0, S, D);
-  load_tile<T>(sV, ldv, v + head * Dv, t0, S, Dv);
+  const T* qh = q + head * D;
+  const T* kh = k + head * D;
+  const T* gh = g + head * Dv;
+  const T* vh = v + head * Dv;
   float acc_k[4][CJ], acc_v[4][CJ];
   zero(acc_k);
   zero(acc_v);
   for (int q0 = 0; q0 < S; q0 += kTile) {
-    __syncthreads();  // the previous tile is done with sX and sP
-    load_tile<T>(sX, ldx, q + head * D, q0, S, D);
-    __syncthreads();
-    // Key rows (ty + 16i) by query columns (tx + 16j).
+    // Key rows (ty + 16i) by query columns (tx + 16j). (The first barrier:
+    // the previous tile is done with sX, sP and sD.)
     float s[4][4], dp[4][4];
     zero(s);
     zero(dp);
-    mm_nt<4>(s, sK, ldk, sX, ldx, D);
-    __syncthreads();
-    load_tile<T>(sX, ldx, g + head * Dv, q0, S, Dv);
-    __syncthreads();
-    mm_nt<4>(dp, sV, ldv, sX, ldx, Dv);
+    scores_chunked<T>(s, sA, sB, kh, t0, qh, q0, S, D);
+    scores_chunked<T>(dp, sA, sB, vh, t0, gh, q0, S, Dv);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int c = q0 + tx + 16 * j;
@@ -310,12 +312,17 @@ __global__ void __launch_bounds__(kThreads) hires_dkv_kernel(
         sD[(ty + 16 * i) * kLdP + tx + 16 * j] = ds;
       }
     }
-    __syncthreads();
-    mm_nn<CJ>(acc_v, sP, kLdP, sX, ldx, Dv);   // dv += round(p)^T g
-    __syncthreads();  // every warp is done with g
-    load_tile<T>(sX, ldx, q + head * D, q0, S, D);
-    __syncthreads();
-    mm_nn<CJ>(acc_k, sD, kLdP, sX, ldx, D);    // dk += ds^T q
+    if (Wv > 0) {
+      load_cols<T>(sX, ldx, gh, Dv, q0, S, c0, Wv);
+      __syncthreads();
+      mm_nn<CJ>(acc_v, sP, kLdP, sX, ldx, Wv);   // dv += round(p)^T g
+    }
+    if (Wk > 0) {
+      __syncthreads();  // every warp is done with g
+      load_cols<T>(sX, ldx, qh, D, q0, S, c0, Wk);
+      __syncthreads();
+      mm_nn<CJ>(acc_k, sD, kLdP, sX, ldx, Wk);   // dk += ds^T q
+    }
   }
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -324,22 +331,21 @@ __global__ void __launch_bounds__(kThreads) hires_dkv_kernel(
 #pragma unroll
     for (int j = 0; j < CJ; ++j) {
       const int c = tx + 16 * j;
-      if (c < D) dk[(head + t) * D + c] = from_f<T>(acc_k[i][j]);
-      if (c < Dv) dv[(head + t) * Dv + c] = from_f<T>(acc_v[i][j]);
+      if (c < Wk) dk[(head + t) * D + c0 + c] = from_f<T>(acc_k[i][j]);
+      if (c < Wv) dv[(head + t) * Dv + c0 + c] = from_f<T>(acc_v[i][j]);
     }
   }
 }
 
-size_t dm_ssum_smem(int D, int Dv) {
-  return sizeof(float) * 2 * kTile * (size_t)((D > Dv ? D : Dv) | 1);
-}
+// Dynamic shared memory of the CUDA-core kernels: the two contraction
+// chunks, and for the dq kernel (n_score_tiles 1) and the dk/dv kernel (2)
+// a slice-wide row tile and the score tiles (132,352 bytes for dk/dv at
+// D or Dv >= 256).
+size_t dm_ssum_smem() { return sizeof(float) * 2 * kTile * (size_t)kLdC; }
 
-// The dq kernel (n_score_tiles 1) and the dk/dv kernel (2): three row
-// tiles and the score tiles; 230,656 bytes at D = Dv = 256 for dk/dv.
-size_t tiled_smem(int D, int Dv, int n_score_tiles) {
+size_t tiled_smem(int width, int n_score_tiles) {
   return sizeof(float) * kTile *
-         ((size_t)(D | 1) + (Dv | 1) + ((D > Dv ? D : Dv) | 1) +
-          (size_t)n_score_tiles * kLdP);
+         ((size_t)2 * kLdC + slice_ld(width) + (size_t)n_score_tiles * kLdP);
 }
 
 template <typename Kern>
@@ -815,27 +821,29 @@ cudaError_t launch_dq_bf16(const bf16* q, const bf16* k, const bf16* v,
   return rep.done(smem);
 }
 
-// dm, ssum (the dm/ssum kernel) and dq on the route of the compute type.
+// dm, ssum (the dm/ssum kernel) and dq: bf16 on the tensor cores where the
+// call's family allows (Family), every other call on the CUDA-core kernels.
 template <typename T>
 cudaError_t dm_ssum(const T* q, const T* k, const T* v, const T* g,
                     const Residuals& R, int B, int D, int Dv, T* dm, T* ssum,
-                    cudaStream_t st, Report& rep) {
+                    Family fam, cudaStream_t st, Report& rep) {
   const unsigned tiles = (unsigned)((R.S + kTile - 1) / kTile);
   if constexpr (std::is_same<T, bf16>::value) {
-    cudaError_t err = allow_smem(hires_dm_ssum_bf16_kernel, kDmSsumSmem);
-    if (err != cudaSuccess) return err;
-    hires_dm_ssum_bf16_kernel<<<dim3(tiles, tiles, B), kAttnThreads,
-                                kDmSsumSmem, st>>>(q, k, v, g, R, D, Dv, dm,
-                                                   ssum);
-    return rep.done(kDmSsumSmem);
-  } else {
-    const size_t smem = dm_ssum_smem(D, Dv);
-    cudaError_t err = allow_smem(hires_dm_ssum_kernel<T>, smem);
-    if (err != cudaSuccess) return err;
-    hires_dm_ssum_kernel<T><<<dim3(tiles, tiles, B), kThreads, smem, st>>>(
-        q, k, v, g, R, D, Dv, dm, ssum);
-    return rep.done(smem);
+    if (fam.aligned) {
+      cudaError_t err = allow_smem(hires_dm_ssum_bf16_kernel, kDmSsumSmem);
+      if (err != cudaSuccess) return err;
+      hires_dm_ssum_bf16_kernel<<<dim3(tiles, tiles, B), kAttnThreads,
+                                  kDmSsumSmem, st>>>(q, k, v, g, R, D, Dv,
+                                                     dm, ssum);
+      return rep.done(kDmSsumSmem);
+    }
   }
+  const size_t smem = dm_ssum_smem();
+  cudaError_t err = allow_smem(hires_dm_ssum_kernel<T>, smem);
+  if (err != cudaSuccess) return err;
+  hires_dm_ssum_kernel<T><<<dim3(tiles, tiles, B), kThreads, smem, st>>>(
+      q, k, v, g, R, D, Dv, dm, ssum);
+  return rep.done(smem);
 }
 
 template <typename T, int CJ>
@@ -843,39 +851,45 @@ cudaError_t launch_dq(const T* q, const T* k, const T* v, const T* g,
                       const Residuals& R, const float* dssum, int B, int D,
                       int Dv, T* dq, cudaStream_t st, Report& rep) {
   auto kern = hires_dq_kernel<T, CJ>;
-  const size_t smem = tiled_smem(D, Dv, 1);
+  const size_t smem = tiled_smem(D, 1);
   cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return err;
-  kern<<<dim3((R.S + kTile - 1) / kTile, B * R.H), kThreads, smem, st>>>(
-      q, k, v, g, R, dssum, D, Dv, dq);
+  kern<<<dim3((R.S + kTile - 1) / kTile, B * R.H, slices_of(D)), kThreads,
+         smem, st>>>(q, k, v, g, R, dssum, D, Dv, dq);
   return rep.done(smem);
 }
 
 template <typename T>
 cudaError_t dq_pass(const T* q, const T* k, const T* v, const T* g,
                     const Residuals& R, const float* dssum, int B, int D,
-                    int Dv, T* dq, cudaStream_t st, Report& rep) {
+                    int Dv, T* dq, Family fam, cudaStream_t st,
+                    Report& rep) {
   if constexpr (std::is_same<T, bf16>::value) {
     static_assert(kMaxChunks == 4, "one case per chunk count");
-    switch (chunks_of(D)) {
-      case 1:
-        return launch_dq_bf16<1>(q, k, v, g, R, dssum, B, D, Dv, dq, st, rep);
-      case 2:
-        return launch_dq_bf16<2>(q, k, v, g, R, dssum, B, D, Dv, dq, st, rep);
-      case 3:
-        return launch_dq_bf16<3>(q, k, v, g, R, dssum, B, D, Dv, dq, st, rep);
-      default:
-        return launch_dq_bf16<4>(q, k, v, g, R, dssum, B, D, Dv, dq, st, rep);
+    if (fam.tc) {
+      switch (chunks_of(D)) {
+        case 1:
+          return launch_dq_bf16<1>(q, k, v, g, R, dssum, B, D, Dv, dq, st,
+                                   rep);
+        case 2:
+          return launch_dq_bf16<2>(q, k, v, g, R, dssum, B, D, Dv, dq, st,
+                                   rep);
+        case 3:
+          return launch_dq_bf16<3>(q, k, v, g, R, dssum, B, D, Dv, dq, st,
+                                   rep);
+        default:
+          return launch_dq_bf16<4>(q, k, v, g, R, dssum, B, D, Dv, dq, st,
+                                   rep);
+      }
     }
-  } else {
-    switch (cols_per_thread(D)) {
-      case 4:
-        return launch_dq<T, 4>(q, k, v, g, R, dssum, B, D, Dv, dq, st, rep);
-      case 8:
-        return launch_dq<T, 8>(q, k, v, g, R, dssum, B, D, Dv, dq, st, rep);
-      default:
-        return launch_dq<T, 16>(q, k, v, g, R, dssum, B, D, Dv, dq, st, rep);
-    }
+  }
+  switch (cols_per_thread(slice_width(D))) {
+    case 4:
+      return launch_dq<T, 4>(q, k, v, g, R, dssum, B, D, Dv, dq, st, rep);
+    case 8:
+      return launch_dq<T, 8>(q, k, v, g, R, dssum, B, D, Dv, dq, st, rep);
+    default:
+      return launch_dq<T, 16>(q, k, v, g, R, dssum, B, D, Dv, dq, st, rep);
   }
 }
 
@@ -884,11 +898,12 @@ cudaError_t launch_dkv(const T* q, const T* k, const T* v, const T* g,
                        const Residuals& R, const float* dssum, int B, int D,
                        int Dv, T* dk, T* dv, cudaStream_t st, Report& rep) {
   auto kern = hires_dkv_kernel<T, CJ>;
-  const size_t smem = tiled_smem(D, Dv, 2);
+  const int wide = D > Dv ? D : Dv;
+  const size_t smem = tiled_smem(wide, 2);
   cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return err;
-  kern<<<dim3((R.S + kTile - 1) / kTile, B * R.H), kThreads, smem, st>>>(
-      q, k, v, g, R, dssum, D, Dv, dk, dv);
+  kern<<<dim3((R.S + kTile - 1) / kTile, B * R.H, slices_of(wide)), kThreads,
+         smem, st>>>(q, k, v, g, R, dssum, D, Dv, dk, dv);
   return rep.done(smem);
 }
 
@@ -897,14 +912,14 @@ cudaError_t run_dq(const void* q, const void* k, const void* v,
                    const void* g, const Residuals& R, const void* w1t,
                    const float* b1, const void* w1, const void* w2, void* dq,
                    float* dssum, void* ssum, void* dm, void* a, float* gp,
-                   void* dh1, int B, int D, int Dv, cudaStream_t st,
-                   Report& rep) {
+                   void* dh1, int B, int D, int Dv, Family fam,
+                   cudaStream_t st, Report& rep) {
   const int S = R.S;
   const T *qt = static_cast<const T*>(q), *kt = static_cast<const T*>(k),
           *vt = static_cast<const T*>(v), *gt = static_cast<const T*>(g);
   cudaError_t err = dm_ssum<T>(qt, kt, vt, gt, R, B, D, Dv,
-                               static_cast<T*>(dm), static_cast<T*>(ssum), st,
-                               rep);
+                               static_cast<T*>(dm), static_cast<T*>(ssum),
+                               fam, st, rep);
   if (err != cudaSuccess) return err;
 
   const long long S2 = 2LL * S, rows = (long long)B * S;
@@ -913,77 +928,81 @@ cudaError_t run_dq(const void* q, const void* k, const void* v,
   gm.A = ssum; gm.B = w1t; gm.C = a; gm.C2 = gp; gm.bias = b1;
   gm.epilogue = kGelu; gm.M = (int)rows; gm.N = (int)S2; gm.K = S; gm.KO = 1;
   gm.sAm = S; gm.sAk = 1; gm.sBk = S2; gm.sBn = 1; gm.ldc = S2;
-  if ((err = gemm<T>(gm, 1, st, rep)) != cudaSuccess) return err;
+  if ((err = gemm<T>(gm, 1, fam.aligned, st, rep)) != cudaSuccess) return err;
   // dh1 = round((dm W2) * gp); W2 is (S, 2S) row-major.
   gm = Gemm{};
   gm.A = dm; gm.B = w2; gm.C = dh1; gm.C2 = gp; gm.epilogue = kDgeluMul;
   gm.M = (int)rows; gm.N = (int)S2; gm.K = S; gm.KO = 1;
   gm.sAm = S; gm.sAk = 1; gm.sBk = S2; gm.sBn = 1; gm.ldc = S2;
-  if ((err = gemm<T>(gm, 1, st, rep)) != cudaSuccess) return err;
+  if ((err = gemm<T>(gm, 1, fam.aligned, st, rep)) != cudaSuccess) return err;
   // dssum = dh1 W1, fp32; W1 is (2S, S) row-major.
   gm = Gemm{};
   gm.A = dh1; gm.B = w1; gm.C = dssum; gm.epilogue = kStoreF32;
   gm.M = (int)rows; gm.N = S; gm.K = (int)S2; gm.KO = 1;
   gm.sAm = S2; gm.sAk = 1; gm.sBk = S; gm.sBn = 1; gm.ldc = S;
-  if ((err = gemm<T>(gm, 1, st, rep)) != cudaSuccess) return err;
+  if ((err = gemm<T>(gm, 1, fam.aligned, st, rep)) != cudaSuccess) return err;
   return dq_pass<T>(qt, kt, vt, gt, R, dssum, B, D, Dv, static_cast<T*>(dq),
-                    st, rep);
+                    fam, st, rep);
 }
 
 template <typename T>
 cudaError_t run_dkv(const void* q, const void* k, const void* v,
                     const void* g, const Residuals& R, const float* dssum,
-                    void* dk, void* dv, int B, int D, int Dv,
+                    void* dk, void* dv, int B, int D, int Dv, Family fam,
                     cudaStream_t st, Report& rep) {
   const T *qt = static_cast<const T*>(q), *kt = static_cast<const T*>(k),
           *vt = static_cast<const T*>(v), *gt = static_cast<const T*>(g);
   T *dkt = static_cast<T*>(dk), *dvt = static_cast<T*>(dv);
   if constexpr (std::is_same<T, bf16>::value) {
     static_assert(kMaxChunks == 4, "one case per chunk count");
-    switch (chunks_of(D > Dv ? D : Dv)) {
-      case 1:
-        return launch_dkv_bf16<1>(qt, kt, vt, gt, R, dssum, B, D, Dv, dkt,
-                                  dvt, st, rep);
-      case 2:
-        return launch_dkv_bf16<2>(qt, kt, vt, gt, R, dssum, B, D, Dv, dkt,
-                                  dvt, st, rep);
-      case 3:
-        return launch_dkv_bf16<3>(qt, kt, vt, gt, R, dssum, B, D, Dv, dkt,
-                                  dvt, st, rep);
-      default:
-        return launch_dkv_bf16<4>(qt, kt, vt, gt, R, dssum, B, D, Dv, dkt,
-                                  dvt, st, rep);
+    if (fam.tc) {
+      switch (chunks_of(D > Dv ? D : Dv)) {
+        case 1:
+          return launch_dkv_bf16<1>(qt, kt, vt, gt, R, dssum, B, D, Dv, dkt,
+                                    dvt, st, rep);
+        case 2:
+          return launch_dkv_bf16<2>(qt, kt, vt, gt, R, dssum, B, D, Dv, dkt,
+                                    dvt, st, rep);
+        case 3:
+          return launch_dkv_bf16<3>(qt, kt, vt, gt, R, dssum, B, D, Dv, dkt,
+                                    dvt, st, rep);
+        default:
+          return launch_dkv_bf16<4>(qt, kt, vt, gt, R, dssum, B, D, Dv, dkt,
+                                    dvt, st, rep);
+      }
     }
-  } else {
-    switch (cols_per_thread(D > Dv ? D : Dv)) {
-      case 4:
-        return launch_dkv<T, 4>(qt, kt, vt, gt, R, dssum, B, D, Dv, dkt, dvt,
-                                st, rep);
-      case 8:
-        return launch_dkv<T, 8>(qt, kt, vt, gt, R, dssum, B, D, Dv, dkt, dvt,
-                                st, rep);
-      default:
-        return launch_dkv<T, 16>(qt, kt, vt, gt, R, dssum, B, D, Dv, dkt,
-                                 dvt, st, rep);
-    }
+  }
+  switch (cols_per_thread(slice_width(D > Dv ? D : Dv))) {
+    case 4:
+      return launch_dkv<T, 4>(qt, kt, vt, gt, R, dssum, B, D, Dv, dkt, dvt,
+                              st, rep);
+    case 8:
+      return launch_dkv<T, 8>(qt, kt, vt, gt, R, dssum, B, D, Dv, dkt, dvt,
+                              st, rep);
+    default:
+      return launch_dkv<T, 16>(qt, kt, vt, gt, R, dssum, B, D, Dv, dkt, dvt,
+                               st, rep);
   }
 }
 
-// Floats of the weight grads' scratch: bf16, kWgSplits partials of dW1 and
-// of dW2 (2S^2 each); both routes, kColSplits partial column sums of dh1
-// and dm.
-long long weight_grads_scratch(bool bf16_route, int S) {
+// Whether the weight grads' products run on the tensor cores, split over
+// the rows: bf16 with S a multiple of 8 (the products' operands are S or 2S
+// wide, whatever D and Dv are).
+bool split_weight_grads(int is_bf16, int S) { return is_bf16 && S % 8 == 0; }
+
+// Floats of the weight grads' scratch: split, kWgSplits partials of dW1 and
+// of dW2 (2S^2 each); always, kColSplits partial column sums of dh1 and dm.
+long long weight_grads_scratch(bool split, int S) {
   const long long sq2 = 2LL * S * S;
-  return (bf16_route ? 2 * kWgSplits * sq2 : 0) + (long long)kColSplits * 3 * S;
+  return (split ? 2 * kWgSplits * sq2 : 0) + (long long)kColSplits * 3 * S;
 }
 
 template <typename T>
 cudaError_t run_weight_grads(const void* ssum, const void* dm, const void* a,
                              const void* dh1, float* dw1, float* db1,
                              float* dw2, float* db2, float* part,
-                             long long rows, int S, cudaStream_t st,
-                             Report& rep) {
-  constexpr bool kSplit = std::is_same<T, bf16>::value;
+                             long long rows, int S, bool kSplit,
+                             cudaStream_t st, Report& rep) {
   const long long S2 = 2LL * S, n = S2 * S;
   // With the split, rows [z kc, (z + 1) kc) of split z; its partial product
   // goes to part + z n (dW1) or part + (kWgSplits + z) n (dW2).
@@ -997,7 +1016,7 @@ cudaError_t run_weight_grads(const void* ssum, const void* dm, const void* a,
   if (kSplit) {
     gm.Ktot = (int)rows; gm.sAz = kc * S2; gm.sBz = kc * S; gm.sCz = n;
   }
-  cudaError_t err = gemm<T>(gm, Z, st, rep);
+  cudaError_t err = gemm<T>(gm, Z, kSplit, st, rep);
   if (err != cudaSuccess) return err;
   // dW2 (S, 2S) = dm^T a over the rows.
   gm = Gemm{};
@@ -1007,7 +1026,7 @@ cudaError_t run_weight_grads(const void* ssum, const void* dm, const void* a,
   if (kSplit) {
     gm.Ktot = (int)rows; gm.sAz = kc * S; gm.sBz = kc * S2; gm.sCz = n;
   }
-  if ((err = gemm<T>(gm, Z, st, rep)) != cudaSuccess) return err;
+  if ((err = gemm<T>(gm, Z, kSplit, st, rep)) != cudaSuccess) return err;
   if (kSplit) {
     sum_partials_kernel<<<dim3((unsigned)((n / 4 + 255) / 256), 2), 256, 0,
                           st>>>(part, dw1, part + kWgSplits * n, dw2, n,
@@ -1022,9 +1041,8 @@ cudaError_t run_weight_grads(const void* ssum, const void* dm, const void* a,
                    db2, st, rep);
 }
 
-bool bad_dims(int is_bf16, int B, int H, int S, int D, int Dv) {
-  return B < 1 || H < 1 || S < 1 || D < 1 || D > 256 || Dv < 1 || Dv > 256 ||
-         (is_bf16 && (S % 8 || D % 8 || Dv % 8));
+bool bad_dims(int B, int H, int S, int D, int Dv) {
+  return B < 1 || H < 1 || S < 1 || D < 1 || Dv < 1;
 }
 
 }  // namespace
@@ -1034,10 +1052,10 @@ bool bad_dims(int is_bf16, int B, int H, int S, int D, int Dv) {
 // (2S,S), w2 (S,2S) in the compute type, b1 (2S) fp32. Outputs: dq
 // (B,H,S,D) in the compute type, dssum (B,S,S) fp32, and the per-row factors
 // of the weight grads, ssum and dm (B,S,S) and a and dh1 (B,S,2S) in the
-// compute type, with gp (B,S,2S) fp32 scratch. All contiguous. bf16 takes
-// S, D and Dv that are multiples of 8. Sets *launched to the number of
-// kernels the call launched and *smem to the largest dynamic shared memory
-// (bytes) one of their CTAs asked for.
+// compute type, with gp (B,S,2S) fp32 scratch. All contiguous. Takes any
+// S, D and Dv; family_of(is_bf16, S, D, Dv) picks the kernels. Sets
+// *launched to the number of kernels the call launched and *smem to the
+// largest dynamic shared memory (bytes) one of their CTAs asked for.
 extern "C" int hires_attention_dq(
     int is_bf16, const void* q, const void* k, const void* v, const void* g,
     const float* m, const float* lse, const float* delta, const void* w1t,
@@ -1047,15 +1065,16 @@ extern "C" int hires_attention_dq(
     long long* smem) {
   *launched = 0;
   *smem = 0;
-  if (bad_dims(is_bf16, B, H, S, D, Dv)) return (int)cudaErrorInvalidValue;
+  if (bad_dims(B, H, S, D, Dv)) return (int)cudaErrorInvalidValue;
   const Residuals R{m, lse, delta, H, S, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Family fam = family_of(is_bf16, S, D, Dv);
   Report rep;
   const cudaError_t err =
       is_bf16 ? run_dq<bf16>(q, k, v, g, R, w1t, b1, w1, w2, dq, dssum, ssum,
-                             dm, a, gp, dh1, B, D, Dv, st, rep)
+                             dm, a, gp, dh1, B, D, Dv, fam, st, rep)
               : run_dq<float>(q, k, v, g, R, w1t, b1, w1, w2, dq, dssum,
-                              ssum, dm, a, gp, dh1, B, D, Dv, st, rep);
+                              ssum, dm, a, gp, dh1, B, D, Dv, fam, st, rep);
   *launched = rep.launched;
   *smem = (long long)rep.smem;
   return (int)err;
@@ -1063,7 +1082,7 @@ extern "C" int hires_attention_dq(
 
 // Floats of the scratch `part` that hires_weight_grads needs at S.
 extern "C" long long hires_weight_grads_scratch(int is_bf16, int S) {
-  return weight_grads_scratch(is_bf16 != 0, S);
+  return weight_grads_scratch(split_weight_grads(is_bf16, S), S);
 }
 
 // dW1 (2S,S), db1 (2S), dW2 (S,2S), db2 (S), fp32, from the dq pass's ssum,
@@ -1078,23 +1097,23 @@ extern "C" int hires_weight_grads(int is_bf16, const void* ssum,
                                   int* launched, long long* smem) {
   *launched = 0;
   *smem = 0;
-  if (rows < 1 || S < 1 || (is_bf16 && S % 8))
-    return (int)cudaErrorInvalidValue;
+  if (rows < 1 || S < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool split = split_weight_grads(is_bf16, S);
   Report rep;
   const cudaError_t err =
       is_bf16 ? run_weight_grads<bf16>(ssum, dm, a, dh1, dw1, db1, dw2, db2,
-                                       part, rows, S, st, rep)
+                                       part, rows, S, split, st, rep)
               : run_weight_grads<float>(ssum, dm, a, dh1, dw1, db1, dw2, db2,
-                                        part, rows, S, st, rep);
+                                        part, rows, S, split, st, rep);
   *launched = rep.launched;
   *smem = (long long)rep.smem;
   return (int)err;
 }
 
 // dk (B,H,S,D) and dv (B,H,S,Dv) in the compute type from q, k, v, g and the
-// residuals m, lse, delta and dssum (fp32, as for hires_attention_dq). bf16
-// takes S, D and Dv that are multiples of 8. Returns a cudaError_t; sets
+// residuals m, lse, delta and dssum (fp32, as for hires_attention_dq). Takes
+// any S, D and Dv, as hires_attention_dq does. Returns a cudaError_t; sets
 // *launched and *smem as hires_attention_dq does.
 extern "C" int hires_attention_dkv(
     int is_bf16, const void* q, const void* k, const void* v, const void* g,
@@ -1103,14 +1122,16 @@ extern "C" int hires_attention_dkv(
     void* stream, int* launched, long long* smem) {
   *launched = 0;
   *smem = 0;
-  if (bad_dims(is_bf16, B, H, S, D, Dv)) return (int)cudaErrorInvalidValue;
+  if (bad_dims(B, H, S, D, Dv)) return (int)cudaErrorInvalidValue;
   const Residuals R{m, lse, delta, H, S, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Family fam = family_of(is_bf16, S, D, Dv);
   Report rep;
   const cudaError_t err =
-      is_bf16 ? run_dkv<bf16>(q, k, v, g, R, dssum, dk, dv, B, D, Dv, st, rep)
-              : run_dkv<float>(q, k, v, g, R, dssum, dk, dv, B, D, Dv, st,
-                               rep);
+      is_bf16 ? run_dkv<bf16>(q, k, v, g, R, dssum, dk, dv, B, D, Dv, fam, st,
+                              rep)
+              : run_dkv<float>(q, k, v, g, R, dssum, dk, dv, B, D, Dv, fam,
+                               st, rep);
   *launched = rep.launched;
   *smem = (long long)rep.smem;
   return (int)err;

@@ -197,18 +197,6 @@ cudaError_t colsum(const T* X, long long R, int N, float* part, float* out,
 // of a 64-row tile and columns tx + 16j (j < CJ). The 16 threads that share
 // rows are one half-warp, so row reductions are shuffles over lane bits 0-3.
 
-// rows [row0, row0 + 64) of a (n_rows x cols) row-major matrix into dst
-// (row stride ld, fp32); rows past n_rows become zeros.
-template <typename T>
-__device__ void load_tile(float* dst, int ld, const T* __restrict__ src,
-                          int row0, int n_rows, int cols) {
-  for (int idx = threadIdx.x; idx < kTile * cols; idx += kThreads) {
-    const int r = idx / cols, c = idx - r * cols;
-    dst[r * ld + c] =
-        row0 + r < n_rows ? to_f(src[(size_t)(row0 + r) * cols + c]) : 0.f;
-  }
-}
-
 // acc[i][j] += sum_{k < K} A[r_i][k] * B[c_j][k]  (both row-major over k;
 // odd strides keep the 16 rows a half-warp reads on different banks).
 template <int CJ>
@@ -273,5 +261,74 @@ __device__ __forceinline__ void zero(float (&acc)[4][CJ]) {
 
 // Output columns per thread for head dims up to `d`: 16 * CJ >= d.
 inline int cols_per_thread(int d) { return d <= 64 ? 4 : d <= 128 ? 8 : 16; }
+
+// ---------------------------------------------------------------------------
+// No head dim is bounded on the CUDA-core kernels: a CTA's register tile
+// holds at most kSlice output columns (CJ = 16 a thread), so wider outputs
+// are split over the grid (blockIdx.z: columns [z kSlice, (z + 1) kSlice)),
+// and every contraction over D or Dv streams through shared memory kChunk
+// columns at a time, in the order of a whole-row product (the same sums).
+constexpr int kSlice = 256;
+constexpr int kChunk = 64;
+constexpr int kLdC = kChunk + 1;
+
+inline int slices_of(int width) { return (width + kSlice - 1) / kSlice; }
+
+// Columns of the widest slice of a `width`-wide output, and the row
+// stride of a [64][slice] tile of it (odd).
+__host__ __device__ inline int slice_width(int width) {
+  return width < kSlice ? width : kSlice;
+}
+__host__ __device__ inline int slice_ld(int width) {
+  return slice_width(width) | 1;
+}
+
+// The kernels of a call. bf16 calls whose S, D and Dv are multiples of 8
+// (rows of 16 bytes) run their strided products and the dm/ssum pass on
+// the tensor cores (aligned), and with D, Dv <= kSlice their attention,
+// dq and dk/dv passes too (tc); every other call, fp32 or bf16, runs the
+// CUDA-core kernels, which read the compute type and accumulate in fp32.
+struct Family {
+  bool aligned, tc;
+};
+inline Family family_of(int is_bf16, int S, int D, int Dv) {
+  const bool aligned = is_bf16 && !(S % 8 || D % 8 || Dv % 8);
+  return {aligned, aligned && D <= kSlice && Dv <= kSlice};
+}
+
+// Rows [row0, row0 + 64) x columns [c0, c0 + cols) of a row-major matrix
+// with row stride src_ld into dst (row stride ld, fp32); rows past n_rows
+// become zeros.
+template <typename T>
+__device__ void load_cols(float* dst, int ld, const T* __restrict__ src,
+                          int src_ld, int row0, int n_rows, int c0,
+                          int cols) {
+  for (int idx = threadIdx.x; idx < kTile * cols; idx += kThreads) {
+    const int r = idx / cols, c = idx - r * cols;
+    dst[r * ld + c] = row0 + r < n_rows
+                          ? to_f(src[(size_t)(row0 + r) * src_ld + c0 + c])
+                          : 0.f;
+  }
+}
+
+// acc[i][j] += sum_{k < width} A[a0 + r_i][k] * B[b0 + c_j][k] for two
+// row-major (n x width) matrices, the contraction staged kChunk columns at
+// a time in sA and sB ([64][kLdC] each). Begins with a barrier, so the
+// caller's last reads of sA, sB and of any tile it refills after the call
+// are done before the first copy.
+template <typename T>
+__device__ void scores_chunked(float (&acc)[4][4], float* sA, float* sB,
+                               const T* __restrict__ A, int a0,
+                               const T* __restrict__ B, int b0, int n,
+                               int width) {
+  for (int c0 = 0; c0 < width; c0 += kChunk) {
+    const int w = min(kChunk, width - c0);
+    __syncthreads();
+    load_cols<T>(sA, kLdC, A, width, a0, n, c0, w);
+    load_cols<T>(sB, kLdC, B, width, b0, n, c0, w);
+    __syncthreads();
+    mm_nt<4>(acc, sA, kLdC, sB, kLdC, w);
+  }
+}
 
 }  // namespace

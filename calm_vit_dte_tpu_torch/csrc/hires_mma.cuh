@@ -208,22 +208,25 @@ cudaError_t launch_gemm_tc(const Gemm& g, int Z, cudaStream_t st,
   return rep.done(kGemmSmem);
 }
 
-// The strided product in the compute type: bf16 on the tensor cores (the
-// staging of each operand picked by which of its strides is 1), fp32 on the
-// CUDA cores (gemm_kernel).
+// The strided product in the compute type: bf16 on the tensor cores where
+// the call's operands are `aligned` (Family; the staging of each operand
+// picked by which of its strides is 1), every other call on the CUDA cores
+// (gemm_kernel, which takes no split of the contraction: Ktot 0).
 template <typename T>
-cudaError_t gemm(const Gemm& g, int Z, cudaStream_t st, Report& rep) {
+cudaError_t gemm(const Gemm& g, int Z, bool aligned, cudaStream_t st,
+                 Report& rep) {
   if constexpr (std::is_same<T, bf16>::value) {
-    const bool akm = g.sAm == 1, bkn = g.sBn == 1;
-    if (akm && bkn) return launch_gemm_tc<true, true>(g, Z, st, rep);
-    if (akm) return launch_gemm_tc<true, false>(g, Z, st, rep);
-    if (bkn) return launch_gemm_tc<false, true>(g, Z, st, rep);
-    return launch_gemm_tc<false, false>(g, Z, st, rep);
-  } else {
-    const dim3 grid((g.N + kTile - 1) / kTile, (g.M + kTile - 1) / kTile, Z);
-    gemm_kernel<T><<<grid, kThreads, 0, st>>>(g);
-    return rep.done(0);
+    if (aligned) {
+      const bool akm = g.sAm == 1, bkn = g.sBn == 1;
+      if (akm && bkn) return launch_gemm_tc<true, true>(g, Z, st, rep);
+      if (akm) return launch_gemm_tc<true, false>(g, Z, st, rep);
+      if (bkn) return launch_gemm_tc<false, true>(g, Z, st, rep);
+      return launch_gemm_tc<false, false>(g, Z, st, rep);
+    }
   }
+  const dim3 grid((g.N + kTile - 1) / kTile, (g.M + kTile - 1) / kTile, Z);
+  gemm_kernel<T><<<grid, kThreads, 0, st>>>(g);
+  return rep.done(0);
 }
 
 // out_j[i] = sum_{z < splits} part_j[z * n + i] in order of z, for the two

@@ -202,25 +202,14 @@ def _launch(qc, qr, kc, kr, v, cos_q, sin_q, cos_k, sin_k, w1, b1, w2, b2,
             *, scale, dtype, use_mask) -> torch.Tensor:
     """Launch on the card: bf16 on the tensor-core kernel, fp32 on the
     CUDA-core one."""
-    if dtype not in _DTYPES:
-        raise ValueError(f"compute dtype {dtype} not supported; "
-                         f"expected one of {_DTYPES}")
     bf16 = dtype == torch.bfloat16
     dev = v.device
     b, h, s, dv = v.shape
     dc = 0 if qc is None else qc.shape[-1]
     dr = 0 if qr is None else qr.shape[-1]
-    if s > MAX_S or dv > MAX_DV or dr % 2 or dc + dr == 0:
-        raise ValueError(f"unsupported shape: S={s} (<= {MAX_S}), "
-                         f"Dv={dv} (<= {MAX_DV}), Dc={dc}, Dr={dr} (even)")
-    if bf16 and (dc + dr > 64 or dc % 2 or dv % 2):
-        raise ValueError(f"the bf16 kernel takes D <= 64 and even Dc, Dv; "
-                         f"got Dc={dc}, Dr={dr}, Dv={dv}")
-    smem = (smem_bytes(s, dc + dr, dv, use_mask) if bf16
-            else smem_bytes_f32(s, dc + dr, dv))
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"S={s}, D={dc + dr}, Dv={dv} needs more shared "
-                         "memory than a CTA has")
+    why = refusal(s, dc, dr, dv, dtype, use_mask)
+    if why is not None:
+        raise ValueError(why)
     _check(v, "v", (b, h, s, dv), dtype, dev)
     for name, t, dim in (("qc", qc, dc), ("kc", kc, dc), ("qr", qr, dr),
                          ("kr", kr, dr)):
@@ -496,6 +485,43 @@ def bwd_smem_bytes_f32(s: int, d: int, dv: int) -> int:
     return 4 * (32 * ldq + sp * ldq + 32 * sp + 32 * 2 * sp + 32 * ld)
 
 
+def refusal(s: int, dc: int, dr: int, dv: int, dtype,
+            use_mask: bool = True) -> str | None:
+    """Why the rope kernels (forward and backward) refuse a shape, or None
+    when both take it: the conditions `_launch` and `_launch_bwd` raise on,
+    with the messages they raise. S is Sq == Skv. The dispatcher
+    (ops/attention.py::pick_route) and both launches test `refusal(...) is
+    None`. JAX counterpart: `rope_supported`
+    (calm_vit_dte_tpu/kernels/axial_attention.py:625), whose tiles and VMEM
+    become these shared-memory and register-tile limits."""
+    if dtype not in _DTYPES:
+        return (f"compute dtype {dtype} not supported; expected one of "
+                f"{_DTYPES}")
+    d = dc + dr
+    if (s < 1 or s > MAX_S or dv < 1 or dv > MAX_DV or dc < 0 or dr < 0
+            or dr % 2 or d == 0):
+        return (f"unsupported shape: S={s} (<= {MAX_S}), Dv={dv} "
+                f"(<= {MAX_DV}), Dc={dc}, Dr={dr} (even)")
+    bf16 = dtype == torch.bfloat16
+    if bf16 and (d > 64 or dc % 2 or dv % 2):
+        return (f"the bf16 kernel takes D <= 64 and even Dc, Dv; got "
+                f"Dc={dc}, Dr={dr}, Dv={dv}")
+    smem = (smem_bytes(s, d, dv, use_mask) if bf16
+            else smem_bytes_f32(s, d, dv))
+    if smem > _SMEM_LIMIT:
+        return (f"S={s}, D={d}, Dv={dv} needs more shared memory than a "
+                "CTA has")
+    if d > 64:
+        return f"the backward kernel takes D <= 64, got {d}"
+    smem = (max(bwd_rows_smem_bytes(s, d, dv, use_mask),
+                bwd_keys_smem_bytes(s, d, dv, use_mask)) if bf16
+            else bwd_smem_bytes_f32(s, d, dv))
+    if smem > _SMEM_LIMIT:
+        return (f"S={s}, D={d}, Dv={dv} needs more shared memory than a "
+                "CTA has")
+    return None
+
+
 # Slots of the backward's pointer arrays, in the order of the source's
 # enums (Slot for fp32, SlotBf16 for bf16).
 _BWD_SLOTS = ("qc", "kc", "qr", "kr", "v", "g", "cos_q", "sin_q", "cos_k",
@@ -522,14 +548,9 @@ def _launch_bwd(g, qc, qr, kc, kr, v, cos_q, sin_q, cos_k, sin_k, w1, b1,
     dc = 0 if qc is None else qc.shape[-1]
     dr = 0 if qr is None else qr.shape[-1]
     d = dc + dr
-    if d > 64:
-        raise ValueError(f"the backward kernel takes D <= 64, got {d}")
-    smem = (max(bwd_rows_smem_bytes(s, d, dv, use_mask),
-                bwd_keys_smem_bytes(s, d, dv, use_mask)) if bf16
-            else bwd_smem_bytes_f32(s, d, dv))
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"S={s}, D={d}, Dv={dv} needs more shared memory "
-                         "than a CTA has")
+    why = refusal(s, dc, dr, dv, dtype, use_mask)
+    if why is not None:
+        raise ValueError(why)
     _check(g, "g", (b, h, s, dv), dtype, dev)
 
     def new(shape, dt=torch.float32):

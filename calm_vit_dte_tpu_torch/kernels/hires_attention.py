@@ -1,5 +1,5 @@
 """Long-sequence fused attention with the learned additive mask (the
-`hires-cls-1024` shapes, S up to 1024 and head dims up to 256): the CUDA
+`hires-cls-1024` shapes, S up to 1024, and any head dims): the CUDA
 kernels' wrappers, the autograd Function that joins them, and their plain
 PyTorch versions.
 
@@ -31,10 +31,17 @@ product accumulates in fp32, o, dq, dk and dv are written in the compute
 dtype, m, lse, dssum and the weight grads in fp32.
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
-launches its kernels or raises. The bf16 route runs every product on the
-tensor cores and takes S, D and Dv that are multiples of 8; the fp32 route
-(the card-vs-CPU checks) runs them on the CUDA cores and takes any shape
-with D, Dv <= 256. Each wrapper counts its calls in `.launches`; the C
+launches its kernels or raises. The kernels take every shape (Sq == Skv,
+any S, D, Dv). A bf16 call whose S, D and Dv are multiples of 8 and whose
+D, Dv are at most 256 runs every product on the tensor cores
+(`tensor_cores`); a bf16 call with S, D, Dv multiples of 8 but a wider
+head runs its strided products and dm/ssum pass there and its attention,
+dq and dk/dv passes on the CUDA-core kernels; every other call, and every
+fp32 call (the card-vs-CPU checks), runs the CUDA-core kernels, which
+stream every contraction over D or Dv through shared memory 64 columns at
+a time and split an output wider than 256 columns over the grid. Each
+wrapper counts its calls in `.launches` (and of them the calls on the
+CUDA-core kernels in `.cuda_core_launches`); the C
 entries report the kernels each call launched and the largest dynamic
 shared memory a CTA of them asked for, and the wrappers add the launches
 past the counted one to `.stage_launches` and keep the shared memory of
@@ -62,8 +69,8 @@ REPLACES_FWD_RES = "calm_vit_dte_tpu/kernels/axial_attention.py:1069"
 REPLACES_DQ = "calm_vit_dte_tpu/kernels/axial_attention.py:1087"
 REPLACES_DKV = "calm_vit_dte_tpu/kernels/axial_attention.py:1125"
 REPLACES_FWD_ONLY = "calm_vit_dte_tpu/kernels/axial_attention.py:1221"
-MAX_D = 256     # head dims the kernels' register tiles hold (D and Dv)
-BF16_MULTIPLE = 8  # S, D and Dv of the bf16 route: rows of 16 bytes
+TC_MAX_D = 256     # the widest D, Dv of the tensor-core attention passes
+BF16_MULTIPLE = 8  # S, D and Dv of the tensor-core kernels: 16-byte rows
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -143,20 +150,40 @@ def _check(t, name, shape, dtype, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def refusal(s: int, d: int, dv: int, dtype) -> str | None:
+    """Why the hires kernels refuse a shape, or None when all four take it
+    (every positive S = Sq = Skv, D, Dv in fp32 or bf16): the dims checks
+    of both C entries (`hires_attention_fwd` in csrc/hires_attention.cu
+    and `bad_dims` in csrc/hires_attention_bwd.cu), with the messages
+    `_dims` raises. The dispatcher (ops/attention.py::pick_route) and every
+    launch test `refusal(...) is None`. JAX counterpart: `hires_supported`
+    (calm_vit_dte_tpu/kernels/axial_attention.py:880), whose VMEM tiles
+    have no counterpart here: the CUDA-core kernels stage any head dim."""
+    if dtype not in _DTYPES:
+        return (f"compute dtype {dtype} not supported; expected one of "
+                f"{_DTYPES}")
+    if min(s, d, dv) < 1:
+        return f"S={s}, D={d}, Dv={dv}: the kernels take positive dims"
+    return None
+
+
+def tensor_cores(s: int, d: int, dv: int, dtype) -> bool:
+    """Whether a call's attention, dq and dk/dv passes run on the tensor
+    cores: `family_of(...).tc` in csrc/hires_common.cuh (bf16, S, D and Dv
+    multiples of BF16_MULTIPLE, D and Dv at most TC_MAX_D)."""
+    return (dtype == torch.bfloat16 and not (s % BF16_MULTIPLE
+                                             or d % BF16_MULTIPLE
+                                             or dv % BF16_MULTIPLE)
+            and d <= TC_MAX_D and dv <= TC_MAX_D)
+
+
 def _dims(q, k, v, dtype) -> tuple:
     """(B, H, S, D, Dv) after checking q, k, v for a launch."""
-    if dtype not in _DTYPES:
-        raise ValueError(f"compute dtype {dtype} not supported; expected "
-                         f"one of {_DTYPES}")
     b, h, s, d = q.shape
     dv = v.shape[-1]
-    if d > MAX_D or dv > MAX_D:
-        raise ValueError(f"head dims D={d}, Dv={dv}: the kernels take at "
-                         f"most {MAX_D}")
-    if dtype == torch.bfloat16 and (s % BF16_MULTIPLE or d % BF16_MULTIPLE
-                                    or dv % BF16_MULTIPLE):
-        raise ValueError(f"S={s}, D={d}, Dv={dv}: the bf16 kernels take "
-                         f"multiples of {BF16_MULTIPLE}")
+    why = refusal(s, d, dv, dtype)
+    if why is not None:
+        raise ValueError(why)
     _check(q, "q", (b, h, s, d), dtype, v.device)
     _check(k, "k", (b, h, s, d), dtype, v.device)
     _check(v, "v", (b, h, s, dv), dtype, v.device)
@@ -233,6 +260,7 @@ def _launch_fwd(q, k, v, w1, b1, w2, b2, *, scale, dtype, use_mask: bool,
         _ptr(ssum), _ptr(a), _ptr(m), _ptr(o), _ptr(lse), b, h, s, d, dv,
         float(scale), torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "hires_attention_fwd", dims, dtype)
+    counter.cuda_core_launches += not tensor_cores(s, d, dv, dtype)
     return o, (m if residuals else None), lse
 
 
@@ -267,6 +295,7 @@ def _launch_dq(q, k, v, g, m, lse, delta, w1, b1, w2, *, scale,
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "hires_attention_dq", dims, dtype)
     hires_dq.launches += 1
+    hires_dq.cuda_core_launches += not tensor_cores(s, d, dv, dtype)
     return (dq, dssum) + hires_weight_grads(ssum, dm, a, dh1)
 
 
@@ -296,9 +325,6 @@ def hires_weight_grads(ssum, dm, a, dh1) -> tuple:
     outs = [torch.empty(shape, dtype=torch.float32, device=dev)
             for shape in ((2 * s, s), (2 * s,), (s, 2 * s), (s,))]
     bf16 = int(dtype == torch.bfloat16)
-    if bf16 and s % BF16_MULTIPLE:
-        raise ValueError(f"S={s}: the bf16 kernels take multiples of "
-                         f"{BF16_MULTIPLE}")
     scratch = library("hires_attention_bwd").hires_weight_grads_scratch
     if scratch.argtypes is None:
         scratch.argtypes = [ctypes.c_int] * 2
@@ -333,6 +359,7 @@ def _launch_dkv(q, k, v, g, m, lse, delta, dssum, *, scale,
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "hires_attention_dkv", dims, dtype)
     hires_dkv.launches += 1
+    hires_dkv.cuda_core_launches += not tensor_cores(s, d, dv, dtype)
     return dk, dvv
 
 
@@ -450,4 +477,10 @@ for _counter in (fused_hires_attention, hires_dq, hires_weight_grads,
                  hires_dkv, fused_attention_forward):
     _counter.stage_launches = 0
     _counter.smem_bytes = 0
+# Of `.launches`, the calls whose attention passes ran the CUDA-core
+# kernels (`tensor_cores` false: fp32, or bf16 past the tensor-core
+# kernels).
+for _counter in (fused_hires_attention, hires_dq, hires_dkv,
+                 fused_attention_forward):
+    _counter.cuda_core_launches = 0
 del _counter

@@ -211,7 +211,31 @@ Phases, each fatal on failure (any exception exits non-zero):
              profile_opt (3 repetitions). Exact launches on every path: 24 +
              24 rope a step, 24 + 8 a flagship forward, 24 + 24 + 24 hires a
              hires step, 24 forward-only + 8 conv a hires forward; a tool
-             that fails fails the run.
+             that fails fails the run;
+ 15. routes  the attention dispatch (ops/attention.py) and the JAX
+             package's 'chunked' and 'xla' routes: (a) at each limit of the
+             dispatcher (rope Dv 64 -> 72 at S 224: rope -> hires; D = Dv
+             256 -> 264 at S 1024 and bf16 S 1024 -> 1020: the hires
+             kernels on the tensor cores -> on the CUDA cores; Sq = Skv 224
+             -> Skv 256: rope -> 'xla'), fp32 and bf16, mask on and off, one
+             counter each; the route's fp32 forward (rtol 2e-4 / atol 2e-5)
+             and gradients (within 1e-4 of each one's largest value) card
+             vs CPU; the hires CUDA-core kernels at the six-head shapes
+             past D 256 and at the limits' shapes past, against their plain
+             versions as phase 8 holds the tensor-core ones, and timed at
+             B=8; (b) 'chunked' (chunk 2) against 'xla' forced at B 16, H 6,
+             S 1024, D = Dv 512 in bf16, forward and backward, each within
+             twice the other's error of the fp32 route, each one's device
+             ms and peak memory, beside the hires kernels that 'auto' takes
+             there; (c) create_vit("hires-cls-1024", heads=6) at full
+             width, u/v converged as Predictor.fresh does: classify 8 uint8
+             1168x1168 images through the Predictor constructor in bf16
+             (exactly 24 forward-only hires launches, 15 of them on the
+             CUDA-core kernels, + 8 conv), fp32 logits card vs CPU on 1
+             image (phase 8's limits), and make_train_step steps at B=16 in
+             bf16 with remat (exactly 24 + 24 + 24 hires launches, 15 each
+             on the CUDA-core kernels, no route; the loss finite, every
+             gradient finite and nonzero), images/s and ms a step.
 
 Every fp32 comparison runs with torch.backends.cuda.matmul.allow_tf32 and
 torch.backends.cudnn.allow_tf32 both False, so the plain versions' products
@@ -314,11 +338,11 @@ def attn_inputs(torch, b, s, dc, dr, dv, device, dtype, seed):
             n(s, 2 * s, scale=0.05, dt=f32), n(s, scale=0.05, dt=f32))
 
 
-def grad_like(torch, b, s, dv, device, dtype, seed):
+def grad_like(torch, b, s, dv, device, dtype, seed, h=H):
     """An output gradient (B, H, S, Dv) for the attention backward."""
     rng = np.random.default_rng(seed)
     return torch.from_numpy(
-        (rng.standard_normal((b, H, s, dv)) * 0.3).astype(np.float32)).to(
+        (rng.standard_normal((b, h, s, dv)) * 0.3).astype(np.float32)).to(
         device=device, dtype=dtype)
 
 
@@ -495,7 +519,8 @@ HIRES_STAGES_PER_CALL = {"fwd_res": 3, "fwd_only": 3, "dq": 4,
                          "weight_grads": 6, "dkv": 0}
 
 
-def hires_inputs(torch, b, s, d, dv, device, dtype, seed, zero_mask=False):
+def hires_inputs(torch, b, s, d, dv, device, dtype, seed, zero_mask=False,
+                 h=H):
     """q, k (B,H,S,D), v (B,H,S,Dv) in `dtype` (rotated and concatenated
     already: the hires route does that in torch) and fp32 mask weights
     scaled so that the scores, the mask's hidden layer and m are of order
@@ -511,31 +536,31 @@ def hires_inputs(torch, b, s, d, dv, device, dtype, seed, zero_mask=False):
          n(s, 2 * s, scale=(2 * s) ** -0.5), n(s, scale=0.1)]
     if zero_mask:
         w = [torch.zeros_like(t) for t in w]
-    return [n(b, H, s, d, scale=0.3, dt=dtype), n(b, H, s, d, scale=0.3,
+    return [n(b, h, s, d, scale=0.3, dt=dtype), n(b, h, s, d, scale=0.3,
                                                   dt=dtype),
-            n(b, H, s, dv, scale=0.3, dt=dtype), *w]
+            n(b, h, s, dv, scale=0.3, dt=dtype), *w]
 
 
-def hires_bounds(b, s, d, dv, itemsize):
+def hires_bounds(b, s, d, dv, itemsize, h=H):
     """(bytes ms, operations ms) of the four hires kernels at one shape:
     each input read once, each output written once; the operations of the
     products each kernel forms (the mask MLP included)."""
     mlp = 4 * b * s ** 3                       # one (B*S, S) x (S, 2S) product
-    qkvo = b * H * s * (2 * d + 2 * dv) * itemsize
+    qkvo = b * h * s * (2 * d + 2 * dv) * itemsize
     weights = (2 * s * 2 * s + 3 * s) * 4
     sq = b * s * s * 4                          # an fp32 (B, S, S) residual
-    vec = b * H * s * 4                         # lse or delta
+    vec = b * h * s * 4                         # lse or delta
     work = {
         "fwd_only": (qkvo + weights,
-                     2 * b * H * s * s * (d + dv) + 2 * mlp),
+                     2 * b * h * s * s * (d + dv) + 2 * mlp),
         "fwd_res": (qkvo + weights + sq + vec,
-                    2 * b * H * s * s * (d + dv) + 2 * mlp),
+                    2 * b * h * s * s * (d + dv) + 2 * mlp),
         "dq": (qkvo + weights + sq + 2 * vec       # q k v g; m lse delta
-               + b * H * s * d * itemsize          # dq
+               + b * h * s * d * itemsize          # dq
                + sq + weights,                     # dssum; weight grads
-               2 * b * H * s * s * (2 * d + dv) + 5 * mlp),
-        "dkv": (qkvo + b * H * s * (d + dv) * itemsize + 2 * sq + 2 * vec,
-                4 * b * H * s * s * (d + dv)),
+               2 * b * h * s * s * (2 * d + dv) + 5 * mlp),
+        "dkv": (qkvo + b * h * s * (d + dv) * itemsize + 2 * sq + 2 * vec,
+                4 * b * h * s * s * (d + dv)),
     }
     return {k: (nb / PEAK_BYTES * 1e3, fl / PEAK_BF16_FLOPS * 1e3)
             for k, (nb, fl) in work.items()}
@@ -553,7 +578,8 @@ def hires_bwd(kh, args, g, res, scale, dtype, plain):
     return out + dkv_fn(q, k, v, g, m, lse, delta, out[1], **kw)
 
 
-def check_hires_shape(torch, ka, kh, s, d, dv, seed, zero_mask=False):
+def check_hires_shape(torch, ka, kh, s, d, dv, seed, zero_mask=False,
+                      h=H):
     """Kernels 1-4 against their plain versions at B=HIRES_CHECK_BATCH:
     fp32 forward (o, m, lse; kernel 4 with the mask on and off) at rtol 2e-4
     / atol 2e-5, fp32 backward within BWD_FP32_LIMIT of each output's
@@ -563,8 +589,8 @@ def check_hires_shape(torch, ka, kh, s, d, dv, seed, zero_mask=False):
     dev = torch.device("cuda")
     scale = 1.0 / d ** 0.5
     args = hires_inputs(torch, HIRES_CHECK_BATCH, s, d, dv, dev, f32, seed,
-                        zero_mask)
-    g = grad_like(torch, HIRES_CHECK_BATCH, s, dv, dev, f32, seed + 1)
+                        zero_mask, h=h)
+    g = grad_like(torch, HIRES_CHECK_BATCH, s, dv, dev, f32, seed + 1, h=h)
     kw32, kw16 = dict(scale=scale, dtype=f32), dict(scale=scale, dtype=bf16)
     worst = {"fwd_res": 0.0, "fwd_only": 0.0, "dq": 0.0, "dkv": 0.0,
              "bwd_norm": 0.0, "bf16_ratio": 0.0}
@@ -2686,6 +2712,10 @@ TOOLS_KERNEL_NAMES = {
     "hires_dq": "hires_attention_dq",
     "hires_dkv": "hires_attention_dkv",
     "fused_attention_forward": "hires_attention_fwd_only",
+    "fused_hires_attention:cuda_core": "hires_attention_fwd_res_cuda_core",
+    "hires_dq:cuda_core": "hires_attention_dq_cuda_core",
+    "hires_dkv:cuda_core": "hires_attention_dkv_cuda_core",
+    "fused_attention_forward:cuda_core": "hires_attention_fwd_only_cuda_core",
 }
 
 
@@ -3007,6 +3037,549 @@ def tools_phase(torch, name, smi):
         + ", ".join(f"{k.removeprefix('tools_')} {v['seconds']:.1f} s"
                     for k, v in metrics.items() if k != "seconds"))
     return by_path, metrics
+
+
+ROUTES_HEADS = 6          # phase 15: hires-cls-1024 at heads=6
+ROUTES_TRAIN_BATCH = 16   # phase 15 (c): the batch at which S = 1024 chunks
+ROUTES_TRAIN_STEPS = 2
+# Phase 15 (c), fixed from hires-cls-1024's shapes at heads=6, (S, D, Dv)
+# as the hires kernels see them (D = Dc + Dr): layers. Every layer has Sq ==
+# Skv, so every one takes the hires kernels and none the route: the 9 at D
+# 224 their tensor-core kernels, the 15 at D 320, 416 and 512 (past 256)
+# their CUDA-core kernels. The TPU takes a Pallas kernel for all 24.
+ROUTES_LAYERS = {(448, 224, 224): 9, (640, 320, 320): 6, (832, 416, 416): 6,
+                 (1024, 512, 512): 3}
+ROUTES_CLASSIFY_LAUNCHES = {"fused_attention_forward": 24,
+                            "fused_conv_residual": 8}
+ROUTES_STEP_LAUNCHES = {"fused_hires_attention": 24, "hires_dq": 24,
+                        "hires_weight_grads": 24, "hires_dkv": 24}
+ROUTES_CUDA_CORE = 15     # of each hires wrapper's launches a forward or step
+# Phase 15 (a): the hires kernels past the tensor-core kernels, (H, S, D,
+# Dv): the six-head model's three shapes past D 256 and the two limits'
+# shapes past (D 264; bf16 S 1020, which runs every stage on CUDA cores).
+ROUTES_WIDE_CHECKS = ((6, 1024, 512, 512), (6, 832, 416, 416),
+                      (6, 640, 320, 320), (4, 1024, 264, 264),
+                      (4, 1020, 256, 256))
+# Phase 15 (b): chunked against xla, forced, bf16 (B, H, S, D = Dv).
+ROUTES_COMPARE = (16, 6, 1024, 512)
+
+
+def route_inputs(torch, shape, device, seed):
+    """fp32 leaves of one attention call: {qc, qr, kc, kr, v, fq, fk} (or q,
+    k, v with Dr = 0) and the four mask tensors (w1, b1, w2, b2), scaled so
+    that the scores, the mask's hidden layer and m are of order one."""
+    b, h, sq, skv, dc, dr, dv = shape
+    rng = np.random.default_rng(seed)
+
+    def n(*shp, scale):
+        return torch.from_numpy((rng.standard_normal(shp) * scale).astype(
+            np.float32)).to(device)
+
+    x = ({"q": n(b, h, sq, dc, scale=0.3), "k": n(b, h, skv, dc, scale=0.3)}
+         if not dr else
+         {"qc": n(b, h, sq, dc, scale=0.3), "qr": n(b, h, sq, dr, scale=0.3),
+          "kc": n(b, h, skv, dc, scale=0.3), "kr": n(b, h, skv, dr, scale=0.3),
+          "fq": (1.0 / 10000 ** (torch.arange(0, dr, 2, device=device)
+                                 / dr)).float()})
+    if dr:
+        x["fk"] = x["fq"] * 1.1
+    x["v"] = n(b, h, skv, dv, scale=0.3)
+    x.update(w1=n(2 * skv, skv, scale=0.2 / skv ** 0.5),
+             b1=n(2 * skv, scale=0.1), w2=n(skv, 2 * skv,
+                                             scale=(2 * skv) ** -0.5),
+             b2=n(skv, scale=0.1))
+    return x
+
+
+def route_call(ops, x, dtype, use_mask):
+    """masked_attention (Dr = 0) or masked_rope_attention on the leaves."""
+    mask = tuple(x[k] for k in ("w1", "b1", "w2", "b2"))
+    if "q" in x:
+        return ops.masked_attention(x["q"], x["k"], x["v"], mask, dtype=dtype,
+                                    use_mask=use_mask)
+    return ops.masked_rope_attention(x["qc"], x["qr"], x["kc"], x["kr"],
+                                     x["v"], x["fq"], x["fk"], mask,
+                                     dtype=dtype, use_mask=use_mask)
+
+
+def routes_phase(torch, name, smi):
+    """Phase 15: the attention dispatch (ops/attention.py) and the JAX
+    package's 'chunked' and 'xla' routes. (a) each limit of the dispatcher,
+    fp32 and bf16, mask on and off: the shape just inside and just past
+    each take their route (rope, the hires kernels on the tensor cores or
+    on the CUDA cores, 'xla'), one counter each; the route's fp32 forward
+    and gradients card vs CPU; the hires kernels at shapes past the
+    tensor-core kernels against their plain versions, and timed at the
+    six-head shapes; (b) 'chunked' against 'xla' forced at S 1024, D = Dv
+    512, H 6, B 16, bf16, forward and backward, each one's device ms and
+    peak memory; (c) hires-cls-1024 at heads=6 at full width: classify 8
+    images in bf16 (24 forward-only hires launches, 15 of them on the
+    CUDA-core kernels, + 8 conv), fp32 logits card vs CPU on 1 image, and
+    make_train_step steps at B=16 in bf16 with remat (24 + 24 + 24 hires
+    launches a step, 15 each on the CUDA-core kernels; no route).
+    Returns (launches and stage launches by path and wrapper, metrics,
+    the CUDA-core hires kernels' summaries for the kernels line)."""
+    from calm_vit_dte_tpu_torch.data.augment import eval_preprocess
+    from calm_vit_dte_tpu_torch.kernels import axial_attention as ka
+    from calm_vit_dte_tpu_torch.kernels import conv_residual as kc
+    from calm_vit_dte_tpu_torch.kernels import hires_attention as kh
+    from calm_vit_dte_tpu_torch.kernels import relayout as kr
+    from calm_vit_dte_tpu_torch.models.factory import create_vit
+    from calm_vit_dte_tpu_torch.nn.spectral_norm import normalize_tree
+    from calm_vit_dte_tpu_torch.ops import attention as ops
+    from calm_vit_dte_tpu_torch.serve import (
+        WARMUP_POWER_ITERATIONS,
+        Predictor,
+    )
+    from calm_vit_dte_tpu_torch.train.optim import make_optimizer
+    from calm_vit_dte_tpu_torch.train.state import create_train_state
+    from calm_vit_dte_tpu_torch.train.step import make_train_step
+    from calm_vit_dte_tpu_torch.utils.configs import get_config
+    from calm_vit_dte_tpu_torch.utils.profiling import launch_counts
+
+    t_phase = time.time()
+    bf16, f32 = torch.bfloat16, torch.float32
+    dev = torch.device("cuda")
+    wrappers = (ka.fused_rope_attention, ka.fused_rope_attention_bwd,
+                kh.fused_hires_attention, kh.hires_dq, kh.hires_weight_grads,
+                kh.hires_dkv, kh.fused_attention_forward)
+    hires_wrappers = (kh.fused_hires_attention, kh.hires_dq, kh.hires_dkv,
+                      kh.fused_attention_forward)
+
+    def zero_counts():
+        """Every wrapper's launches, stage launches and CUDA-core launches,
+        and the route's forwards, to 0 (just before each path)."""
+        for fn in (*wrappers, kc.fused_conv_residual,
+                   kc.conv_residual_fwd_resid, kc.conv_residual_bwd,
+                   kc.conv_weight_grad_sum, kr.swap_seq_heads):
+            fn.launches = 0
+        for fn in wrappers:
+            fn.stage_launches = 0
+        for fn in hires_wrappers:
+            fn.cuda_core_launches = 0
+        for k in ops.route_calls:
+            ops.route_calls[k] = 0
+
+    def counts():
+        got = {k: n for k, n in launch_counts().items() if n}
+        got.update({f"route:{k}": n for k, n in ops.route_calls.items() if n})
+        return got
+
+    def cuda_core():
+        return {fn.__name__: fn.cuda_core_launches for fn in hires_wrappers
+                if fn.cuda_core_launches}
+
+    def stages():
+        return {k: n for k, n in _stage_counts().items() if n}
+
+    route_counter = {"rope": "fused_rope_attention",
+                     "hires": "fused_hires_attention",
+                     "xla": "route:xla", "chunked": "route:chunked"}
+    metrics: dict = {"limits": [], "name": name, "smi": smi}
+
+    # (a) each limit of the dispatcher: inside and past take their routes.
+    t0 = time.time()
+    for li, (what, inside, past, first, second, dtypes) in enumerate(
+            ops.ROUTE_LIMITS):
+        for dt_name in dtypes:
+            dtype = getattr(torch, dt_name)
+            for use_mask in (True, False):
+                for shape, want_route in ((inside, first), (past, second)):
+                    b, h, sq, skv, dc, dr, dv = shape
+                    x = route_inputs(torch, shape, dev, seed=1500 + li)
+                    for t in x.values():
+                        t.requires_grad_()
+                    zero_counts()
+                    out = route_call(ops, x, dtype, use_mask)
+                    got = counts()
+                    family = None
+                    if want_route == "hires":
+                        family = ("tensor cores" if kh.tensor_cores(
+                            sq, dc + dr, dv, dtype) else "CUDA cores")
+                        if cuda_core() != ({} if family == "tensor cores"
+                                           else {"fused_hires_attention": 1}):
+                            raise AssertionError(
+                                f"routes {what} {shape} {dt_name}: expected "
+                                f"the {family}, got {cuda_core()}")
+                    if got != {route_counter[want_route]: 1}:
+                        raise AssertionError(
+                            f"routes {what} {shape} {dt_name} mask="
+                            f"{use_mask}: expected one "
+                            f"{route_counter[want_route]}, got {got}")
+                    g = torch.from_numpy(np.random.default_rng(1550 + li)
+                                         .standard_normal(out.shape).astype(
+                        np.float32)).to(dev)
+                    (out.float() * g).sum().backward()
+                    leaves = {k: t for k, t in x.items() if t.grad is not None}
+                    if not torch.isfinite(out.float()).all() or not all(
+                            torch.isfinite(t.grad).all()
+                            for t in leaves.values()):
+                        raise AssertionError(f"routes {what} {shape} "
+                                             f"{dt_name}: not finite")
+                    row = {"limit": what, "shape": shape, "dtype": dt_name,
+                           "use_mask": use_mask, "route": want_route,
+                           "hires_kernels": family}
+                    if want_route in ("xla", "chunked") and dtype == f32:
+                        # The route's fp32 forward and gradients, card vs CPU.
+                        xc = {k: t.detach().cpu().requires_grad_()
+                              for k, t in x.items()}
+                        oc = route_call(ops, xc, f32, use_mask)
+                        (oc * g.cpu()).sum().backward()
+                        oc = oc.detach()
+                        torch.testing.assert_close(out.detach().cpu(), oc,
+                                                   rtol=2e-4, atol=2e-5)
+                        worst = 0.0
+                        for k, t in leaves.items():
+                            err = norm_err(t.grad.cpu(), xc[k].grad)
+                            if err > BWD_FP32_LIMIT:
+                                raise AssertionError(
+                                    f"routes {what} {shape}: gradient of {k} "
+                                    f"{err:.3e} of its largest value, card "
+                                    "vs CPU")
+                            worst = max(worst, err)
+                        row.update(fwd_err=max_err(out.detach().cpu(), oc),
+                                   bwd_norm_err=worst,
+                                   grads=sorted(leaves))
+                    metrics["limits"].append(row)
+                    del x, out, g
+        log(f"[routes] (a) {what}: {first} just inside, {second} just past "
+            f"({', '.join(dtypes)}, mask on and off), one counter each")
+    for row in metrics["limits"]:
+        if "fwd_err" in row:
+            log(f"[routes] (a) fp32 {row['route']} card vs CPU at "
+                f"{row['shape']} mask={row['use_mask']}: forward max abs "
+                f"diff {row['fwd_err']:.3e}, gradients ({', '.join(row['grads'])}) "
+                f"worst {row['bwd_norm_err']:.3e} of the largest value")
+    # The hires kernels past the tensor-core kernels, against their plain
+    # versions (fp32 and bf16, as phase 8 holds the tensor-core ones).
+    worst: dict = {}
+    for i, (h, s, d, dv) in enumerate(ROUTES_WIDE_CHECKS):
+        w = check_hires_shape(torch, ka, kh, s, d, dv, seed=1520 + 2 * i,
+                              h=h)
+        worst[(s, d, dv)] = w
+        log(f"[routes check] hires CUDA-core kernels H={h} S={s} D={d} "
+            f"Dv={dv}: fp32 max err fwd_res {w['fwd_res']:.3e}, fwd_only "
+            f"{w['fwd_only']:.3e}, dq pass {w['dq']:.3e}, dkv pass "
+            f"{w['dkv']:.3e}, backward worst {w['bwd_norm']:.3e} of the "
+            f"largest value; bf16 worst {w['bf16_ratio']:.3f} x the plain "
+            "bf16 error")
+    metrics["limits_seconds"] = time.time() - t0
+
+    # The CUDA-core hires kernels' times at the six-head shapes past D 256,
+    # B=8 bf16, beside their plain versions and bounds (per forward, or per
+    # training step's backward: each shape's time x its layers).
+    t0 = time.time()
+    rows = {k: [] for k in ("fwd_res", "dq", "dkv", "fwd_only")}
+    for i, ((s, d, dv), n) in enumerate(sorted(ROUTES_LAYERS.items())):
+        if kh.tensor_cores(s, d, dv, bf16):
+            continue
+        args = hires_inputs(torch, HIRES_BATCH, s, d, dv, dev, bf16,
+                            seed=1560 + i, h=ROUTES_HEADS)
+        g = grad_like(torch, HIRES_BATCH, s, dv, dev, bf16, seed=1570 + i,
+                      h=ROUTES_HEADS)
+        kw = dict(scale=d ** -0.5, dtype=bf16)
+        o, m, lse = kh.hires_fwd_res_plain(*args, **kw)
+        delta = (g.float() * o.float()).sum(-1)
+        q, k, v, w1, b1, w2, _ = args
+        dssum = kh.hires_dq_plain(q, k, v, g, m, lse, delta, w1, b1, w2,
+                                  **kw)[1]
+        calls = {
+            "fwd_res": (lambda: kh.hires_fwd_res(*args, **kw),
+                        lambda: kh.hires_fwd_res_plain(*args, **kw)),
+            "fwd_only": (lambda: kh.fused_attention_forward(*args, **kw),
+                         lambda: ka.attention_core(*args, use_mask=True,
+                                                   **kw)),
+            "dq": (lambda: kh.hires_dq(q, k, v, g, m, lse, delta, w1, b1,
+                                       w2, **kw),
+                   lambda: kh.hires_dq_plain(q, k, v, g, m, lse, delta, w1,
+                                             b1, w2, **kw)),
+            "dkv": (lambda: kh.hires_dkv(q, k, v, g, m, lse, delta, dssum,
+                                         **kw),
+                    lambda: kh.hires_dkv_plain(q, k, v, g, m, lse, delta,
+                                               dssum, **kw)),
+        }
+        bounds = hires_bounds(HIRES_BATCH, s, d, dv, 2, h=ROUTES_HEADS)
+        for kname, (kern, plain) in calls.items():
+            ms = cuda_ms(torch, kern, 2, warmup=1)
+            plain_ms = cuda_ms(torch, plain, 2, warmup=1)
+            t_bytes, t_ops = bounds[kname]
+            row = dict(H=ROUTES_HEADS, S=s, D=d, Dv=dv, B=HIRES_BATCH,
+                       launches=n, ms=ms, plain_ms=plain_ms,
+                       bound_ms=max(t_bytes, t_ops),
+                       bound_by="bytes" if t_bytes >= t_ops else "operations",
+                       fp32_err=worst[(s, d, dv)][kname],
+                       bf16_err_over_plain=worst[(s, d, dv)]["bf16_ratio"])
+            rows[kname].append(row)
+            log(f"[routes time] CUDA-core {kname} H={ROUTES_HEADS} S={s} "
+                f"D={d} Dv={dv} B={HIRES_BATCH} bf16 (x{n}): kernel "
+                f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
+                f"{row['bound_ms'] / ms:.2%} of bound; on {name} ({smi})")
+        del args, g, o, m, lse, delta, dssum, calls, q, k, v
+        torch.cuda.empty_cache()
+    wide_kernels = []
+    meta = {
+        "fwd_res": ("hires_attention_fwd_res", kh.SOURCE,
+                    kh.REPLACES_FWD_RES),
+        "dq": ("hires_attention_dq", kh.BWD_SOURCE, kh.REPLACES_DQ),
+        "dkv": ("hires_attention_dkv", kh.BWD_SOURCE, kh.REPLACES_DKV),
+        "fwd_only": ("hires_attention_fwd_only", kh.SOURCE,
+                     kh.REPLACES_FWD_ONLY),
+    }
+    for key, (kname, source, replaces) in meta.items():
+        r = rows[key]
+        t_bytes = sum(x["launches"] * x["bound_ms"] for x in r
+                      if x["bound_by"] == "bytes")
+        t_ops = sum(x["launches"] * x["bound_ms"] for x in r
+                    if x["bound_by"] == "operations")
+        wide_kernels.append({
+            "name": f"{kname}_cuda_core", "route": "cuda", "source": source,
+            "replaces": replaces, "launches": 0,
+            "max_abs_err": max(x["fp32_err"] for x in r),
+            "ms": sum(x["launches"] * x["ms"] for x in r),
+            "plain_ms": sum(x["launches"] * x["plain_ms"] for x in r),
+            "bound_ms": t_bytes + t_ops,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None, "launches_by_path": {}, "per_shape": r})
+    metrics["time_seconds"] = time.time() - t0
+
+    # (b) chunked against xla, forced, at S 1024, D = Dv 512, H 6, B 16.
+    t0 = time.time()
+    b, h, s, d = ROUTES_COMPARE
+    x = route_inputs(torch, (b, h, s, s, d, 0, d), dev, seed=1600)
+    g = torch.from_numpy(np.random.default_rng(1601).standard_normal(
+        (b, h, s, d)).astype(np.float32)).to(dev)
+    x16 = {k: (t.to(bf16) if t.dim() == 4 else t) for k, t in x.items()}
+    names = ("out", "q", "k", "v", "w1", "b1", "w2", "b2")
+
+    def fwd_bwd(inputs, dtype):
+        leaves = {k: t.detach().requires_grad_() for k, t in inputs.items()}
+        out = route_call(ops, leaves, dtype, True)
+        out.backward(g.to(out.dtype))
+        return [out.detach()] + [leaves[k].grad for k in names[1:]]
+
+    with ops.attention_impl("xla"):
+        ref = fwd_bwd({k: t.float() for k, t in x16.items()}, f32)
+    compare = {}
+    for route in ("chunked", "xla"):
+        with ops.attention_impl(route):
+            chunk = ops.pick_route(b, h, s, s, d, d, bf16)[1]
+            zero_counts()
+            res = fwd_bwd(x16, bf16)
+            torch.cuda.synchronize()
+            if counts() != {f"route:{route}": 1}:
+                raise AssertionError(f"routes (b) {route}: {counts()}")
+            res = [t.float() for t in res]
+            fwd_bwd(x16, bf16)   # warm
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(torch, lambda: fwd_bwd(x16, bf16), reps=3,
+                         warmup=0)
+            peak = torch.cuda.max_memory_allocated() - base
+        compare[route] = {"chunk": chunk, "ms_fwd_bwd": ms,
+                          "peak_mem_above_inputs_gib": peak / 2**30,
+                          "errors": {n: norm_err(t, r) for n, t, r in
+                                     zip(names, res, ref)},
+                          "result": res}
+        log(f"[routes] (b) {route} (chunk {chunk}) B={b} H={h} S={s} D=Dv={d} "
+            f"bf16 forward + backward: {ms:.3f} ms on the card, peak memory "
+            f"{peak / 2**30:.3f} GiB above the inputs, on {name} ({smi})")
+    for n, c, xl, r in zip(names, compare["chunked"].pop("result"),
+                           compare["xla"].pop("result"), ref):
+        ec, ex = norm_err(c, r), norm_err(xl, r)
+        if ec > 2 * ex + 1e-6 or ex > 2 * ec + 1e-6:
+            raise AssertionError(f"routes (b) {n}: chunked error {ec:.3e}, "
+                                 f"xla {ex:.3e} of the fp32 value")
+        compare.setdefault("chunked_vs_xla", {})[n] = norm_err(c, xl)
+    log("[routes] (b) chunked and xla within twice each other's bf16 error "
+        "of the fp32 route: " + ", ".join(
+            f"{n} {compare['chunked']['errors'][n]:.2e}/"
+            f"{compare['xla']['errors'][n]:.2e}" for n in names)
+        + "; chunked vs xla: " + ", ".join(
+            f"{n} {v:.2e}" for n, v in compare["chunked_vs_xla"].items()))
+    # The hires kernels on the same inputs (the route 'auto' takes here).
+    zero_counts()
+    hk = fwd_bwd(x16, bf16)
+    torch.cuda.synchronize()
+    if counts() != {"fused_hires_attention": 1, "hires_dq": 1,
+                    "hires_weight_grads": 1, "hires_dkv": 1}:
+        raise AssertionError(f"routes (b) hires: {counts()}")
+    hires_ms = cuda_ms(torch, lambda: fwd_bwd(x16, bf16), reps=3, warmup=1)
+    compare["hires_kernels"] = {
+        "ms_fwd_bwd": hires_ms,
+        "errors": {n: norm_err(t.float(), r) for n, t, r in
+                   zip(names, hk, ref)}}
+    log(f"[routes] (b) the hires kernels (CUDA cores) on the same inputs, "
+        f"'auto': {hires_ms:.3f} ms forward + backward; bf16 errors of the "
+        "fp32 route: " + ", ".join(
+            f"{n} {v:.2e}" for n, v in
+            compare["hires_kernels"]["errors"].items()))
+    metrics["chunked_vs_xla"] = compare
+    metrics["compare_seconds"] = time.time() - t0
+    del x, x16, g, ref, hk
+    torch.cuda.empty_cache()
+
+    # (c) hires-cls-1024 at heads=6, full width.
+    t0 = time.time()
+    cfg = get_config("hires-cls-1024")
+    mcfg, model = create_vit("hires-cls-1024", seed=cfg.init_seed,
+                             device="cuda", heads=ROUTES_HEADS)
+    with torch.no_grad():
+        for _ in range(WARMUP_POWER_ITERATIONS):
+            normalize_tree(model, training=True)
+    shapes: dict = {}
+    for _, bcfg in mcfg.backbone_cfg().block_configs():
+        for v in (bcfg.encoder_cfg(), bcfg.decoder_cfg(), bcfg.cross_cfg()):
+            dd = (v.head_dim_content + v.head_dim_rope) if v.reduce \
+                else v.head_dim
+            key = (v.seq_len_new, dd, v.head_dim)
+            shapes[key] = shapes.get(key, 0) + 1
+    if shapes != ROUTES_LAYERS or ROUTES_CUDA_CORE != sum(
+            n for (s_, dd, dv), n in shapes.items()
+            if not kh.tensor_cores(s_, dd, dv, bf16)):
+        raise AssertionError(f"routes: hires-cls-1024 at heads="
+                             f"{ROUTES_HEADS} has shapes {shapes}, expected "
+                             f"{ROUTES_LAYERS}")
+    log(f"[routes] (c) hires-cls-1024 at heads={ROUTES_HEADS}: attention "
+        f"shapes (S, D, Dv): layers = {shapes}; model and power iterations "
+        f"{time.time() - t0:.1f} s")
+    trainee = copy.deepcopy(model)
+    by_path: dict = {}
+
+    def split(got, got_stages, cc):
+        """Launches and stage launches by wrapper, the hires wrappers'
+        CUDA-core calls apart (`<wrapper>:cuda_core`): every hires call
+        makes the same stage launches on either family."""
+        launches = {k: n for k, n in got.items() if ":" not in k}
+        stage = dict(got_stages)
+        for k, n in cc.items():
+            per_call = got_stages.get(k, 0) // got[k]
+            if got_stages.get(k, 0) != per_call * got[k]:
+                raise AssertionError(f"routes {k}: {got_stages.get(k)} stage "
+                                     f"launches over {got[k]} calls")
+            launches[k] -= n
+            launches[f"{k}:cuda_core"] = n
+            if per_call:
+                stage[k] -= per_call * n
+                stage[f"{k}:cuda_core"] = per_call * n
+        return {"launches": launches, "stages": stage}
+
+    rng = np.random.default_rng(1700)
+    images = rng.integers(0, 256, (ROUTES_TRAIN_BATCH, cfg.image_size,
+                                   cfg.image_size, 3), dtype=np.uint8)
+    pred = Predictor(model, crop=cfg.crop, dtype=bf16)
+    zero_counts()
+    labels, probs = pred.classify(images[:HIRES_BATCH])
+    got, got_stages, cc = counts(), stages(), cuda_core()
+    log(f"[routes] (c) classify B={HIRES_BATCH} bf16: launches {got}, of them "
+        f"on the CUDA-core kernels {cc}, stage launches {got_stages}")
+    want_stages = {"fused_attention_forward":
+                   HIRES_STAGES_PER_CALL["fwd_only"]
+                   * ROUTES_CLASSIFY_LAUNCHES["fused_attention_forward"]}
+    if (got != ROUTES_CLASSIFY_LAUNCHES or got_stages != want_stages
+            or cc != {"fused_attention_forward": ROUTES_CUDA_CORE}):
+        raise AssertionError(f"routes classify: expected "
+                             f"{ROUTES_CLASSIFY_LAUNCHES}, {want_stages}, "
+                             f"{ROUTES_CUDA_CORE} on CUDA cores; got {got}, "
+                             f"{got_stages}, {cc}")
+    if labels.shape != (HIRES_BATCH, 5) or not np.isfinite(probs).all():
+        raise AssertionError("routes classify: bad shape or non-finite")
+    by_path["routes_classify"] = split(got, got_stages, cc)
+    p32 = Predictor(pred.model, crop=cfg.crop, dtype=f32)
+    l_gpu, kl_gpu = p32.predict(images[:1])
+    t1 = time.perf_counter()
+    p_cpu = Predictor(copy.deepcopy(pred.model).cpu(), crop=cfg.crop,
+                      dtype=f32)
+    l_cpu, kl_cpu = p_cpu.predict(images[:1])
+    cpu_s = time.perf_counter() - t1
+    torch.testing.assert_close(l_gpu.cpu(), l_cpu, rtol=2e-3, atol=2e-4)
+    torch.testing.assert_close(kl_gpu.cpu(), kl_cpu, rtol=1e-3, atol=0.0)
+    log(f"[routes] (c) fp32 card vs CPU logits (1 image): max abs diff "
+        f"{max_err(l_gpu.cpu(), l_cpu):.3e} (|logits| max "
+        f"{float(l_cpu.abs().max()):.3e}); KL {float(kl_gpu):.6f} vs "
+        f"{float(kl_cpu):.6f}; the CPU forward took {cpu_s:.1f} s")
+    del p_cpu, p32
+    pred.classify(images[:HIRES_BATCH])   # warm
+    torch.cuda.synchronize()
+    reps = 2
+    t1 = time.perf_counter()
+    for _ in range(reps):
+        pred.classify(images[:HIRES_BATCH])
+    elapsed = time.perf_counter() - t1
+    serve = {"batch": HIRES_BATCH, "dtype": "bfloat16",
+             "images_per_s": reps * HIRES_BATCH / elapsed}
+    log(f"[routes time] classify B={HIRES_BATCH} bf16, heads="
+        f"{ROUTES_HEADS}: {serve['images_per_s']:.3f} images/s, on {name} "
+        f"({smi})")
+    del pred, model
+    torch.cuda.empty_cache()
+
+    soft = rng.random((ROUTES_TRAIN_BATCH, cfg.model.out_features)).astype(
+        np.float32)
+    batch = {"image": images, "label": soft / soft.sum(-1, keepdims=True)}
+    tx = make_optimizer(
+        base_lr=cfg.lr * ROUTES_TRAIN_BATCH / cfg.global_batch_size,
+        weight_decay=cfg.weight_decay, b1=cfg.beta1, b2=cfg.beta2,
+        epochs=cfg.epochs, steps_per_epoch=1000, clip_norm=cfg.clip_norm,
+        eta_min=cfg.eta_min, schedule=cfg.schedule,
+        decoupled_wd=cfg.decoupled_wd)
+    state = create_train_state(trainee, tx, seed=0)
+    train_step = make_train_step(
+        mcfg, tx, "cls", dtype=bf16, remat=True, microbatches=1,
+        preprocess=lambda gen, bt: {
+            "image": eval_preprocess(bt["image"], crop=cfg.crop),
+            "label": bt["label"]})
+    b_ = ROUTES_TRAIN_BATCH
+    want_cc = {k: ROUTES_CUDA_CORE for k in ("fused_hires_attention",
+                                             "hires_dq", "hires_dkv")}
+    step_ms, losses = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(ROUTES_TRAIN_STEPS):
+        zero_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, m = train_step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        got, cc = counts(), cuda_core()
+        m = {k: float(v) for k, v in m.items()}
+        losses.append(m["loss"])
+        log(f"[routes] (c) training step {i} B={b_} bf16 remat: loss "
+            f"{m['loss']:.6f}, grad_norm {m['grad_norm']:.4f}, "
+            f"{step_ms[-1]:.1f} ms, launches {got}, of them on the CUDA-core "
+            f"kernels {cc}")
+        if got != ROUTES_STEP_LAUNCHES or cc != want_cc:
+            raise AssertionError(f"routes training step {i}: expected "
+                                 f"{ROUTES_STEP_LAUNCHES}, {want_cc} on CUDA "
+                                 f"cores; got {got}, {cc}")
+        if not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
+                and m["grad_norm"] > 0):
+            raise AssertionError(f"routes step {i}: {m}")
+        if i == 0:
+            by_path["routes_train_step_0"] = split(got, stages(), cc)
+            dead = [k for k, p_ in trainee.named_parameters()
+                    if p_.grad is None or not torch.isfinite(p_.grad).all()
+                    or float(p_.grad.abs().max()) == 0.0]
+            if dead:
+                raise AssertionError(f"routes: parameters with no, "
+                                     f"non-finite or zero gradient: {dead}")
+    train = {"batch": b_, "dtype": "bfloat16", "remat": True,
+             "ms_per_step": step_ms[-1], "first_step_ms": step_ms[0],
+             "images_per_s": b_ / step_ms[-1] * 1e3,
+             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+             "losses": losses, "launches_per_step": ROUTES_STEP_LAUNCHES}
+    log(f"[routes time] training B={b_} bf16 remat, heads={ROUTES_HEADS}: "
+        f"{step_ms[-1]:.1f} ms a step (first {step_ms[0]:.1f}), "
+        f"{train['images_per_s']:.3f} images/s, peak memory "
+        f"{train['peak_mem_gib']:.3f} GiB, on {name} ({smi})")
+    del state, train_step, trainee, tx
+    torch.cuda.empty_cache()
+    metrics.update(serve=serve, train=train, shapes={
+        str(k): n for k, n in shapes.items()}, cpu_forward_s=cpu_s,
+        seconds=time.time() - t_phase)
+    log(f"[routes] phase 15 in {metrics['seconds']:.1f} s on {name} ({smi})")
+    return by_path, metrics, wide_kernels
 
 
 def main() -> int:
@@ -3814,6 +4387,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     tools_launches, tools = tools_phase(torch, name, smi)
 
+    # 15. the chunked and xla attention routes: each kernel's limit, the two
+    # routes against each other, hires-cls-1024 at heads=6.
+    torch.cuda.empty_cache()
+    routes_launches, routes, routes_kernels = routes_phase(torch, name, smi)
+
     def summary(kname, source, replaces, rows, launches):
         t_bytes = sum(r["launches"] * r["bound_ms"] for r in rows
                       if r["bound_by"] == "bytes")
@@ -3887,9 +4465,10 @@ def main() -> int:
                        (kernels[1], "attention_bwd")):
             if got["stages"][key]:
                 k["stage_launches_by_path"][path] = got["stages"][key]
-    kernels += hires_kernels + trainer_kernels + [relayout_kernel]
+    kernels += (hires_kernels + routes_kernels + trainer_kernels
+                + [relayout_kernel])
     by_name = {k["name"]: k for k in kernels}
-    for path, got in tools_launches.items():
+    for path, got in {**tools_launches, **routes_launches}.items():
         for wrapper, n in got["launches"].items():
             k = by_name.get(TOOLS_KERNEL_NAMES.get(wrapper))
             if k is not None and n:
@@ -3926,7 +4505,8 @@ def main() -> int:
                     "hires-cls-1024": hires, "trainer": trainer,
                     "serving": serving, "native_probe": native_state,
                     "proof": proof, "jax_weights": jaxinit,
-                    "parallel": parallel, "tools": tools}))
+                    "parallel": parallel, "tools": tools,
+                    "routes": routes}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

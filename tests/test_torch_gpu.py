@@ -14,6 +14,7 @@ import torch
 
 from calm_vit_dte_tpu_torch.kernels import axial_attention as ka
 from calm_vit_dte_tpu_torch.kernels import conv_residual as kc
+from calm_vit_dte_tpu_torch.ops import attention as ops_attention
 from calm_vit_dte_tpu_torch.ops.rope import rope_tables
 
 H = 12
@@ -645,7 +646,8 @@ def test_hires_kernels_ragged_shape_match_plain(cuda_device):
     keys are masked and the columns zero-padded. Forward and both backward
     passes in fp32 against plain, and in bf16 at most twice the plain bf16
     error, the bf16 dk/dv the same bits from two launches and one kernel a
-    call; a bf16 shape that is not a multiple of 8 raises."""
+    call; a bf16 S that is not a multiple of 8 runs the CUDA-core kernels
+    within twice the plain bf16 error."""
     from calm_vit_dte_tpu_torch.kernels import hires_attention as kh
 
     rng = np.random.default_rng(520)
@@ -698,10 +700,94 @@ def test_hires_kernels_ragged_shape_match_plain(cuda_device):
     for name, x, z in zip(("dk", "dv"), k16[6:], again16):
         assert torch.equal(x, z), f"bf16 {name} differs between two runs"
 
-    odd = [a[:, :, :-4] if a.dim() == 4 else a for a in a16[:3]]
-    with pytest.raises(ValueError, match="multiples of 8"):
-        kh.fused_attention_forward(*odd, *a16[3:], scale=scale, dtype=bf16,
-                                   use_mask=False)
+    # A bf16 S off the multiple of 8 takes the CUDA-core kernels.
+    odd = [a[:, :, :-4].contiguous() for a in a16[:3]]
+    assert not kh.tensor_cores(s - 4, d, d, bf16)
+    out = kh.fused_attention_forward(*odd, *a16[3:], scale=scale, dtype=bf16,
+                                     use_mask=False)
+    plain = ka.attention_core(*odd, *a16[3:], scale=scale, dtype=bf16,
+                              use_mask=False)
+    ref = ka.attention_core(*[a.float() for a in odd], *a16[3:], scale=scale,
+                            dtype=f32, use_mask=False)
+    assert _norm_err(out, ref) <= 2 * _norm_err(plain, ref) + 1e-6
+
+
+# Shapes past the tensor-core kernels, (H, S, D, Dv): the six-head
+# hires-cls-1024 stages (D over 256: the output split over the grid), a D
+# unequal to Dv on both sides of 256, and bf16 head dims off the multiple
+# of 8 with an S off it.
+WIDE_SHAPES = [(6, 1024, 512, 512), (6, 832, 416, 416), (6, 640, 320, 320),
+               (4, 256, 264, 200), (3, 192, 130, 300), (2, 132, 76, 36)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,s,d,dv", WIDE_SHAPES,
+                         ids=lambda x: str(x))
+def test_hires_cuda_core_kernels_match_plain(cuda_device, h, s, d, dv):
+    """The four hires kernels at shapes the tensor-core kernels do not
+    take, which run the CUDA-core kernels in fp32 and in bf16: fp32 forward
+    at rtol 2e-4 / atol 2e-5 and backward within 1e-4 of each output's
+    largest value, bf16 at most twice the plain bf16 error and the same
+    bits from two launches."""
+    from calm_vit_dte_tpu_torch.kernels import hires_attention as kh
+
+    rng = np.random.default_rng(s + d + dv)
+    f32, bf16 = torch.float32, torch.bfloat16
+    assert not kh.tensor_cores(s, d, dv, bf16)
+    assert kh.refusal(s, d, dv, bf16) is None
+
+    def n(*shape, scale):
+        return _normal(rng, cuda_device, *shape, scale=scale)
+
+    args = [n(2, h, s, d, scale=0.3), n(2, h, s, d, scale=0.3),
+            n(2, h, s, dv, scale=0.3), n(2 * s, s, scale=0.2 / math.sqrt(s)),
+            n(2 * s, scale=0.1), n(s, 2 * s, scale=1 / math.sqrt(2 * s)),
+            n(s, scale=0.1)]
+    g = n(2, h, s, dv, scale=0.3)
+    scale = 1.0 / math.sqrt(d)
+    for x, y in zip(kh.hires_fwd_res(*args, scale=scale, dtype=f32),
+                    kh.hires_fwd_res_plain(*args, scale=scale, dtype=f32)):
+        torch.testing.assert_close(x, y, rtol=2e-4, atol=2e-5)
+    for use_mask in (True, False):
+        torch.testing.assert_close(
+            kh.fused_attention_forward(*args, scale=scale, dtype=f32,
+                                       use_mask=use_mask),
+            ka.attention_core(*args, scale=scale, dtype=f32,
+                              use_mask=use_mask), rtol=2e-4, atol=2e-5)
+    o, m, lse = kh.hires_fwd_res_plain(*args, scale=scale, dtype=f32)
+    delta = (g * o).sum(-1)
+    got = _hires_bwd_all(kh, args, g, m, lse, delta, scale, f32, False)
+    want = _hires_bwd_all(kh, args, g, m, lse, delta, scale, f32, True)
+    for name, x, y in zip(HIRES_BWD_NAMES, got, want):
+        assert x.shape == y.shape, name
+        assert _norm_err(x, y) <= 1e-4, name
+
+    a16 = [a.to(bf16) if a.dim() == 4 else a for a in args]
+    a32 = [a.float() for a in a16]
+    g16 = g.to(bf16)
+    k16 = kh.hires_fwd_res(*a16, scale=scale, dtype=bf16)
+    p16 = kh.hires_fwd_res_plain(*a16, scale=scale, dtype=bf16)
+    r32 = kh.hires_fwd_res_plain(*a32, scale=scale, dtype=f32)
+    for x, y, r in zip(k16, p16, r32):
+        assert _norm_err(x, r) <= 2 * _norm_err(y, r) + 1e-6
+    for x, y in zip(k16, kh.hires_fwd_res(*a16, scale=scale, dtype=bf16)):
+        assert torch.equal(x, y)
+    out = kh.fused_attention_forward(*a16, scale=scale, dtype=bf16)
+    plain = ka.attention_core(*a16, scale=scale, dtype=bf16, use_mask=True)
+    assert _norm_err(out, r32[0]) <= 2 * _norm_err(plain, r32[0]) + 1e-6
+    o16, m16, lse16 = p16
+    delta16 = (g16.float() * o16.float()).sum(-1)
+    k16 = _hires_bwd_all(kh, a16, g16, m16, lse16, delta16, scale, bf16,
+                         False)
+    again = _hires_bwd_all(kh, a16, g16, m16, lse16, delta16, scale, bf16,
+                           False)
+    b16 = _hires_bwd_all(kh, a16, g16, m16, lse16, delta16, scale, bf16,
+                         True)
+    r32 = _hires_bwd_all(kh, a32, g16.float(), m16, lse16, delta16, scale,
+                         f32, True)
+    for name, x, y, r, z in zip(HIRES_BWD_NAMES, k16, b16, r32, again):
+        assert _norm_err(x, r) <= 2 * _norm_err(y, r) + 1e-6, name
+        assert torch.equal(x, z), f"bf16 {name} differs between two runs"
 
 
 @pytest.mark.gpu
@@ -927,3 +1013,137 @@ def test_profile_opt_on_the_card(cuda_device, tmp_path):
     assert all(v["busy_ms"] is None or v["busy_ms"] > 0
                for v in out["variants"].values())
     assert out["step"]["ms"] > 0
+
+
+# Each limit of the dispatcher, as chip_smoke.py phase 15 (a) drives it:
+# (inside, past, the route each takes, the dtypes).
+ROUTE_LIMITS = [limit[1:] for limit in ops_attention.ROUTE_LIMITS]
+
+
+def _route_leaves(rng, device, shape):
+    """fp32 leaves of one attention call, {qc, qr, kc, kr, v, fq, fk} (or q,
+    k, v with Dr = 0) and the mask tensors w1, b1, w2, b2."""
+    b, h, sq, skv, dc, dr, dv = shape
+
+    def n(*shp, scale=0.3):
+        return _normal(rng, device, *shp, scale=scale)
+
+    x = ({"q": n(b, h, sq, dc), "k": n(b, h, skv, dc)} if not dr else
+         {"qc": n(b, h, sq, dc), "qr": n(b, h, sq, dr),
+          "kc": n(b, h, skv, dc), "kr": n(b, h, skv, dr)})
+    if dr:
+        x["fq"] = 1.0 / (10000.0 ** (torch.arange(
+            0, dr, 2, dtype=torch.float32, device=device) / dr))
+        x["fk"] = x["fq"] * 1.1
+    x.update(v=n(b, h, skv, dv), w1=n(2 * skv, skv, scale=0.2 / skv ** 0.5),
+             b1=n(2 * skv, scale=0.1), w2=n(skv, 2 * skv,
+                                             scale=(2 * skv) ** -0.5),
+             b2=n(skv, scale=0.1))
+    return x
+
+
+def _kernel_call(x, kernel, dtype, use_mask):
+    """The kernel's own wrapper on the leaves (q, k rotated in torch for the
+    hires kernels; the rope kernel takes its tables)."""
+    from calm_vit_dte_tpu_torch.kernels import hires_attention as kh
+
+    w = [x[k] for k in ("w1", "b1", "w2", "b2")]
+    if kernel == "hires":
+        scale = 1.0 / math.sqrt(x["q"].shape[-1])
+        return kh.fused_attention_forward(x["q"], x["k"], x["v"], *w,
+                                          scale=scale, dtype=dtype,
+                                          use_mask=use_mask)
+    sq, skv = x["qr"].shape[2], x["kr"].shape[2]
+    tabs = [*rope_tables(x["fq"], sq), *rope_tables(x["fk"], skv)]
+    d = x["qc"].shape[-1] + x["qr"].shape[-1]
+    cast = [x[k].to(dtype) for k in ("qc", "qr", "kc", "kr", "v")]
+    return ka.fused_rope_attention(*cast, *tabs, *w, scale=d ** -0.5,
+                                   dtype=dtype, use_mask=use_mask)
+
+
+def _route_call(x, dtype, use_mask):
+    from calm_vit_dte_tpu_torch.ops import attention as ops
+
+    mask = tuple(x[k] for k in ("w1", "b1", "w2", "b2"))
+    if "q" in x:
+        return ops.masked_attention(x["q"], x["k"], x["v"], mask,
+                                    dtype=dtype, use_mask=use_mask)
+    return ops.masked_rope_attention(x["qc"], x["qr"], x["kc"], x["kr"],
+                                     x["v"], x["fq"], x["fk"], mask,
+                                     dtype=dtype, use_mask=use_mask)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("limit", ROUTE_LIMITS,
+                         ids=["rope-dv", "hires-d", "hires-bf16-s", "sq-skv"])
+def test_kernel_limits_launch_inside_and_past(cuda_device, limit):
+    """At each limit the shape just inside launches its kernel once through
+    its wrapper and through `masked_attention`; just past, a shape the
+    kernel refuses raises from its wrapper and under 'auto' takes the next
+    route without launching it, and a hires shape past the tensor-core
+    kernels launches the hires kernels (their CUDA-core kernels)."""
+    from calm_vit_dte_tpu_torch.kernels import hires_attention as kh
+    from calm_vit_dte_tpu_torch.ops import attention as ops
+
+    inside, past, kernel, after, dtypes = limit
+    counter = (kh.fused_attention_forward if kernel == "hires"
+               else ka.fused_rope_attention)
+    rng = np.random.default_rng(15)
+    for dtype in (getattr(torch, n) for n in dtypes):
+        for use_mask in (True, False):
+            for shape, want in ((inside, kernel), (past, after)):
+                b, h, sq, skv, dc, dr, dv = shape
+                why = "Sq != Skv" if sq != skv else (
+                    kh.refusal(sq, dc + dr, dv, dtype) if kernel == "hires"
+                    else ka.refusal(sq, dc, dr, dv, dtype, use_mask))
+                assert (why is None) == (want == kernel), shape
+                x = _route_leaves(rng, cuda_device, shape)
+                n = counter.launches
+                if why is None:
+                    out = _kernel_call(x, kernel, dtype, use_mask)
+                    torch.cuda.synchronize()
+                    assert counter.launches == n + 1
+                    assert torch.isfinite(out.float()).all()
+                else:
+                    with pytest.raises(ValueError):
+                        _kernel_call(x, kernel, dtype, use_mask)
+                    assert counter.launches == n
+                calls = dict(ops.route_calls)
+                hires = kh.fused_attention_forward.launches
+                rope = ka.fused_rope_attention.launches
+                with torch.no_grad():
+                    out = _route_call(x, dtype, use_mask)
+                torch.cuda.synchronize()
+                assert (kh.fused_attention_forward.launches - hires,
+                        ka.fused_rope_attention.launches - rope) == (
+                    int(want == "hires"), int(want == "rope")), shape
+                if want in ops.route_calls:
+                    assert ops.route_calls[want] == calls[want] + 1
+                assert out.shape == (b, h, sq, dv) and out.dtype == dtype
+                assert torch.isfinite(out.float()).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("limit", [ROUTE_LIMITS[1], ROUTE_LIMITS[3]],
+                         ids=["d264", "sq-skv"])
+def test_route_on_the_card_matches_the_cpu(cuda_device, limit):
+    """The shape past a limit through the attention ops, fp32, mask on and
+    off (D = Dv = 264 on the hires kernels, Sq != Skv on the 'xla' route):
+    the forward at rtol 2e-4 / atol 2e-5 and every leaf's gradient within
+    1e-4 of its largest value, card against CPU."""
+    b, h, sq, _, _, _, dv = past = limit[1]
+    rng = np.random.default_rng(16)
+    for use_mask in (True, False):
+        x = {k: t.requires_grad_() for k, t in
+             _route_leaves(rng, cuda_device, past).items()}
+        xc = {k: t.detach().cpu().requires_grad_() for k, t in x.items()}
+        g = _normal(rng, cuda_device, b, h, sq, dv)
+        out = _route_call(x, torch.float32, use_mask)
+        oc = _route_call(xc, torch.float32, use_mask)
+        (out * g).sum().backward()
+        (oc * g.cpu()).sum().backward()
+        torch.testing.assert_close(out.detach().cpu(), oc.detach(),
+                                   rtol=2e-4, atol=2e-5)
+        for k, t in x.items():
+            if xc[k].grad is not None:
+                assert _norm_err(t.grad.cpu(), xc[k].grad) <= 1e-4, k

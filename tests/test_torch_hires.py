@@ -151,15 +151,62 @@ def test_wrappers_raise_off_cpu_and_cuda():
 CSRC = pathlib.Path(kh.__file__).resolve().parent.parent / "csrc"
 
 
+_FAMILY = (r"const bool aligned = is_bf16 && !\(S % (\d+) \|\| D % (\d+) "
+           r"\|\| Dv % (\d+)\);\s*return \{aligned, aligned && D <= kSlice "
+           r"&& Dv <= kSlice\};")
+
+
 @pytest.mark.parametrize("source", ["hires_attention.cu",
                                     "hires_attention_bwd.cu"])
 def test_bf16_shape_rule_matches_the_source(source):
-    """The wrapper's BF16_MULTIPLE is the multiple of S, D and Dv that the
-    C entries' bf16 routes take (rows of 16 bytes)."""
-    rules = re.findall(r"is_bf16 && \(S % (\d+) \|\| D % (\d+) \|\| "
-                       r"Dv % (\d+)\)", (CSRC / source).read_text())
-    assert rules
-    assert {int(x) for rule in rules for x in rule} == {kh.BF16_MULTIPLE}
+    """The wrapper's BF16_MULTIPLE and TC_MAX_D are the multiple of S, D
+    and Dv and the widest D, Dv at which the C entries' bf16 calls run the
+    tensor-core kernels (`family_of` in csrc/hires_common.cuh, which each
+    entry asks), and `tensor_cores` states that rule."""
+    text = (CSRC / source).read_text()
+    assert "family_of(is_bf16, S, D, Dv)" in text
+    common = " ".join((CSRC / "hires_common.cuh").read_text().split())
+    rules = re.findall(_FAMILY, common)
+    assert len(rules) == 1
+    assert {int(x) for x in rules[0]} == {kh.BF16_MULTIPLE}
+    assert int(re.search(r"constexpr int kSlice = (\d+);", common)[1]) \
+        == kh.TC_MAX_D
+    bf16, f32 = torch.bfloat16, torch.float32
+    m, top = kh.BF16_MULTIPLE, kh.TC_MAX_D
+    assert kh.tensor_cores(1024, top, top, bf16)
+    assert not kh.tensor_cores(1024, top + m, top, bf16)
+    assert not kh.tensor_cores(1024, top, top + m, bf16)
+    assert not kh.tensor_cores(1024 - m // 2, top, top, bf16)
+    assert not kh.tensor_cores(1024, top - m // 2, top, bf16)
+    assert not kh.tensor_cores(1024, top, top, f32)
+
+
+_DIMS_CHECK = {
+    "hires_attention.cu": r"if \(B < 1 \|\| H < 1 \|\| S < 1 \|\| D < 1 "
+                          r"\|\| Dv < 1 \|\|",
+    "hires_attention_bwd.cu": r"return B < 1 \|\| H < 1 \|\| S < 1 \|\| "
+                              r"D < 1 \|\| Dv < 1;",
+}
+
+
+def test_forward_and_backward_entries_refuse_the_same_dims():
+    """The forward's C entry and the backward's `bad_dims` refuse the same
+    shapes, none with positive dims (so no shape has a hires forward
+    without its backward, and the JAX package's `pallas_fwd` route has no
+    shape to take in the port), and `hires_attention.refusal` states it:
+    the kernels take every positive S, D, Dv in fp32 and bf16."""
+    for source, check in _DIMS_CHECK.items():
+        text = " ".join((CSRC / source).read_text().split())
+        assert len(re.findall(check, text)) == 1, source
+        assert not re.search(r"[DS] > \d+ \|\||is_bf16 && \(S %", text), \
+            source
+    bf16, f32 = torch.bfloat16, torch.float32
+    for s, d, dv in ((1024, 256, 256), (1024, 512, 512), (1020, 264, 200),
+                     (37, 3, 1000), (1, 1, 1)):
+        for dtype in (bf16, f32):
+            assert kh.refusal(s, d, dv, dtype) is None, (s, d, dv, dtype)
+    assert "dtype" in kh.refusal(1024, 64, 64, torch.float16)
+    assert "positive" in kh.refusal(1024, 0, 64, f32)
 
 
 def _c_entries(source):
@@ -173,9 +220,10 @@ def _c_entries(source):
 
 def test_bf16_entries_pass_is_bf16_to_the_shape_check():
     """Every C entry of the backward source that takes is_bf16 and checks
-    its dims with bad_dims (the dq and dk/dv passes) passes is_bf16 to it,
-    so the C entry itself refuses a bf16 shape off the multiple, and
-    reports its launches and shared memory."""
+    its dims with bad_dims (the dq and dk/dv passes) passes is_bf16, S, D
+    and Dv to `family_of`, which picks its kernels, and reports its
+    launches and shared memory; the weight grads' entry picks its split
+    from is_bf16 and S."""
     entries = _c_entries("hires_attention_bwd.cu")
     checked = {name for name, (_, body) in entries.items()
                if "bad_dims(" in body}
@@ -183,14 +231,19 @@ def test_bf16_entries_pass_is_bf16_to_the_shape_check():
     for name in checked:
         params, body = entries[name]
         assert params.startswith("int is_bf16,"), name
-        assert re.findall(r"bad_dims\((\w+),", body) == ["is_bf16"], name
+        assert re.findall(r"bad_dims\((\w+),", body) == ["B"], name
+        assert re.findall(r"family_of\(([\w, ]+)\)", body) == \
+            ["is_bf16, S, D, Dv"], name
         assert params.endswith("int* launched, long long* smem"), name
+    for name in ("hires_weight_grads", "hires_weight_grads_scratch"):
+        assert "split_weight_grads(is_bf16, S)" in entries[name][1], name
 
 
 def test_every_hires_shape_takes_the_bf16_kernels():
     """Every attention shape of every config that `pick_route` sends to the
-    hires route passes the bf16 kernels' shape check (so no config's bf16
-    path raises on the card); an S off the multiple raises."""
+    hires route passes the kernels' shape check and runs the bf16
+    tensor-core kernels; an S off the multiple passes the check and runs
+    the CUDA-core kernels."""
     shapes = set()
     for cfg in configs.CONFIGS.values():
         for _, bcfg in cfg.model.backbone_cfg().block_configs():
@@ -198,7 +251,9 @@ def test_every_hires_shape_takes_the_bf16_kernels():
                       bcfg.cross_cfg()):
                 d = (v.head_dim_content + v.head_dim_rope) if v.reduce \
                     else v.head_dim
-                if pick_route(v.seq_len_new, d, v.head_dim) == "hires":
+                s = v.seq_len_new
+                if pick_route(1, v.heads, s, s, d, v.head_dim,
+                              torch.bfloat16)[0] == "hires":
                     shapes.add((v.seq_len_new, d, v.head_dim))
     assert (1024, 256, 256) in shapes and (448, 112, 112) in shapes
     bf16 = torch.bfloat16
@@ -206,10 +261,11 @@ def test_every_hires_shape_takes_the_bf16_kernels():
         q = torch.empty(1, 1, s, d, dtype=bf16)
         v = torch.empty(1, 1, s, dv, dtype=bf16)
         assert kh._dims(q, q, v, bf16) == (1, 1, s, d, dv)
+        assert kh.tensor_cores(s, d, dv, bf16), (s, d, dv)
     q, v = torch.empty(1, 1, 452, 112, dtype=bf16), \
         torch.empty(1, 1, 452, 112, dtype=bf16)
-    with pytest.raises(ValueError, match="multiples of 8"):
-        kh._dims(q, q, v, bf16)
+    assert kh._dims(q, q, v, bf16) == (1, 1, 452, 112, 112)
+    assert not kh.tensor_cores(452, 112, 112, bf16)
 
 
 VMLA_CFGS = {

@@ -44,7 +44,9 @@ def _rope_shapes():
                       bcfg.cross_cfg()):
                 dc = v.head_dim_content if v.reduce else 0
                 dr = v.head_dim_rope if v.reduce else v.head_dim
-                if pick_route(v.seq_len_new, dc + dr, v.head_dim) == "rope":
+                s = v.seq_len_new
+                if pick_route(1, v.heads, s, s, dc + dr, v.head_dim,
+                              torch.bfloat16, dr=dr)[0] == "rope":
                     shapes.add((v.seq_len_new, dc, dr, v.head_dim))
     return sorted(shapes)
 
