@@ -65,16 +65,32 @@
 //     NV = ceil(Dv / 64) size the accumulators (PERF.md §6 has ptxas's
 //     count). Columns past pad16(D) or pad16(Dv) are skipped k-steps, not
 //     zero products;
+//   * past 256 columns of D or Dv, the wide bf16 kernel
+//     (hires_attention_wide_bf16_kernel): the same CTA and one pass, with
+//     o's columns split over the grid (blockIdx.x = head * ns + slice, ns =
+//     ceil(Dv / 256) equal slices of 16-column multiples) and each slice
+//     recomputing q k^T. A warp's fp32 accumulators for 16 rows x all of Dv
+//     would be 256 registers a thread at Dv = 512; a slice keeps them at
+//     most 128, as at Dv = 256. Splitting over the grid was chosen over two
+//     warps per 16 rows (each owning half of Dv, p handed over through
+//     shared memory): it reuses this kernel's pipeline unchanged, needs no
+//     exchange or extra barrier per key tile, and takes any Dv; it costs
+//     1.5x the products at D = Dv with two slices. Every slice runs the same
+//     chunk order, so the scores and the rounded p are the same bits in
+//     each and o's slices agree; slice 0 writes lse. q stays resident, so
+//     D is bounded by shared memory: D <= kTcFwdMaxD = 1520 (103,424 bytes
+//     a CTA at D = 512, two CTAs an SM);
 //   * the CUDA-core attention kernel (hires_attention_kernel), which runs
-//     every fp32 call and every bf16 call the tensor-core kernel does not
+//     every fp32 call and every bf16 call the tensor-core kernels do not
 //     take: two passes over 64-key tiles (the row max and sum of exp, then
 //     p = exp(logit - lse), rounded, times v), the scores' contraction over
 //     D staged through shared memory 64 columns at a time, every product an
 //     fp32 FMA. It takes any D and Dv: past 256 columns of o the grid's z
 //     axis splits them, each CTA recomputing the scores for its slice.
-// The tensor-core kernel takes bf16 S, D and Dv that are multiples of 8
-// (16-byte rows) with D, Dv <= 256 (family_of, hires_common.cuh); the C
-// entry takes any shape.
+// The tensor-core kernels take bf16 S, D and Dv that are multiples of 8
+// (16-byte rows), the D, Dv <= 256 kernel and the wide one past that up to
+// D = kTcFwdMaxD (family_of, hires_common.cuh); the C entry takes any
+// shape.
 
 #include "hires_mma.cuh"
 
@@ -359,6 +375,201 @@ cudaError_t attention_bf16(const bf16* q, const bf16* k, const bf16* v,
   }
 }
 
+// The widest D at which the bf16 CTA (the resident q tile and the ring,
+// attention_bf16_smem) fits in a CTA's shared memory.
+static_assert(2 * (kAttnRows * (kTcFwdMaxD + 8) + kRingStages * kChunkElems) <=
+                      kMaxCtaSmem &&
+                  2 * (kAttnRows * (kTcFwdMaxD + 16 + 8) +
+                       kRingStages * kChunkElems) > kMaxCtaSmem,
+              "kTcFwdMaxD is the widest D whose CTA fits");
+
+// The wide bf16 attention kernel: hires_attention_bf16_kernel for D or Dv
+// past kSlice. CTA (blockIdx.x = head * ns + z, query tile, batch
+// element) owns columns [c0, c0 + W) of o, slice z of split_cols(Dv, ns):
+// it streams every k chunk (any D: the q tile stays resident) and only
+// its slice's v chunks, so the accumulators stay at most 256 columns (128
+// registers a thread). Every slice forms the same scores and rounds the
+// same p, so o's slices agree with one another; slice 0 writes lse.
+template <int NV, bool kResiduals>
+__global__ void __launch_bounds__(kAttnThreads)
+    hires_attention_wide_bf16_kernel(
+        const bf16* __restrict__ q, const bf16* __restrict__ k,
+        const bf16* __restrict__ v, const float* __restrict__ m,
+        bf16* __restrict__ o, float* __restrict__ lse, int H, int S, int D,
+        int Dv, int ns, float scale) {
+  using namespace tcore;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int ldq = pad16(D) + 8;
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
+  bf16* ring = sQ + kAttnRows * ldq;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int z = blockIdx.x % ns;
+  const int b = blockIdx.z, q0 = blockIdx.y * kAttnRows;
+  const size_t bh = (size_t)b * H + blockIdx.x / ns;
+  const int cw = split_cols(Dv, ns), c0 = z * cw, W = min(cw, Dv - c0);
+  const bf16* kh = k + bh * S * D;
+  const bf16* vh = v + bh * S * Dv;
+  const int nkt = (S + kAttnRows - 1) / kAttnRows;
+  const int nkc = chunks_of(D), nvc = chunks_of(W);
+  int rows[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) rows[hf] = q0 + warp * 16 + g + 8 * hf;
+
+  // Logits of key tile j in place: scale * s + m, -inf past S.
+  auto logits = [&](float (&sc)[8][4], int j) {
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int key = j * kAttnRows + n * 8 + 2 * t;  // key + 1 < S iff key < S
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        float2 mv = make_float2(0.f, 0.f);
+        if (m && key < S && rows[hf] < S)
+          mv = *reinterpret_cast<const float2*>(
+              m + ((size_t)b * S + rows[hf]) * S + key);
+        sc[n][2 * hf] = key < S ? sc[n][2 * hf] * scale + mv.x : -INFINITY;
+        sc[n][2 * hf + 1] =
+            key < S ? sc[n][2 * hf + 1] * scale + mv.y : -INFINITY;
+      }
+    }
+  };
+  // The ring, as in hires_attention_bf16_kernel: per key tile its k
+  // chunks, then the v chunks of this slice's columns.
+  const int per = nkc + nvc, n_chunks = nkt * per;
+  auto prefetch = [&](int at) {
+    if (at < n_chunks) {
+      const int j = at / per, c = at - j * per;
+      bf16* dst = ring + (at % kRingStages) * kChunkElems;
+      if (c < nkc)
+        copy_chunk(dst, kh + (size_t)j * kAttnRows * D, D,
+                   S - j * kAttnRows, c);
+      else
+        copy_rows(dst, kChunkLd, vh + (size_t)j * kAttnRows * Dv, Dv,
+                  S - j * kAttnRows, c0 + (c - nkc) * kChunkCols, c0 + W,
+                  kChunkCols);
+    }
+    cp_commit();
+  };
+  copy_resident(sQ, q + (bh * S + q0) * D, D, S - q0);  // joins chunk 0
+#pragma unroll
+  for (int at = 0; at < kRingStages - 1; ++at) prefetch(at);
+  int i = 0;
+  auto next = [&]() -> const bf16* {
+    cp_wait<kRingStages - 2>();
+    __syncthreads();  // chunk i has landed; chunk i - 1's stage is free
+    prefetch(i + kRingStages - 1);
+    return ring + (i++ % kRingStages) * kChunkElems;
+  };
+
+  // The online softmax of hires_attention_bf16_kernel.
+  float mx[2] = {-INFINITY, -INFINITY}, se[2] = {0.f, 0.f};
+  float acc[NV * kChunkN][4];
+#pragma unroll
+  for (int n = 0; n < NV * kChunkN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float s[8][4];
+  for (int j = 0; j < nkt; ++j) {
+    zero8(s);
+    for (int c = 0; c < nkc; ++c)
+      rows_by_chunk(s, sQ, ldq, c, next(), chunk_steps(D, c), lane, warp);
+    logits(s, j);
+    float alpha[2];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float tmax = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        tmax = fmaxf(tmax, fmaxf(s[n][2 * hf], s[n][2 * hf + 1]));
+      const float nmx = fmaxf(mx[hf], quad_max(tmax));
+      alpha[hf] = __expf(mx[hf] - nmx);   // 0 at the first tile
+      mx[hf] = nmx;
+      se[hf] *= alpha[hf];
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = __expf(s[n][e] - mx[e >> 1]);
+        se[e >> 1] += s[n][e];
+      }
+#pragma unroll
+    for (int n = 0; n < NV * kChunkN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kb = 0; kb < 4; ++kb) c_to_a(pa[kb], s[2 * kb], s[2 * kb + 1]);
+#pragma unroll
+    for (int u = 0; u < NV; ++u)
+      if (u < nvc) probs_by_chunk(acc, u, pa, next(), chunk_steps(W, u), lane);
+  }
+  cp_wait<0>();
+  float inv[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const float sum = quad_sum(se[hf]);
+    inv[hf] = 1.f / sum;
+    if (kResiduals && z == 0 && t == 0 && rows[hf] < S)
+      lse[bh * S + rows[hf]] = mx[hf] + logf(sum);
+  }
+
+  bf16* oh = o + bh * S * Dv + c0;
+#pragma unroll
+  for (int n = 0; n < NV * kChunkN; ++n) {
+    const int d = n * 8 + 2 * t;
+    if (d < W) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        if (rows[hf] < S)
+          *reinterpret_cast<uint32_t*>(oh + (size_t)rows[hf] * Dv + d) =
+              pack(acc[n][2 * hf] * inv[hf], acc[n][2 * hf + 1] * inv[hf]);
+    }
+  }
+}
+
+template <int NV, bool kResiduals>
+cudaError_t launch_attention_wide_bf16(const bf16* q, const bf16* k,
+                                       const bf16* v, const float* m,
+                                       bf16* o, float* lse, int B, int H,
+                                       int S, int D, int Dv, int ns,
+                                       float scale, cudaStream_t st,
+                                       Report& rep) {
+  auto kern = hires_attention_wide_bf16_kernel<NV, kResiduals>;
+  const size_t smem = attention_bf16_smem(D);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(H * ns, (S + kAttnRows - 1) / kAttnRows, B);
+  kern<<<grid, kAttnThreads, smem, st>>>(q, k, v, m, o, lse, H, S, D, Dv, ns,
+                                         scale);
+  return rep.done(smem);
+}
+
+// o in slices_of(Dv) slices of split_cols(Dv, ns) columns; NV = the
+// chunks of the widest slice, at least 2 (at NV = 1 ptxas held the kernel
+// to 128 registers and spilled 4-8 bytes; NV = 2 takes a one-chunk slice
+// with its second chunk's products skipped).
+template <bool kResiduals>
+cudaError_t attention_wide_bf16(const bf16* q, const bf16* k, const bf16* v,
+                                const float* m, bf16* o, float* lse, int B,
+                                int H, int S, int D, int Dv, float scale,
+                                cudaStream_t st, Report& rep) {
+  const int ns = slices_of(Dv);
+  switch (chunks_of(split_cols(Dv, ns))) {
+    case 1:
+    case 2:
+      return launch_attention_wide_bf16<2, kResiduals>(
+          q, k, v, m, o, lse, B, H, S, D, Dv, ns, scale, st, rep);
+    case 3:
+      return launch_attention_wide_bf16<3, kResiduals>(
+          q, k, v, m, o, lse, B, H, S, D, Dv, ns, scale, st, rep);
+    default:
+      return launch_attention_wide_bf16<4, kResiduals>(
+          q, k, v, m, o, lse, B, H, S, D, Dv, ns, scale, st, rep);
+  }
+}
+
 // Dynamic shared memory of the CUDA-core attention CTA: the q and k
 // chunks, a slice of v and p (115,712 bytes at Dv >= 256).
 size_t attention_smem(int Dv) {
@@ -382,15 +593,19 @@ cudaError_t launch_attention(const T* q, const T* k, const T* v,
 }
 
 // The attention pass: bf16 on the tensor cores where the family allows
-// (tc), every other call on the CUDA-core kernel.
+// (tc: the wide kernel past kSlice), every other call on the CUDA-core
+// kernel.
 template <typename T, bool kResiduals>
 cudaError_t attention(const T* q, const T* k, const T* v, const float* m,
                       T* o, float* lse, int B, int H, int S, int D, int Dv,
                       float scale, bool tc, cudaStream_t st, Report& rep) {
   if constexpr (std::is_same<T, bf16>::value) {
-    if (tc)
+    if (tc && D <= kSlice && Dv <= kSlice)
       return attention_bf16<kResiduals>(q, k, v, m, o, lse, B, H, S, D, Dv,
                                         scale, st, rep);
+    if (tc)
+      return attention_wide_bf16<kResiduals>(q, k, v, m, o, lse, B, H, S, D,
+                                             Dv, scale, st, rep);
   }
   switch (cols_per_thread(slice_ld(Dv))) {
     case 4:
@@ -446,9 +661,9 @@ cudaError_t run(int residuals, int use_mask, const void* q, const void* k,
   const float* mm = use_mask ? m : nullptr;
   if (residuals)
     return attention<T, true>(qt, kt, vt, mm, static_cast<T*>(o), lse, B, H,
-                              S, D, Dv, scale, fam.tc, st, rep);
+                              S, D, Dv, scale, fam.tc_fwd, st, rep);
   return attention<T, false>(qt, kt, vt, mm, static_cast<T*>(o), nullptr, B,
-                             H, S, D, Dv, scale, fam.tc, st, rep);
+                             H, S, D, Dv, scale, fam.tc_fwd, st, rep);
 }
 
 }  // namespace
@@ -487,4 +702,24 @@ extern "C" int hires_attention_fwd(
   *launched = rep.launched;
   *smem = (long long)rep.smem;
   return (int)err;
+}
+
+// What the card makes of each wide bf16 attention instantiation at head dim
+// D: kernel k = 2 (NV - 2) + residuals (NV = 2-4) fills out[4k..4k+3] as
+// occupancy() does (hires_common.cuh). Returns a cudaError_t.
+extern "C" int hires_attention_wide_occupancy(int D, int* out) {
+  const void* fns[6] = {
+      reinterpret_cast<const void*>(hires_attention_wide_bf16_kernel<2, false>),
+      reinterpret_cast<const void*>(hires_attention_wide_bf16_kernel<2, true>),
+      reinterpret_cast<const void*>(hires_attention_wide_bf16_kernel<3, false>),
+      reinterpret_cast<const void*>(hires_attention_wide_bf16_kernel<3, true>),
+      reinterpret_cast<const void*>(hires_attention_wide_bf16_kernel<4, false>),
+      reinterpret_cast<const void*>(hires_attention_wide_bf16_kernel<4, true>)};
+  if (D < 1 || D > kTcFwdMaxD) return (int)cudaErrorInvalidValue;
+  for (int k = 0; k < 6; ++k) {
+    const cudaError_t err = occupancy(fns[k], kAttnThreads,
+                                      attention_bf16_smem(D), out + 4 * k);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }

@@ -92,16 +92,29 @@
 //     head) streams the query tiles: scores and dp transposed (key rows), dv
 //     += round(p)^T g and dk += ds^T q from shared memory; m and dssum read
 //     transposed by their indexing.
+//   * dk, dv past 256 columns of D or Dv, bf16 (hires_dkv_wide_bf16_kernel):
+//     k and v resident would take 275,456 bytes at D = Dv = 512 and 64
+//     keys x (D + Dv) fp32 accumulators the whole register file. The wide
+//     kernel keeps the 8 warps and two passes above but holds nothing
+//     resident save the residual tiles and the p^T exchange: a ring stage
+//     carries the q, g, k and v chunks of one 64-column chunk (k and v
+//     re-read from L2 per query tile), so its CTA takes 197,632 bytes at
+//     every D and Dv, and dk, dv are split over the grid (blockIdx.x = head
+//     * ns + slice, ns = ceil(max(D, Dv) / 256) equal slices of each):
+//     pass 1 forms the whole s^T and dp^T, pass 2 streams the slice's
+//     chunks of q and g. 1.5x the products at D = Dv with two slices; each
+//     slice rounds the same p and ds bits, so the slices agree.
 //   * The CUDA-core kernels (hires_dm_ssum_kernel, hires_dq_kernel,
 //     hires_dkv_kernel) take any D and Dv: every contraction over D or Dv
 //     streams through shared memory 64 columns at a time (scores_chunked,
 //     hires_common.cuh), and an output wider than 256 columns is split over
 //     the grid's z axis, each CTA recomputing the scores for its slice. They
-//     run every fp32 call and every bf16 call the tensor-core kernels do not
-//     take (family_of: D or Dv over 256, or S, D, Dv off the multiple of 8),
-//     reading bf16 and rounding at the same points.
+//     run every fp32 call and every bf16 pass the tensor-core kernels do not
+//     take (family_of: the dq pass past D, Dv 256, or S, D, Dv off the
+//     multiple of 8), reading bf16 and rounding at the same points.
 // The bf16 tensor-core kernels take S, D and Dv that are multiples of 8
-// (16-byte rows) and D, Dv <= 256; the C entries take any shape.
+// (16-byte rows): the dq kernel D, Dv <= 256, the dk/dv kernels every
+// width; the C entries take any shape.
 
 #include "hires_mma.cuh"
 
@@ -792,6 +805,240 @@ __global__ void __launch_bounds__(kDkvThreads, 1) hires_dkv_bf16_kernel(
   }
 }
 
+// The wide bf16 dk/dv CTA (D or Dv past kSlice): the same 8 warps, 64
+// keys and two passes per query tile as hires_dkv_bf16_kernel, but with
+// nothing resident but the residual tiles and the exchange: a ring stage
+// holds the [64][64] chunks of q, g (the query tile's rows) and k, v (the
+// CTA's own key rows) of one column chunk, so the CTA's shared memory is
+// the same at every D and Dv (kDkvWideSmem). CTA (blockIdx.x = head * ns
+// + z) owns columns [z c, z c + c) of dk and of dv (split_cols of each
+// over ns = the slices of the wider), at most 256 (128 accumulators a
+// thread): pass 1 streams every column chunk of q, k and g, v and forms
+// the whole s^T = k q^T and dp^T = v g^T (recomputed by each slice), pass
+// 2 streams the slice's chunks of q and g. Each slice rounds the same p and
+// ds bits, so the slices agree; no atomics.
+constexpr int kQuadElems = 4 * kChunkElems;
+constexpr size_t kDkvWideSmem =
+    sizeof(bf16) * (size_t)kPairStages * kQuadElems +
+    sizeof(float) * ((size_t)4 * kResElems + 4 * kAttnRows + kXchFloats);
+static_assert(kDkvWideSmem <= (size_t)kMaxCtaSmem,
+              "the wide dk/dv CTA fits at every D and Dv");
+
+template <int NC>
+__global__ void __launch_bounds__(kDkvThreads, 1) hires_dkv_wide_bf16_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ g, const Residuals R,
+    const float* __restrict__ dssum, int D, int Dv, int ns,
+    bf16* __restrict__ dk, bf16* __restrict__ dv) {
+  using namespace tcore;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int H = R.H, S = R.S;
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);
+  // [buffer][m, dssum][64 queries][kResLd], then [buffer][lse, delta][64].
+  float* sRes = reinterpret_cast<float*>(ring + kPairStages * kQuadElems);
+  float* sVec = sRes + 4 * kResElems;
+  float4* sXch = reinterpret_cast<float4*>(sVec + 4 * kAttnRows);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int w = warp & (kAttnWarps - 1);       // keys 16w of the CTA's 64
+  const bool owns_dk = warp >= kAttnWarps;
+  const int gr = lane >> 2, t = lane & 3;
+  const int z = blockIdx.x % ns;
+  const int b = blockIdx.z, t0 = blockIdx.y * kAttnRows;
+  const size_t head = ((size_t)b * H + blockIdx.x / ns) * S;
+  const bf16* qh = q + head * D;
+  const bf16* gh = g + head * Dv;
+  const bf16* kt = k + (head + t0) * D;    // the CTA's key rows
+  const bf16* vt = v + (head + t0) * Dv;
+  // This CTA's columns: [ck, ck + wk) of dk, [cv, cv + wv) of dv.
+  const int ck = z * split_cols(D, ns), cv = z * split_cols(Dv, ns);
+  const int wk = max(0, min(split_cols(D, ns), D - ck));
+  const int wv = max(0, min(split_cols(Dv, ns), Dv - cv));
+  const int nkc = chunks_of(D), nvc = chunks_of(Dv);
+  const int n1 = max(nkc, nvc);   // pass 1's stages of a query tile
+  const int per = n1 + NC;        // and pass 2's
+  const int nqt = (S + kAttnRows - 1) / kAttnRows;
+
+  // Stage `at`: query tile at / per; in pass 1 column chunk c of q, g, k
+  // and v, in pass 2 chunk c - n1 of the slice's columns of q and g.
+  auto quad = [&](int at) {
+    if (at < nqt * per) {
+      const int j = at / per, c = at - j * per, q0 = j * kAttnRows;
+      bf16* dst = ring + (at % kPairStages) * kQuadElems;
+      const bf16* qs = qh + (size_t)q0 * D;
+      const bf16* gs = gh + (size_t)q0 * Dv;
+      if (c < n1) {
+        if (c < nkc) {
+          copy_chunk<kDkvThreads>(dst, qs, D, S - q0, c);
+          copy_chunk<kDkvThreads>(dst + 2 * kChunkElems, kt, D, S - t0, c);
+        }
+        if (c < nvc) {
+          copy_chunk<kDkvThreads>(dst + kChunkElems, gs, Dv, S - q0, c);
+          copy_chunk<kDkvThreads>(dst + 3 * kChunkElems, vt, Dv, S - t0, c);
+        }
+      } else {
+        const int c1 = (c - n1) * kChunkCols;
+        if (c1 < wk)
+          copy_rows<kDkvThreads>(dst, kChunkLd, qs, D, S - q0, ck + c1,
+                                 ck + wk, kChunkCols);
+        if (c1 < wv)
+          copy_rows<kDkvThreads>(dst + kChunkElems, kChunkLd, gs, Dv, S - q0,
+                                 cv + c1, cv + wv, kChunkCols);
+      }
+    }
+    cp_commit();
+  };
+  // Query tile j's residuals into buffer j % 2 (joins the next commit).
+  auto residuals = [&](int j) {
+    if (j >= nqt) return;
+    const int q0 = j * kAttnRows;
+    float* dst = sRes + (j & 1) * 2 * kResElems;
+    const size_t at = ((size_t)b * S + q0) * S + t0;
+    copy_res_tile(dst, R.m + at, S, S - q0, S - t0);
+    copy_res_tile(dst + kResElems, dssum + at, S, S - q0, S - t0);
+    const int c = (threadIdx.x & 15) * 4;
+    if (threadIdx.x < 32) {
+      float* vd = sVec + (j & 1) * 2 * kAttnRows + (threadIdx.x >> 4) *
+                                                       kAttnRows + c;
+      const float* src = (threadIdx.x < 16 ? R.lse : R.delta) + head + q0 + c;
+      if (q0 + c < S) cp_async16(vd, src);
+      else *reinterpret_cast<float4*>(vd) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+  residuals(0);   // these join stage 0
+#pragma unroll
+  for (int at = 0; at < kPairStages - 1; ++at) quad(at);
+  int i = 0;
+  // Stage i has landed and every warp is done with stage i - 1 and with
+  // the residual buffer of two tiles back: refill both.
+  auto next = [&]() -> const bf16* {
+    cp_wait<kPairStages - 2>();
+    __syncthreads();
+    if (i % per == 0) residuals(i / per + 1);
+    quad(i + kPairStages - 1);
+    return ring + (i++ % kPairStages) * kQuadElems;
+  };
+
+  // This warp's operands: pass 1 its A chunk (k or v), the B chunk (q or
+  // g) and their width; pass 2 the B chunk and its output's columns.
+  const int w1 = owns_dk ? Dv : D;
+  const int a1 = owns_dk ? 3 * kChunkElems : 2 * kChunkElems;
+  const int b1 = owns_dk ? kChunkElems : 0;
+  const int w2 = owns_dk ? wk : wv;
+  const int b2 = owns_dk ? 0 : kChunkElems;
+  float4* xch = sXch + w * 8 * 32 + lane;
+  const int key[2] = {w * 16 + gr, w * 16 + gr + 8};   // of the CTA's 64
+
+  float acc[NC * kChunkN][4];
+#pragma unroll
+  for (int n = 0; n < NC * kChunkN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  for (int j = 0; j < nqt; ++j) {
+    const float* res = sRes + (j & 1) * 2 * kResElems;
+    const float* vec = sVec + (j & 1) * 2 * kAttnRows;
+    float s[8][4];   // keys 16w + gr (+8) x queries 8n + 2t (+1)
+    zero8(s);
+    for (int c = 0; c < n1; ++c) {
+      const bf16* X = next();
+      if (c < chunks_of(w1))
+        rows_by_chunk(s, X + a1, kChunkLd, 0, X + b1, chunk_steps(w1, c),
+                      lane, w);
+    }
+    uint32_t a[4][4];
+    if (!owns_dk) {
+      // p^T = exp(scale s^T + m^T - lse), handed to the dk warps.
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qr = n * 8 + 2 * t + (e & 1);
+          s[n][e] = __expf(s[n][e] * R.scale + res[qr * kResLd + key[e >> 1]] -
+                           vec[qr]);
+        }
+        xch[n * 32] = make_float4(s[n][0], s[n][1], s[n][2], s[n][3]);
+      }
+#pragma unroll
+      for (int kb = 0; kb < 4; ++kb) c_to_a(a[kb], s[2 * kb], s[2 * kb + 1]);
+    }
+#pragma unroll
+    for (int u = 0; u < NC; ++u) {
+      const bf16* X = next();   // after the first: p^T is in the exchange
+      if (u == 0 && owns_dk) {
+        // ds^T = round(scale p^T (dp^T - delta) + dssum^T); s holds dp^T.
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const float4 p4 = xch[n * 32];
+          const float p[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qr = n * 8 + 2 * t + (e & 1);
+            s[n][e] = p[e] * (s[n][e] - vec[kAttnRows + qr]) * R.scale +
+                      res[kResElems + qr * kResLd + key[e >> 1]];
+          }
+        }
+#pragma unroll
+        for (int kb = 0; kb < 4; ++kb) c_to_a(a[kb], s[2 * kb], s[2 * kb + 1]);
+      }
+      if (u < chunks_of(w2))
+        probs_by_chunk(acc, u, a, X + b2, chunk_steps(w2, u), lane);
+    }
+  }
+  cp_wait<0>();
+
+  const int ld = owns_dk ? D : Dv;
+  bf16* out = owns_dk ? dk + head * D + ck : dv + head * Dv + cv;
+#pragma unroll
+  for (int n = 0; n < NC * kChunkN; ++n) {
+    const int d = n * 8 + 2 * t;
+    if (d < w2) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        if (t0 + key[hf] < S)
+          *reinterpret_cast<uint32_t*>(out + (size_t)(t0 + key[hf]) * ld + d) =
+              pack(acc[n][2 * hf], acc[n][2 * hf + 1]);
+      }
+    }
+  }
+}
+
+template <int NC>
+cudaError_t launch_dkv_wide_bf16(const bf16* q, const bf16* k, const bf16* v,
+                                 const bf16* g, const Residuals& R,
+                                 const float* dssum, int B, int D, int Dv,
+                                 int ns, bf16* dk, bf16* dv, cudaStream_t st,
+                                 Report& rep) {
+  auto kern = hires_dkv_wide_bf16_kernel<NC>;
+  cudaError_t err = allow_smem(kern, kDkvWideSmem);
+  if (err != cudaSuccess) return err;
+  kern<<<dim3(ns * R.H, (R.S + kAttnRows - 1) / kAttnRows, B), kDkvThreads,
+         kDkvWideSmem, st>>>(q, k, v, g, R, dssum, D, Dv, ns, dk, dv);
+  return rep.done(kDkvWideSmem);
+}
+
+// dk and dv in ns = slices_of(the wider of D, Dv) slices; NC = the chunks
+// of the widest slice of either.
+cudaError_t dkv_wide_bf16(const bf16* q, const bf16* k, const bf16* v,
+                          const bf16* g, const Residuals& R,
+                          const float* dssum, int B, int D, int Dv, bf16* dk,
+                          bf16* dv, cudaStream_t st, Report& rep) {
+  const int ns = slices_of(D > Dv ? D : Dv);
+  const int ck = split_cols(D, ns), cv = split_cols(Dv, ns);
+  switch (chunks_of(ck > cv ? ck : cv)) {
+    case 1:
+      return launch_dkv_wide_bf16<1>(q, k, v, g, R, dssum, B, D, Dv, ns, dk,
+                                     dv, st, rep);
+    case 2:
+      return launch_dkv_wide_bf16<2>(q, k, v, g, R, dssum, B, D, Dv, ns, dk,
+                                     dv, st, rep);
+    case 3:
+      return launch_dkv_wide_bf16<3>(q, k, v, g, R, dssum, B, D, Dv, ns, dk,
+                                     dv, st, rep);
+    default:
+      return launch_dkv_wide_bf16<4>(q, k, v, g, R, dssum, B, D, Dv, ns, dk,
+                                     dv, st, rep);
+  }
+}
+
 template <int NC>
 cudaError_t launch_dkv_bf16(const bf16* q, const bf16* k, const bf16* v,
                             const bf16* g, const Residuals& R,
@@ -866,7 +1113,7 @@ cudaError_t dq_pass(const T* q, const T* k, const T* v, const T* g,
                     Report& rep) {
   if constexpr (std::is_same<T, bf16>::value) {
     static_assert(kMaxChunks == 4, "one case per chunk count");
-    if (fam.tc) {
+    if (fam.tc_dq) {
       switch (chunks_of(D)) {
         case 1:
           return launch_dq_bf16<1>(q, k, v, g, R, dssum, B, D, Dv, dq, st,
@@ -955,7 +1202,10 @@ cudaError_t run_dkv(const void* q, const void* k, const void* v,
   T *dkt = static_cast<T*>(dk), *dvt = static_cast<T*>(dv);
   if constexpr (std::is_same<T, bf16>::value) {
     static_assert(kMaxChunks == 4, "one case per chunk count");
-    if (fam.tc) {
+    if (fam.tc_dkv && (D > kSlice || Dv > kSlice))
+      return dkv_wide_bf16(qt, kt, vt, gt, R, dssum, B, D, Dv, dkt, dvt, st,
+                           rep);
+    if (fam.tc_dkv) {
       switch (chunks_of(D > Dv ? D : Dv)) {
         case 1:
           return launch_dkv_bf16<1>(qt, kt, vt, gt, R, dssum, B, D, Dv, dkt,
@@ -1135,4 +1385,21 @@ extern "C" int hires_attention_dkv(
   *launched = rep.launched;
   *smem = (long long)rep.smem;
   return (int)err;
+}
+
+// What the card makes of each wide bf16 dk/dv instantiation: kernel k (NC
+// = k + 1) fills out[4k..4k+3] as occupancy() does (hires_common.cuh).
+// Returns a cudaError_t.
+extern "C" int hires_dkv_wide_occupancy(int* out) {
+  const void* fns[4] = {
+      reinterpret_cast<const void*>(hires_dkv_wide_bf16_kernel<1>),
+      reinterpret_cast<const void*>(hires_dkv_wide_bf16_kernel<2>),
+      reinterpret_cast<const void*>(hires_dkv_wide_bf16_kernel<3>),
+      reinterpret_cast<const void*>(hires_dkv_wide_bf16_kernel<4>)};
+  for (int k = 0; k < 4; ++k) {
+    const cudaError_t err = occupancy(fns[k], kDkvThreads, kDkvWideSmem,
+                                      out + 4 * k);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }

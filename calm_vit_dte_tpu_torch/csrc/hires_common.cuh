@@ -71,6 +71,28 @@ struct Report {
   }
 };
 
+// What the card makes of one kernel launched with `threads` a CTA and
+// `dyn` bytes of dynamic shared memory: out[0..3] = registers a thread,
+// local (spill) bytes a thread, static + dynamic shared memory a CTA, CTAs
+// resident per SM.
+inline cudaError_t occupancy(const void* fn, int threads, size_t dyn,
+                             int* out) {
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  if ((err = cudaFuncGetAttributes(&attr, fn)) != cudaSuccess) return err;
+  int ctas = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, fn, threads,
+                                                      dyn);
+  if (err != cudaSuccess) return err;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = (int)(attr.sharedSizeBytes + dyn);
+  out[3] = ctas;
+  return cudaSuccess;
+}
+
 // One output element through the epilogue (bounds-checked).
 template <typename T>
 __device__ __forceinline__ void store_c(const Gemm& g, int m, int n,
@@ -283,17 +305,31 @@ __host__ __device__ inline int slice_ld(int width) {
   return slice_width(width) | 1;
 }
 
-// The kernels of a call. bf16 calls whose S, D and Dv are multiples of 8
-// (rows of 16 bytes) run their strided products and the dm/ssum pass on
-// the tensor cores (aligned), and with D, Dv <= kSlice their attention,
-// dq and dk/dv passes too (tc); every other call, fp32 or bf16, runs the
-// CUDA-core kernels, which read the compute type and accumulate in fp32.
+// The most dynamic shared memory a CTA may have on the H100.
+constexpr int kMaxCtaSmem = 232448;
+// The widest D of the bf16 forward on the tensor cores: its CTA keeps 64
+// rows of q resident ([64][pad16(D) + 8] bf16) beside a 36,864-byte chunk
+// ring, which fit in kMaxCtaSmem up to D = 1520 (hires_attention.cu
+// asserts it). Dv has no limit there: o's columns are split over the grid.
+constexpr int kTcFwdMaxD = 1520;
+
+// The kernels of a call, pass by pass. bf16 calls whose S, D and Dv are
+// multiples of 8 (rows of 16 bytes) run their strided products and the
+// dm/ssum pass on the tensor cores (aligned); of their attention passes,
+// the forward runs there with D <= kTcFwdMaxD (tc_fwd), the dq pass with
+// D, Dv <= kSlice (tc_dq), and the dk/dv pass at every D and Dv (tc_dkv:
+// its CTA streams k and v through its ring, so its shared memory does not
+// grow with them). Past kSlice the forward and dk/dv passes run their
+// wide kernels, which split o, dk and dv over the grid. Every other pass,
+// fp32 or bf16, runs the CUDA-core kernels, which read the compute type
+// and accumulate in fp32.
 struct Family {
-  bool aligned, tc;
+  bool aligned, tc_fwd, tc_dq, tc_dkv;
 };
 inline Family family_of(int is_bf16, int S, int D, int Dv) {
   const bool aligned = is_bf16 && !(S % 8 || D % 8 || Dv % 8);
-  return {aligned, aligned && D <= kSlice && Dv <= kSlice};
+  return {aligned, aligned && D <= kTcFwdMaxD,
+          aligned && D <= kSlice && Dv <= kSlice, aligned};
 }
 
 // Rows [row0, row0 + 64) x columns [c0, c0 + cols) of a row-major matrix

@@ -272,6 +272,14 @@ __host__ __device__ inline int chunks_of(int width) {
   return (width + kChunkCols - 1) / kChunkCols;
 }
 
+// The wide kernels split an output `width` columns wide over ns CTAs
+// (ns at least slices_of(width)): slice z owns columns [z c, z c + c) with
+// c = split_cols(width, ns), a multiple of 16 and at most kSlice; the last
+// slice keeps what remains, which may be nothing.
+__host__ __device__ inline int split_cols(int width, int ns) {
+  return tcore::pad16((width + ns - 1) / ns);
+}
+
 // k-steps of 16 in chunk c of a `width`-wide operand (padded to 16).
 __device__ __forceinline__ int chunk_steps(int width, int c) {
   return min(kChunkSteps, tcore::pad16(width) / 16 - kChunkSteps * c);

@@ -32,20 +32,22 @@ dtype, m, lse, dssum and the weight grads in fp32.
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches its kernels or raises. The kernels take every shape (Sq == Skv,
-any S, D, Dv). A bf16 call whose S, D and Dv are multiples of 8 and whose
-D, Dv are at most 256 runs every product on the tensor cores
-(`tensor_cores`); a bf16 call with S, D, Dv multiples of 8 but a wider
-head runs its strided products and dm/ssum pass there and its attention,
-dq and dk/dv passes on the CUDA-core kernels; every other call, and every
-fp32 call (the card-vs-CPU checks), runs the CUDA-core kernels, which
-stream every contraction over D or Dv through shared memory 64 columns at
-a time and split an output wider than 256 columns over the grid. Each
-wrapper counts its calls in `.launches` (and of them the calls on the
-CUDA-core kernels in `.cuda_core_launches`); the C
-entries report the kernels each call launched and the largest dynamic
-shared memory a CTA of them asked for, and the wrappers add the launches
-past the counted one to `.stage_launches` and keep the shared memory of
-their last call in `.smem_bytes`.
+any S, D, Dv). A bf16 call whose S, D and Dv are multiples of 8 runs its
+strided products and dm/ssum pass on the tensor cores, and each of its
+attention passes there within that pass's limits (`tensor_cores`,
+`TC_MAX_D`): the forward up to D 1520, the dk/dv pass at every D and Dv,
+both on their wide kernels past 256 columns (o, dk and dv split over the
+grid, the scores recomputed by each slice), the dq pass up to D, Dv 256.
+Every other pass, and every fp32 call (the card-vs-CPU checks), runs the
+CUDA-core kernels, which stream every contraction over D or Dv through
+shared memory 64 columns at a time and split an output wider than 256
+columns over the grid. Each wrapper counts its calls in `.launches`, and
+of them the calls on the CUDA-core kernels in `.cuda_core_launches` and
+(forward and dk/dv) those on the wide tensor-core kernels in
+`.wide_launches`; the C entries report the kernels each call launched and
+the largest dynamic shared memory a CTA of them asked for, and the
+wrappers add the launches past the counted one to `.stage_launches` and
+keep the shared memory of their last call in `.smem_bytes`.
 """
 
 from __future__ import annotations
@@ -69,7 +71,14 @@ REPLACES_FWD_RES = "calm_vit_dte_tpu/kernels/axial_attention.py:1069"
 REPLACES_DQ = "calm_vit_dte_tpu/kernels/axial_attention.py:1087"
 REPLACES_DKV = "calm_vit_dte_tpu/kernels/axial_attention.py:1125"
 REPLACES_FWD_ONLY = "calm_vit_dte_tpu/kernels/axial_attention.py:1221"
-TC_MAX_D = 256     # the widest D, Dv of the tensor-core attention passes
+# The widest (D, Dv) of each attention pass's tensor-core kernels, None
+# where there is no limit (`family_of` in csrc/hires_common.cuh): the
+# forward keeps 64 rows of q resident in shared memory, which fit up to D
+# 1520 (kTcFwdMaxD), and splits o over the grid; the dq kernel holds D, Dv
+# up to 256 (kSlice); the dk/dv kernels stream k and v through their ring
+# and split dk and dv over the grid, at every width.
+TC_MAX_D = {"fwd": (1520, None), "dq": (256, 256), "dkv": (None, None)}
+TC_SLICE = 256     # past it in D or Dv: the wide forward and dk/dv kernels
 BF16_MULTIPLE = 8  # S, D and Dv of the tensor-core kernels: 16-byte rows
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -167,14 +176,30 @@ def refusal(s: int, d: int, dv: int, dtype) -> str | None:
     return None
 
 
-def tensor_cores(s: int, d: int, dv: int, dtype) -> bool:
-    """Whether a call's attention, dq and dk/dv passes run on the tensor
-    cores: `family_of(...).tc` in csrc/hires_common.cuh (bf16, S, D and Dv
-    multiples of BF16_MULTIPLE, D and Dv at most TC_MAX_D)."""
+def tensor_cores(s: int, d: int, dv: int, dtype,
+                 pass_: str | None = None) -> bool:
+    """Whether a call's attention pass `pass_` ("fwd", "dq" or "dkv"; None:
+    all three) runs on the tensor cores: `family_of(...).tc_<pass>` in
+    csrc/hires_common.cuh (bf16, S, D and Dv multiples of BF16_MULTIPLE, D
+    and Dv within the pass's TC_MAX_D)."""
+    if pass_ is None:
+        return all(tensor_cores(s, d, dv, dtype, p) for p in TC_MAX_D)
+    max_d, max_dv = TC_MAX_D[pass_]
     return (dtype == torch.bfloat16 and not (s % BF16_MULTIPLE
                                              or d % BF16_MULTIPLE
                                              or dv % BF16_MULTIPLE)
-            and d <= TC_MAX_D and dv <= TC_MAX_D)
+            and (max_d is None or d <= max_d)
+            and (max_dv is None or dv <= max_dv))
+
+
+def _count(counter, s: int, d: int, dv: int, dtype, pass_: str) -> None:
+    """Add one launch of `pass_` to `counter.cuda_core_launches` or, on
+    the wide tensor-core kernels (the forward and dk/dv passes past
+    TC_SLICE), to `counter.wide_launches`."""
+    if not tensor_cores(s, d, dv, dtype, pass_):
+        counter.cuda_core_launches += 1
+    elif max(d, dv) > TC_SLICE:
+        counter.wide_launches += 1
 
 
 def _dims(q, k, v, dtype) -> tuple:
@@ -260,7 +285,7 @@ def _launch_fwd(q, k, v, w1, b1, w2, b2, *, scale, dtype, use_mask: bool,
         _ptr(ssum), _ptr(a), _ptr(m), _ptr(o), _ptr(lse), b, h, s, d, dv,
         float(scale), torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "hires_attention_fwd", dims, dtype)
-    counter.cuda_core_launches += not tensor_cores(s, d, dv, dtype)
+    _count(counter, s, d, dv, dtype, "fwd")
     return o, (m if residuals else None), lse
 
 
@@ -295,7 +320,7 @@ def _launch_dq(q, k, v, g, m, lse, delta, w1, b1, w2, *, scale,
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "hires_attention_dq", dims, dtype)
     hires_dq.launches += 1
-    hires_dq.cuda_core_launches += not tensor_cores(s, d, dv, dtype)
+    _count(hires_dq, s, d, dv, dtype, "dq")
     return (dq, dssum) + hires_weight_grads(ssum, dm, a, dh1)
 
 
@@ -359,8 +384,36 @@ def _launch_dkv(q, k, v, g, m, lse, delta, dssum, *, scale,
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "hires_attention_dkv", dims, dtype)
     hires_dkv.launches += 1
-    hires_dkv.cuda_core_launches += not tensor_cores(s, d, dv, dtype)
+    _count(hires_dkv, s, d, dv, dtype, "dkv")
     return dk, dvv
+
+
+def wide_occupancy(d: int) -> dict:
+    """What the card makes of each wide tensor-core kernel instantiation,
+    the forward's at head dim `d`: {name: {"registers", "spill_bytes",
+    "smem_bytes" (static + dynamic, a CTA), "ctas_per_sm"}}, from
+    cudaFuncGetAttributes and cudaOccupancyMaxActiveBlocksPerMultiprocessor
+    in the C entries."""
+    keys = ("registers", "spill_bytes", "smem_bytes", "ctas_per_sm")
+    out = {}
+    for lib, entry, names, args in (
+            ("hires_attention", "hires_attention_wide_occupancy",
+             [f"hires_attention_wide_bf16_kernel<{nv}, {r}>"
+              for nv in range(2, 5) for r in (0, 1)], [d]),
+            ("hires_attention_bwd", "hires_dkv_wide_occupancy",
+             [f"hires_dkv_wide_bf16_kernel<{nc}>" for nc in range(1, 5)],
+             [])):
+        fn = getattr(library(lib), entry)
+        if fn.argtypes is None:
+            fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        buf = (ctypes.c_int * (4 * len(names)))()
+        err = fn(*args, buf)
+        if err != 0:
+            raise RuntimeError(f"{entry}: CUDA error {err}")
+        for k, name in enumerate(names):
+            out[name] = dict(zip(keys, buf[4 * k:4 * k + 4]))
+    return out
 
 
 def _on(t: torch.Tensor) -> str:
@@ -477,10 +530,13 @@ for _counter in (fused_hires_attention, hires_dq, hires_weight_grads,
                  hires_dkv, fused_attention_forward):
     _counter.stage_launches = 0
     _counter.smem_bytes = 0
-# Of `.launches`, the calls whose attention passes ran the CUDA-core
-# kernels (`tensor_cores` false: fp32, or bf16 past the tensor-core
-# kernels).
+# Of `.launches`, the calls whose attention pass ran the CUDA-core kernels
+# (`tensor_cores` false for the pass: fp32, or bf16 past its tensor-core
+# kernels) and, for the passes that have them, the wide tensor-core
+# kernels (D or Dv past TC_SLICE).
 for _counter in (fused_hires_attention, hires_dq, hires_dkv,
                  fused_attention_forward):
     _counter.cuda_core_launches = 0
+for _counter in (fused_hires_attention, hires_dkv, fused_attention_forward):
+    _counter.wide_launches = 0
 del _counter

@@ -15,25 +15,33 @@ them, which the port never calls: `scaled_dot_product_attention` with the
 mask m as an additive bias (the attention tiles of the forward) and
 `torch.matmul` at the shapes of the strided product's ssum, h1, m
 (forward) and h1, dh1, dssum, dW1, dW2 (dq pass), and of the dk/dv pass's
-four products per (batch, head). With --step it builds the model and
-traces one bf16 training step at B=8, split by the same kernel families.
-It prints one JSON line per shape, then the sums weighted by the launches
+four products per (batch, head). With --heads N the model's heads are
+N (`create_vit(..., heads=N)`: at 6, head dims 512, 416, 320, 224), and
+with --trace-dir DIR each call at the widest shape is traced once more:
+the chrome trace goes to DIR and the row lists that call's kernels by
+name, launches and device ms. With --step it builds the model and traces
+one bf16 training step at B=8, split by the same kernel families. It
+prints one JSON line per shape, then the sums weighted by the launches
 per hires forward (per training step for the passes of the backward),
 with the card's name and power limit.
 
     python -m calm_vit_dte_tpu_torch.tools.time_hires [--batch 8] \\
-        [--reps 5] [--step] [--no-yardsticks]
+        [--heads 12] [--reps 5] [--step] [--no-yardsticks] \\
+        [--trace-dir DIR]
 
 It times the package found first on `sys.path`: to compare two versions of
 the kernels on one card in one run, start it from each checkout's root in
 turn (each builds its own kernels under its own `build/`), for example old,
-new, new, old. Kernel families are matched by name, old and new.
+new, new, old. Kernel families are matched by name, old and new; the
+script uses no name the older packages lack.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import pathlib
 import subprocess
 import time
 
@@ -44,16 +52,19 @@ import torch.nn.functional as F
 from calm_vit_dte_tpu_torch.kernels import hires_attention as kh
 from calm_vit_dte_tpu_torch.utils.configs import get_config
 
-H = 12
+H = 12   # hires-cls-1024's heads; --heads overrides
 
 # Kernel families of the hires route, by (demangled) kernel name: the fp32
-# and first-design bf16 kernels and the tensor-core ones.
+# and first-design bf16 kernels and the tensor-core ones, the wide ones
+# (D or Dv past 256) included.
 PARTS = {
     "attention forward": ("hires_attention_kernel",
-                          "hires_attention_bf16_kernel"),
+                          "hires_attention_bf16_kernel",
+                          "hires_attention_wide_bf16_kernel"),
     "dm/ssum": ("hires_dm_ssum_kernel", "hires_dm_ssum_bf16_kernel"),
     "dq": ("hires_dq_kernel", "hires_dq_bf16_kernel"),
-    "dk/dv": ("hires_dkv_kernel", "hires_dkv_bf16_kernel"),
+    "dk/dv": ("hires_dkv_kernel", "hires_dkv_bf16_kernel",
+              "hires_dkv_wide_bf16_kernel"),
     "strided product": ("namespace)::gemm_kernel", "gemm_tc_kernel"),
     "weight-grad partial sums": ("sum_partials_kernel",),
     "bias-grad sums": ("colsum_kernel", "sum_splits_kernel"),
@@ -73,7 +84,8 @@ def kernel_shapes(model_cfg) -> dict[tuple, int]:
     return shapes
 
 
-def inputs(b: int, s: int, d: int, dv: int, seed: int, dtype=torch.bfloat16):
+def inputs(b: int, s: int, d: int, dv: int, seed: int, dtype=torch.bfloat16,
+           heads: int = H):
     """(q, k, v, w1, b1, w2, b2) on the card and g = dL/do: q, k, v, g of
     order 0.3 in `dtype`, the fp32 mask weights scaled so that the mask's
     hidden layer and m are of order one."""
@@ -84,12 +96,12 @@ def inputs(b: int, s: int, d: int, dv: int, seed: int, dtype=torch.bfloat16):
             (rng.standard_normal(shape) * scale).astype(np.float32)).to(
             device="cuda", dtype=dt)
 
-    args = (n(b, H, s, d, scale=0.3, dt=dtype), n(b, H, s, d, scale=0.3,
-                                                  dt=dtype),
-            n(b, H, s, dv, scale=0.3, dt=dtype),
+    args = (n(b, heads, s, d, scale=0.3, dt=dtype),
+            n(b, heads, s, d, scale=0.3, dt=dtype),
+            n(b, heads, s, dv, scale=0.3, dt=dtype),
             n(2 * s, s, scale=0.2 / s ** 0.5), n(2 * s, scale=0.1),
             n(s, 2 * s, scale=(2 * s) ** -0.5), n(s, scale=0.1))
-    return args, n(b, H, s, dv, scale=0.3, dt=dtype)
+    return args, n(b, heads, s, dv, scale=0.3, dt=dtype)
 
 
 def median_ms(fn, reps: int) -> float:
@@ -154,6 +166,27 @@ def parts_ms(fn, reps: int) -> tuple[dict[str, float], int]:
     return {}, TRACE_TRIES
 
 
+def trace_call(fn, path: pathlib.Path) -> list[dict]:
+    """One traced call of `fn` (after a warm one): its chrome trace written
+    to `path`, and its kernels and copies by name with their launches and
+    device ms, the largest first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    rows = [{"name": e.key, "launches": e.count,
+             "device_ms": e.self_device_time_total / 1e3}
+            for e in prof.key_averages()
+            if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
+    return sorted(rows, key=lambda r: -r["device_ms"])
+
+
 def yardsticks(args, reps: int) -> dict[str, float]:
     """ms of the PyTorch calls that compute the parts, on the same inputs:
     SDPA with m as an additive bias (bf16), torch.matmul at the shapes of
@@ -161,13 +194,13 @@ def yardsticks(args, reps: int) -> dict[str, float]:
     and per (batch, head) at the dk/dv pass's four products, k q^T, v g^T,
     p^T g and ds^T q (a random g and a random (S, S) tile for p^T, ds^T)."""
     q, k, v, w1, _, w2, _ = args
-    b, _, s, d = q.shape
+    b, h, s, d = q.shape
     dt = q.dtype
     m = torch.randn(b, 1, s, s, device="cuda", dtype=dt)
     g = torch.randn_like(v)
-    x_ss = torch.randn(b, H, s, s, device="cuda", dtype=dt)   # p^T, ds^T
-    qf = q.transpose(1, 2).reshape(b, s, H * d).contiguous()
-    kf = k.transpose(1, 2).reshape(b, s, H * d).transpose(1, 2).contiguous()
+    x_ss = torch.randn(b, h, s, s, device="cuda", dtype=dt)   # p^T, ds^T
+    qf = q.transpose(1, 2).reshape(b, s, h * d).contiguous()
+    kf = k.transpose(1, 2).reshape(b, s, h * d).transpose(1, 2).contiguous()
     x_s = torch.randn(b * s, s, device="cuda", dtype=dt)       # ssum, dm
     x_2s = torch.randn(b * s, 2 * s, device="cuda", dtype=dt)  # a, dh1
     w1c, w2c = w1.to(dt), w2.to(dt)
@@ -191,12 +224,14 @@ def yardsticks(args, reps: int) -> dict[str, float]:
 
 
 def time_shape(b: int, s: int, d: int, dv: int, seed: int, reps: int,
-               plain: bool = False, with_yardsticks: bool = True) -> dict:
+               plain: bool = False, with_yardsticks: bool = True,
+               heads: int = H, trace_dir: pathlib.Path | None = None) -> dict:
     """Times of the four kernels (and, with `plain`, their plain versions),
-    their parts and the yardsticks at one shape."""
+    their parts and the yardsticks at one shape; with `trace_dir`, one
+    traced call of each (`trace_call`)."""
     from calm_vit_dte_tpu_torch.kernels.axial_attention import attention_core
 
-    args, g = inputs(b, s, d, dv, seed)
+    args, g = inputs(b, s, d, dv, seed, heads=heads)
     kw = dict(scale=d ** -0.5, dtype=torch.bfloat16)
     q, k, v, w1, b1, w2, _ = args
     with torch.no_grad():
@@ -218,13 +253,17 @@ def time_shape(b: int, s: int, d: int, dv: int, seed: int, reps: int,
                     lambda: kh.hires_dkv_plain(q, k, v, g, m, lse, delta,
                                                dssum, **kw)),
         }
-        row = {"shape": [s, d, dv]}
+        row = {"shape": [s, d, dv], "heads": heads}
         for name, (kern, ref) in calls.items():
             parts, traces = parts_ms(kern, 3)
             row[name] = {"ms": median_ms(kern, reps), "parts_ms": parts,
                          "traces": traces}
             if plain:
                 row[name]["plain_ms"] = median_ms(ref, max(2, reps // 2))
+            if trace_dir is not None:
+                path = trace_dir / f"{name}_H{heads}_S{s}_D{d}_Dv{dv}.json"
+                row[name]["trace"] = {"file": str(path),
+                                      "kernels": trace_call(kern, path)}
         # The attention kernel alone, without the mask: no strided product
         # and no reads of m.
         row["fwd_only_mask_off_ms"] = median_ms(
@@ -235,9 +274,10 @@ def time_shape(b: int, s: int, d: int, dv: int, seed: int, reps: int,
     return row
 
 
-def trace_step(batch: int) -> dict:
-    """One bf16 training step of hires-cls-1024 at `batch` (remat, after a
-    warm step), traced: wall ms, device busy ms and its split by part."""
+def trace_step(batch: int, heads: int = H) -> dict:
+    """One bf16 training step of hires-cls-1024 with `heads` heads at
+    `batch` (remat, after a warm step), traced: wall ms, device busy ms and
+    its split by part."""
     from torch.profiler import ProfilerActivity, profile
 
     from calm_vit_dte_tpu_torch.data.augment import eval_preprocess
@@ -252,8 +292,8 @@ def trace_step(batch: int) -> dict:
                           dtype=np.uint8)
     soft = rng.random((batch, cfg.model.out_features)).astype(np.float32)
     batch_ = {"image": images, "label": soft / soft.sum(-1, keepdims=True)}
-    _, model = create_vit("hires-cls-1024", seed=cfg.init_seed,
-                          device="cuda")
+    model_cfg, model = create_vit("hires-cls-1024", seed=cfg.init_seed,
+                                  device="cuda", heads=heads)
     tx = make_optimizer(base_lr=cfg.lr * batch / cfg.global_batch_size,
                         weight_decay=cfg.weight_decay, b1=cfg.beta1,
                         b2=cfg.beta2, epochs=cfg.epochs, steps_per_epoch=1000,
@@ -261,7 +301,7 @@ def trace_step(batch: int) -> dict:
                         schedule=cfg.schedule, decoupled_wd=cfg.decoupled_wd)
     state = create_train_state(model, tx, seed=0)
     step = make_train_step(
-        cfg.model, tx, "cls", dtype=torch.bfloat16, remat=cfg.remat,
+        model_cfg, tx, "cls", dtype=torch.bfloat16, remat=cfg.remat,
         preprocess=lambda gen, b: {
             "image": eval_preprocess(b["image"], crop=cfg.crop),
             "label": b["label"]}, microbatches=1)
@@ -281,9 +321,12 @@ def trace_step(batch: int) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--heads", type=int, default=H)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--step", action="store_true")
     ap.add_argument("--no-yardsticks", action="store_true")
+    ap.add_argument("--trace-dir", type=pathlib.Path, default=None,
+                    help="trace each call at the widest shape into DIR")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("time_hires needs a CUDA card")
@@ -291,21 +334,26 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
-    shapes = kernel_shapes(get_config("hires-cls-1024").model)
+    shapes = kernel_shapes(dataclasses.replace(
+        get_config("hires-cls-1024").model, heads=args.heads))
+    widest = max(shapes, key=lambda k: (k[1], k[2]))
     sums = {k: 0.0 for k in ("fwd_res", "fwd_only", "dq", "dkv")}
     for i, ((s, d, dv), n) in enumerate(sorted(shapes.items(),
                                                reverse=True)):
         row = time_shape(args.batch, s, d, dv, seed=900 + i, reps=args.reps,
-                         with_yardsticks=not args.no_yardsticks)
+                         with_yardsticks=not args.no_yardsticks,
+                         heads=args.heads,
+                         trace_dir=(args.trace_dir if (s, d, dv) == widest
+                                    else None))
         row["launches"] = n
         for k in sums:
             sums[k] += n * row[k]["ms"]
         print(json.dumps(row), flush=True)
         torch.cuda.empty_cache()
-    out = {"batch": args.batch, "per_hires_step_or_forward_ms": sums,
-           "card": smi}
+    out = {"batch": args.batch, "heads": args.heads,
+           "per_hires_step_or_forward_ms": sums, "card": smi}
     if args.step:
-        out["train_step"] = trace_step(args.batch)
+        out["train_step"] = trace_step(args.batch, args.heads)
     print(json.dumps(out), flush=True)
     return 0
 

@@ -55,7 +55,9 @@ def evaluate(cfg: TrainConfig, max_batches: int | None = None,
     """Top-1 accuracy over `cfg`'s val split, the forward in bf16.
     quantize='int8' / 'int8-wo' evaluates through the int8 serving weights
     (quantize.py): the top-1 serving users get. stats_out, if given, is
-    filled with wall_s, images, img_per_s, loader_wait_s and device_s."""
+    filled with wall_s, images, img_per_s, loader_wait_s and device_s
+    (seconds rounded to 0.01, the JAX function's keys) and exact_s, the
+    same three times unrounded: {"wall", "loader_wait", "device"}."""
     dev = maybe_init_distributed(resolve_device(device))
     mesh = make_mesh(model=cfg.mesh_model)
     chief = is_chief()
@@ -116,7 +118,9 @@ def evaluate(cfg: TrainConfig, max_batches: int | None = None,
         stats_out.update(wall_s=round(wall, 2), images=total,
                          img_per_s=round(total / max(wall, 1e-9), 2),
                          loader_wait_s=round(loader_wait, 2),
-                         device_s=round(device_s, 2))
+                         device_s=round(device_s, 2),
+                         exact_s={"wall": wall, "loader_wait": loader_wait,
+                                  "device": device_s})
     if chief:
         print(f"top-1 accuracy: {acc * 100:.2f}% over {total} images",
               flush=True)

@@ -215,15 +215,23 @@ Phases, each fatal on failure (any exception exits non-zero):
  15. routes  the attention dispatch (ops/attention.py) and the JAX
              package's 'chunked' and 'xla' routes: (a) at each limit of the
              dispatcher (rope Dv 64 -> 72 at S 224: rope -> hires; D = Dv
-             256 -> 264 at S 1024 and bf16 S 1024 -> 1020: the hires
-             kernels on the tensor cores -> on the CUDA cores; Sq = Skv 224
-             -> Skv 256: rope -> 'xla'), fp32 and bf16, mask on and off, one
-             counter each; the route's fp32 forward (rtol 2e-4 / atol 2e-5)
-             and gradients (within 1e-4 of each one's largest value) card
-             vs CPU; the hires CUDA-core kernels at the six-head shapes
-             past D 256 and at the limits' shapes past, against their plain
-             versions as phase 8 holds the tensor-core ones, and timed at
-             B=8; (b) 'chunked' (chunk 2) against 'xla' forced at B 16, H 6,
+             256 -> 264 at S 1024: in bf16 the forward and dk/dv passes
+             from the tensor-core kernels to their wide forms, dq to the
+             CUDA cores; bf16 S 1024 -> 1020: every pass to the CUDA cores;
+             Sq = Skv 224 -> Skv 256: rope -> 'xla'), fp32 and bf16, mask
+             on and off, with and without grad, one counter each (the
+             launches by family: the path routes_limits); the route's fp32
+             forward (rtol 2e-4 / atol 2e-5) and gradients (within 1e-4 of
+             each one's largest value) card vs CPU; the hires kernels past
+             the D, Dv <= 256 tensor-core kernels (the six-head shapes, D
+             264, a partial D slice, Dv past 256 with D below it, bf16 S
+             1020 and head dims off the multiple of 8) against their plain
+             versions as phase 8 holds the tensor-core ones, bf16 twice
+             bit for bit, and timed at B=8 (the wide kernels and the bf16
+             CUDA-core dq kernel; the fp32 CUDA-core forward and dk/dv
+             kernels), with the wide kernels' registers, spills, shared
+             memory and CTAs per SM from the runtime; (b) 'chunked' (chunk
+             2) against 'xla' forced at B 16, H 6,
              S 1024, D = Dv 512 in bf16, forward and backward, each within
              twice the other's error of the fp32 route, each one's device
              ms and peak memory, beside the hires kernels that 'auto' takes
@@ -231,11 +239,13 @@ Phases, each fatal on failure (any exception exits non-zero):
              width, u/v converged as Predictor.fresh does: classify 8 uint8
              1168x1168 images through the Predictor constructor in bf16
              (exactly 24 forward-only hires launches, 15 of them on the
-             CUDA-core kernels, + 8 conv), fp32 logits card vs CPU on 1
-             image (phase 8's limits), and make_train_step steps at B=16 in
-             bf16 with remat (exactly 24 + 24 + 24 hires launches, 15 each
-             on the CUDA-core kernels, no route; the loss finite, every
-             gradient finite and nonzero), images/s and ms a step.
+             wide kernel, + 8 conv), fp32 logits card vs CPU on 1 image
+             (phase 8's limits; 24 forward-only launches on the CUDA-core
+             kernel), and make_train_step steps at B=16 in bf16 with remat
+             (exactly 24 + 24 + 24 hires launches: 15 forwards and 15 dk/dv
+             passes on the wide kernels, 15 dq passes on the CUDA-core
+             kernel, no route; the loss finite, every gradient finite and
+             nonzero), images/s and ms a step.
 
 Every fp32 comparison runs with torch.backends.cuda.matmul.allow_tf32 and
 torch.backends.cudnn.allow_tf32 both False, so the plain versions' products
@@ -276,6 +286,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3 bandwidth
+PEAK_FP32_FLOPS = 67e12    # H100 SXM fp32 outside the tensor cores
 H = 12
 CHECK_BATCH = 8
 TIME_BATCH = 128
@@ -401,11 +412,15 @@ TENSOR_CORE_KERNELS = ("rope_attention_fwd_bf16_kernel", "bwd_rows_kernel",
                        "bwd_keys_kernel", "xty_mma_kernel",
                        "hires_attention_bf16_kernel",
                        "hires_dm_ssum_bf16_kernel", "hires_dq_bf16_kernel",
-                       "hires_dkv_bf16_kernel", "gemm_tc_kernel")
+                       "hires_dkv_bf16_kernel", "gemm_tc_kernel",
+                       "hires_attention_wide_bf16_kernel",
+                       "hires_dkv_wide_bf16_kernel")
 # The hires tensor-core kernels, whose ptxas reports must show no spills.
 NO_SPILL_KERNELS = ("hires_attention_bf16_kernel",
                     "hires_dm_ssum_bf16_kernel", "hires_dq_bf16_kernel",
-                    "hires_dkv_bf16_kernel", "gemm_tc_kernel")
+                    "hires_dkv_bf16_kernel", "gemm_tc_kernel",
+                    "hires_attention_wide_bf16_kernel",
+                    "hires_dkv_wide_bf16_kernel")
 
 
 def kernel_registers(ptxas_log):
@@ -541,10 +556,11 @@ def hires_inputs(torch, b, s, d, dv, device, dtype, seed, zero_mask=False,
             n(b, h, s, dv, scale=0.3, dt=dtype), *w]
 
 
-def hires_bounds(b, s, d, dv, itemsize, h=H):
+def hires_bounds(b, s, d, dv, itemsize, h=H, peak=PEAK_BF16_FLOPS):
     """(bytes ms, operations ms) of the four hires kernels at one shape:
     each input read once, each output written once; the operations of the
-    products each kernel forms (the mask MLP included)."""
+    products each kernel forms (the mask MLP included), at `peak` FLOP/s
+    (the compute type's rate: bf16 tensor cores, or fp32)."""
     mlp = 4 * b * s ** 3                       # one (B*S, S) x (S, 2S) product
     qkvo = b * h * s * (2 * d + 2 * dv) * itemsize
     weights = (2 * s * 2 * s + 3 * s) * 4
@@ -562,7 +578,7 @@ def hires_bounds(b, s, d, dv, itemsize, h=H):
         "dkv": (qkvo + b * h * s * (d + dv) * itemsize + 2 * sq + 2 * vec,
                 4 * b * h * s * s * (d + dv)),
     }
-    return {k: (nb / PEAK_BYTES * 1e3, fl / PEAK_BF16_FLOPS * 1e3)
+    return {k: (nb / PEAK_BYTES * 1e3, fl / peak * 1e3)
             for k, (nb, fl) in work.items()}
 
 
@@ -579,12 +595,16 @@ def hires_bwd(kh, args, g, res, scale, dtype, plain):
 
 
 def check_hires_shape(torch, ka, kh, s, d, dv, seed, zero_mask=False,
-                      h=H):
+                      h=H, twice=False):
     """Kernels 1-4 against their plain versions at B=HIRES_CHECK_BATCH:
     fp32 forward (o, m, lse; kernel 4 with the mask on and off) at rtol 2e-4
     / atol 2e-5, fp32 backward within BWD_FP32_LIMIT of each output's
-    largest value, bf16 at most twice the plain bf16 version's error.
-    Returns the worst errors."""
+    largest value, bf16 at most twice the plain bf16 version's error (and,
+    with `twice`, the bf16 forwards and backward passes launched again give
+    the same bits). Returns the worst errors: fp32 max abs by kernel, the
+    backward's worst normalised fp32 error, the worst bf16 error over the
+    plain bf16 one (also by kernel, `bf16_over_plain`) and the bf16 max abs
+    kernel-vs-plain difference by kernel (`bf16_abs`)."""
     f32, bf16 = torch.float32, torch.bfloat16
     dev = torch.device("cuda")
     scale = 1.0 / d ** 0.5
@@ -593,15 +613,29 @@ def check_hires_shape(torch, ka, kh, s, d, dv, seed, zero_mask=False,
     g = grad_like(torch, HIRES_CHECK_BATCH, s, dv, dev, f32, seed + 1, h=h)
     kw32, kw16 = dict(scale=scale, dtype=f32), dict(scale=scale, dtype=bf16)
     worst = {"fwd_res": 0.0, "fwd_only": 0.0, "dq": 0.0, "dkv": 0.0,
-             "bwd_norm": 0.0, "bf16_ratio": 0.0}
+             "bwd_norm": 0.0, "bf16_ratio": 0.0,
+             "bf16_over_plain": dict.fromkeys(("fwd_res", "fwd_only", "dq",
+                                               "dkv"), 0.0),
+             "bf16_abs": dict.fromkeys(("fwd_res", "fwd_only", "dq", "dkv"),
+                                       0.0)}
 
-    def bf16_ok(what, got, plain, ref):
+    def bf16_ok(what, got, plain, ref, kernel):
         e_k, e_p = norm_err(got, ref), norm_err(plain, ref)
         if not e_k <= 2 * e_p + 1e-6:
             raise AssertionError(f"hires {what} S={s} D={d}: bf16 kernel "
                                  f"error {e_k:.3e} > 2 x plain {e_p:.3e}")
         if e_p > 1e-6:   # where plain bf16 equals plain fp32, no ratio
             worst["bf16_ratio"] = max(worst["bf16_ratio"], e_k / e_p)
+            worst["bf16_over_plain"][kernel] = max(
+                worst["bf16_over_plain"][kernel], e_k / e_p)
+        worst["bf16_abs"][kernel] = max(worst["bf16_abs"][kernel],
+                                        max_err(got, plain))
+
+    def same_bits(what, first, again):
+        for x, y in zip(first, again):
+            if not torch.equal(x, y):
+                raise AssertionError(f"hires {what} S={s} D={d} Dv={dv}: "
+                                     "two bf16 launches differ")
 
     res = kh.hires_fwd_res(*args, **kw32)
     res_p = kh.hires_fwd_res_plain(*args, **kw32)
@@ -629,20 +663,29 @@ def check_hires_shape(torch, ka, kh, s, d, dv, seed, zero_mask=False,
     a32 = cast(torch, a16, f32)
     g16 = g.to(bf16)
     k16 = kh.hires_fwd_res(*a16, **kw16)
+    if twice:
+        same_bits("forward", k16, kh.hires_fwd_res(*a16, **kw16))
     p16 = kh.hires_fwd_res_plain(*a16, **kw16)
     r32 = kh.hires_fwd_res_plain(*a32, **kw32)
     for what, x, y, r in zip(("o", "m", "lse"), k16, p16, r32):
-        bf16_ok(what, x, y, r)
+        bf16_ok(what, x, y, r, "fwd_res")
     for use_mask in (True, False):
         ref = ka.attention_core(*a32, use_mask=use_mask, **kw32)
-        bf16_ok("forward-only", kh.fused_attention_forward(
-            *a16, use_mask=use_mask, **kw16),
-            ka.attention_core(*a16, use_mask=use_mask, **kw16), ref)
+        out = kh.fused_attention_forward(*a16, use_mask=use_mask, **kw16)
+        if twice:
+            same_bits("forward-only", [out], [kh.fused_attention_forward(
+                *a16, use_mask=use_mask, **kw16)])
+        bf16_ok("forward-only", out,
+                ka.attention_core(*a16, use_mask=use_mask, **kw16), ref,
+                "fwd_only")
     k16 = hires_bwd(kh, a16, g16, p16, scale, bf16, plain=False)
+    if twice:
+        same_bits("backward", k16, hires_bwd(kh, a16, g16, p16, scale, bf16,
+                                             plain=False))
     b16 = hires_bwd(kh, a16, g16, p16, scale, bf16, plain=True)
     r32 = hires_bwd(kh, a32, g16.float(), p16, scale, f32, plain=True)
     for name, x, y, r in zip(HIRES_OUT_NAMES, k16, b16, r32):
-        bf16_ok(name, x, y, r)
+        bf16_ok(name, x, y, r, "dkv" if name in ("dk", "dv") else "dq")
     return worst
 
 
@@ -706,7 +749,7 @@ def hires_phases(torch, name, smi):
         w = check_hires_shape(torch, ka, kh, s, dc + dr, dv, seed=800 + 2 * i)
         key = (s, dc + dr, dv)
         worst[key] = {k: max(v, worst.get(key, {}).get(k, 0.0))
-                      for k, v in w.items()}
+                      for k, v in w.items() if not isinstance(v, dict)}
         log(f"[hires check] S={s} Dc={dc} Dr={dr} Dv={dv}: fp32 max err "
             f"fwd_res {w['fwd_res']:.3e}, fwd_only {w['fwd_only']:.3e}, dq "
             f"pass {w['dq']:.3e}, dkv pass {w['dkv']:.3e}, backward worst "
@@ -2716,6 +2759,9 @@ TOOLS_KERNEL_NAMES = {
     "hires_dq:cuda_core": "hires_attention_dq_cuda_core",
     "hires_dkv:cuda_core": "hires_attention_dkv_cuda_core",
     "fused_attention_forward:cuda_core": "hires_attention_fwd_only_cuda_core",
+    "fused_hires_attention:wide": "hires_attention_fwd_res_wide",
+    "hires_dkv:wide": "hires_attention_dkv_wide",
+    "fused_attention_forward:wide": "hires_attention_fwd_only_wide",
 }
 
 
@@ -2916,8 +2962,7 @@ def tools_phase(torch, name, smi):
         want("eval", got, fused_rope_attention=24 * batches,
              fused_conv_residual=8 * batches)
         if not (ev["images"] == classes * per and 0 <= ev["top1"] <= 1
-                and ev["loader_wait_s"] + ev["device_s"]
-                <= ev["wall_s"] + 0.01):
+                and bench_eval_50k.accounting_fault(ev["exact_s"]) is None):
             raise AssertionError(f"tools eval: {ev}")
         metrics["tools_eval"].update(ev)
         log(f"[tools] bench_eval_50k over {ev['images']} staged JPEGs "
@@ -3045,21 +3090,31 @@ ROUTES_TRAIN_STEPS = 2
 # Phase 15 (c), fixed from hires-cls-1024's shapes at heads=6, (S, D, Dv)
 # as the hires kernels see them (D = Dc + Dr): layers. Every layer has Sq ==
 # Skv, so every one takes the hires kernels and none the route: the 9 at D
-# 224 their tensor-core kernels, the 15 at D 320, 416 and 512 (past 256)
-# their CUDA-core kernels. The TPU takes a Pallas kernel for all 24.
+# 224 their D, Dv <= 256 tensor-core kernels; the 15 at D 320, 416 and 512
+# (past 256) the wide tensor-core forward and dk/dv kernels and the
+# CUDA-core dq kernel. The TPU takes a Pallas kernel for all 24.
 ROUTES_LAYERS = {(448, 224, 224): 9, (640, 320, 320): 6, (832, 416, 416): 6,
                  (1024, 512, 512): 3}
 ROUTES_CLASSIFY_LAUNCHES = {"fused_attention_forward": 24,
                             "fused_conv_residual": 8}
 ROUTES_STEP_LAUNCHES = {"fused_hires_attention": 24, "hires_dq": 24,
                         "hires_weight_grads": 24, "hires_dkv": 24}
-ROUTES_CUDA_CORE = 15     # of each hires wrapper's launches a forward or step
-# Phase 15 (a): the hires kernels past the tensor-core kernels, (H, S, D,
-# Dv): the six-head model's three shapes past D 256 and the two limits'
-# shapes past (D 264; bf16 S 1020, which runs every stage on CUDA cores).
+# Of each hires wrapper's launches in a forward or step: those on the
+# CUDA-core kernels, and those on the wide tensor-core kernels.
+ROUTES_CUDA_CORE = {"fused_hires_attention": 0, "fused_attention_forward": 0,
+                    "hires_dkv": 0, "hires_dq": 15}
+ROUTES_WIDE = {"fused_hires_attention": 15, "fused_attention_forward": 15,
+               "hires_dkv": 15}
+# Phase 15 (a): the hires kernels past the D, Dv <= 256 tensor-core kernels,
+# (H, S, D, Dv): the six-head model's three shapes past D 256, D 264 (the
+# dispatcher's limit), a partial slice on the D side, Dv past 256 with D
+# below it (bf16: the wide tensor-core forward and dk/dv kernels, the
+# CUDA-core dq kernel; fp32: the CUDA-core kernels), and bf16 S 1020 and
+# head dims off the multiple of 8 (every pass on the CUDA cores).
 ROUTES_WIDE_CHECKS = ((6, 1024, 512, 512), (6, 832, 416, 416),
                       (6, 640, 320, 320), (4, 1024, 264, 264),
-                      (4, 1020, 256, 256))
+                      (4, 256, 264, 200), (4, 256, 200, 264),
+                      (4, 1020, 256, 256), (3, 192, 130, 300))
 # Phase 15 (b): chunked against xla, forced, bf16 (B, H, S, D = Dv).
 ROUTES_COMPARE = (16, 6, 1024, 512)
 
@@ -3106,19 +3161,23 @@ def routes_phase(torch, name, smi):
     """Phase 15: the attention dispatch (ops/attention.py) and the JAX
     package's 'chunked' and 'xla' routes. (a) each limit of the dispatcher,
     fp32 and bf16, mask on and off: the shape just inside and just past
-    each take their route (rope, the hires kernels on the tensor cores or
-    on the CUDA cores, 'xla'), one counter each; the route's fp32 forward
-    and gradients card vs CPU; the hires kernels at shapes past the
-    tensor-core kernels against their plain versions, and timed at the
-    six-head shapes; (b) 'chunked' against 'xla' forced at S 1024, D = Dv
-    512, H 6, B 16, bf16, forward and backward, each one's device ms and
-    peak memory; (c) hires-cls-1024 at heads=6 at full width: classify 8
-    images in bf16 (24 forward-only hires launches, 15 of them on the
-    CUDA-core kernels, + 8 conv), fp32 logits card vs CPU on 1 image, and
+    each take their route (rope, the hires kernels, each pass on the
+    tensor cores, their wide kernels or the CUDA cores, 'xla'), one
+    counter each, with and without grad; the route's fp32 forward and
+    gradients card vs CPU; the hires kernels at shapes past the D, Dv <=
+    256 tensor-core kernels against their plain versions (bf16 twice bit
+    for bit), and timed at the six-head shapes (the wide kernels and the
+    CUDA-core dq kernel in bf16, the other CUDA-core kernels in fp32); (b)
+    'chunked' against 'xla' forced at S 1024, D = Dv 512, H 6, B 16, bf16,
+    forward and backward, each one's device ms and peak memory; (c)
+    hires-cls-1024 at heads=6 at full width: classify 8 images in bf16 (24
+    forward-only hires launches, 15 of them on the wide kernel, + 8 conv),
+    fp32 logits card vs CPU on 1 image (24 on the CUDA-core kernel), and
     make_train_step steps at B=16 in bf16 with remat (24 + 24 + 24 hires
-    launches a step, 15 each on the CUDA-core kernels; no route).
-    Returns (launches and stage launches by path and wrapper, metrics,
-    the CUDA-core hires kernels' summaries for the kernels line)."""
+    launches a step: 15 forwards and 15 dk/dv passes on the wide kernels,
+    15 dq passes on the CUDA-core kernel; no route). Returns (launches and
+    stage launches by path and wrapper, metrics, the wide and CUDA-core
+    hires kernels' summaries for the kernels line)."""
     from calm_vit_dte_tpu_torch.data.augment import eval_preprocess
     from calm_vit_dte_tpu_torch.kernels import axial_attention as ka
     from calm_vit_dte_tpu_torch.kernels import conv_residual as kc
@@ -3145,6 +3204,13 @@ def routes_phase(torch, name, smi):
                 kh.hires_dkv, kh.fused_attention_forward)
     hires_wrappers = (kh.fused_hires_attention, kh.hires_dq, kh.hires_dkv,
                       kh.fused_attention_forward)
+    wide_wrappers = (kh.fused_hires_attention, kh.hires_dkv,
+                     kh.fused_attention_forward)
+    pass_of = {"fused_hires_attention": "fwd", "fused_attention_forward": "fwd",
+               "hires_dq": "dq", "hires_dkv": "dkv"}
+    wrapper_of = {"fwd_res": "fused_hires_attention",
+                  "fwd_only": "fused_attention_forward", "dq": "hires_dq",
+                  "dkv": "hires_dkv"}
 
     def zero_counts():
         """Every wrapper's launches, stage launches and CUDA-core launches,
@@ -3157,6 +3223,8 @@ def routes_phase(torch, name, smi):
             fn.stage_launches = 0
         for fn in hires_wrappers:
             fn.cuda_core_launches = 0
+        for fn in wide_wrappers:
+            fn.wide_launches = 0
         for k in ops.route_calls:
             ops.route_calls[k] = 0
 
@@ -3169,6 +3237,31 @@ def routes_phase(torch, name, smi):
         return {fn.__name__: fn.cuda_core_launches for fn in hires_wrappers
                 if fn.cuda_core_launches}
 
+    def wide():
+        return {fn.__name__: fn.wide_launches for fn in wide_wrappers
+                if fn.wide_launches}
+
+    def families(s, d, dv, dtype, names):
+        """The CUDA-core and the wide launches, by wrapper, of one call of
+        each of `names` at a shape, as `tensor_cores` per pass says."""
+        cc, wd = {}, {}
+        for n in names:
+            if not kh.tensor_cores(s, d, dv, dtype, pass_of[n]):
+                cc[n] = 1
+            elif pass_of[n] != "dq" and max(d, dv) > kh.TC_SLICE:
+                wd[n] = 1
+        return cc, wd
+
+    def by_family(got, cc, wd):
+        """Launches by wrapper, the hires wrappers' CUDA-core and wide
+        calls apart (`<wrapper>:cuda_core`, `<wrapper>:wide`)."""
+        launches = dict(got)
+        for suffix, part in ((":cuda_core", cc), (":wide", wd)):
+            for k, n in part.items():
+                launches[k] -= n
+                launches[k + suffix] = n
+        return {k: n for k, n in launches.items() if n}
+
     def stages():
         return {k: n for k, n in _stage_counts().items() if n}
 
@@ -3179,6 +3272,7 @@ def routes_phase(torch, name, smi):
 
     # (a) each limit of the dispatcher: inside and past take their routes.
     t0 = time.time()
+    limits_launches: dict = {}
     for li, (what, inside, past, first, second, dtypes) in enumerate(
             ops.ROUTE_LIMITS):
         for dt_name in dtypes:
@@ -3194,13 +3288,10 @@ def routes_phase(torch, name, smi):
                     got = counts()
                     family = None
                     if want_route == "hires":
-                        family = ("tensor cores" if kh.tensor_cores(
-                            sq, dc + dr, dv, dtype) else "CUDA cores")
-                        if cuda_core() != ({} if family == "tensor cores"
-                                           else {"fused_hires_attention": 1}):
-                            raise AssertionError(
-                                f"routes {what} {shape} {dt_name}: expected "
-                                f"the {family}, got {cuda_core()}")
+                        family = {p_: ("CUDA cores" if not kh.tensor_cores(
+                            sq, dc + dr, dv, dtype, p_) else "wide kernels"
+                            if p_ != "dq" and max(dc + dr, dv) > kh.TC_SLICE
+                            else "tensor cores") for p_ in kh.TC_MAX_D}
                     if got != {route_counter[want_route]: 1}:
                         raise AssertionError(
                             f"routes {what} {shape} {dt_name} mask="
@@ -3210,6 +3301,18 @@ def routes_phase(torch, name, smi):
                                          .standard_normal(out.shape).astype(
                         np.float32)).to(dev)
                     (out.float() * g).sum().backward()
+                    with torch.no_grad():   # the forward-only kernels
+                        route_call(ops, x, dtype, use_mask)
+                    torch.cuda.synchronize()
+                    cc, wd = cuda_core(), wide()
+                    if want_route == "hires" and (cc, wd) != families(
+                            sq, dc + dr, dv, dtype, pass_of):
+                        raise AssertionError(
+                            f"routes {what} {shape} {dt_name}: expected "
+                            f"{family}, got CUDA-core launches {cc}, wide "
+                            f"launches {wd}")
+                    for k, n in by_family(counts(), cc, wd).items():
+                        limits_launches[k] = limits_launches.get(k, 0) + n
                     leaves = {k: t for k, t in x.items() if t.grad is not None}
                     if not torch.isfinite(out.float()).all() or not all(
                             torch.isfinite(t.grad).all()
@@ -3243,80 +3346,109 @@ def routes_phase(torch, name, smi):
                     metrics["limits"].append(row)
                     del x, out, g
         log(f"[routes] (a) {what}: {first} just inside, {second} just past "
-            f"({', '.join(dtypes)}, mask on and off), one counter each")
+            f"({', '.join(dtypes)}, mask on and off, with and without grad), "
+            "one counter each; hires passes by family: " + "; ".join(
+                f"{r['dtype']} {r['shape'][2]}x{r['shape'][4] + r['shape'][5]}"
+                f": {r['hires_kernels']}" for r in metrics["limits"]
+                if r["limit"] == what and r["hires_kernels"]
+                and r["use_mask"]))
     for row in metrics["limits"]:
         if "fwd_err" in row:
             log(f"[routes] (a) fp32 {row['route']} card vs CPU at "
                 f"{row['shape']} mask={row['use_mask']}: forward max abs "
                 f"diff {row['fwd_err']:.3e}, gradients ({', '.join(row['grads'])}) "
                 f"worst {row['bwd_norm_err']:.3e} of the largest value")
-    # The hires kernels past the tensor-core kernels, against their plain
-    # versions (fp32 and bf16, as phase 8 holds the tensor-core ones).
+    # The hires kernels past the D, Dv <= 256 tensor-core kernels, against
+    # their plain versions (fp32 and bf16, as phase 8 holds the tensor-core
+    # ones), the bf16 launches twice bit for bit.
     worst: dict = {}
     for i, (h, s, d, dv) in enumerate(ROUTES_WIDE_CHECKS):
         w = check_hires_shape(torch, ka, kh, s, d, dv, seed=1520 + 2 * i,
-                              h=h)
+                              h=h, twice=True)
         worst[(s, d, dv)] = w
-        log(f"[routes check] hires CUDA-core kernels H={h} S={s} D={d} "
-            f"Dv={dv}: fp32 max err fwd_res {w['fwd_res']:.3e}, fwd_only "
-            f"{w['fwd_only']:.3e}, dq pass {w['dq']:.3e}, dkv pass "
-            f"{w['dkv']:.3e}, backward worst {w['bwd_norm']:.3e} of the "
-            f"largest value; bf16 worst {w['bf16_ratio']:.3f} x the plain "
-            "bf16 error")
+        fam = {p_: ("wide" if kh.tensor_cores(s, d, dv, bf16, p_) else
+                    "CUDA cores") for p_ in kh.TC_MAX_D}
+        log(f"[routes check] hires kernels H={h} S={s} D={d} Dv={dv} (bf16 "
+            f"passes: {fam}; fp32: CUDA cores): fp32 max err fwd_res "
+            f"{w['fwd_res']:.3e}, fwd_only {w['fwd_only']:.3e}, dq pass "
+            f"{w['dq']:.3e}, dkv pass {w['dkv']:.3e}, backward worst "
+            f"{w['bwd_norm']:.3e} of the largest value; bf16 worst "
+            f"{w['bf16_ratio']:.3f} x the plain bf16 error (fwd_res "
+            f"{w['bf16_over_plain']['fwd_res']:.3f}, fwd_only "
+            f"{w['bf16_over_plain']['fwd_only']:.3f}, dq "
+            f"{w['bf16_over_plain']['dq']:.3f}, dkv "
+            f"{w['bf16_over_plain']['dkv']:.3f}), two bf16 launches the "
+            "same bits")
     metrics["limits_seconds"] = time.time() - t0
 
-    # The CUDA-core hires kernels' times at the six-head shapes past D 256,
-    # B=8 bf16, beside their plain versions and bounds (per forward, or per
-    # training step's backward: each shape's time x its layers).
+    # The hires kernels' times at the six-head shapes past D 256, B=8,
+    # beside their plain versions and bounds (per forward, or per training
+    # step's backward: each shape's time x its layers): in bf16 the wide
+    # tensor-core forward and dk/dv kernels and the CUDA-core dq kernel, the
+    # main path's; in fp32 the CUDA-core forward and dk/dv kernels, which
+    # bf16 no longer takes at these shapes.
     t0 = time.time()
-    rows = {k: [] for k in ("fwd_res", "dq", "dkv", "fwd_only")}
-    for i, ((s, d, dv), n) in enumerate(sorted(ROUTES_LAYERS.items())):
-        if kh.tensor_cores(s, d, dv, bf16):
-            continue
-        args = hires_inputs(torch, HIRES_BATCH, s, d, dv, dev, bf16,
-                            seed=1560 + i, h=ROUTES_HEADS)
-        g = grad_like(torch, HIRES_BATCH, s, dv, dev, bf16, seed=1570 + i,
-                      h=ROUTES_HEADS)
-        kw = dict(scale=d ** -0.5, dtype=bf16)
-        o, m, lse = kh.hires_fwd_res_plain(*args, **kw)
-        delta = (g.float() * o.float()).sum(-1)
-        q, k, v, w1, b1, w2, _ = args
-        dssum = kh.hires_dq_plain(q, k, v, g, m, lse, delta, w1, b1, w2,
-                                  **kw)[1]
-        calls = {
-            "fwd_res": (lambda: kh.hires_fwd_res(*args, **kw),
-                        lambda: kh.hires_fwd_res_plain(*args, **kw)),
-            "fwd_only": (lambda: kh.fused_attention_forward(*args, **kw),
-                         lambda: ka.attention_core(*args, use_mask=True,
-                                                   **kw)),
-            "dq": (lambda: kh.hires_dq(q, k, v, g, m, lse, delta, w1, b1,
-                                       w2, **kw),
-                   lambda: kh.hires_dq_plain(q, k, v, g, m, lse, delta, w1,
-                                             b1, w2, **kw)),
-            "dkv": (lambda: kh.hires_dkv(q, k, v, g, m, lse, delta, dssum,
-                                         **kw),
-                    lambda: kh.hires_dkv_plain(q, k, v, g, m, lse, delta,
-                                               dssum, **kw)),
-        }
-        bounds = hires_bounds(HIRES_BATCH, s, d, dv, 2, h=ROUTES_HEADS)
-        for kname, (kern, plain) in calls.items():
-            ms = cuda_ms(torch, kern, 2, warmup=1)
-            plain_ms = cuda_ms(torch, plain, 2, warmup=1)
-            t_bytes, t_ops = bounds[kname]
-            row = dict(H=ROUTES_HEADS, S=s, D=d, Dv=dv, B=HIRES_BATCH,
-                       launches=n, ms=ms, plain_ms=plain_ms,
-                       bound_ms=max(t_bytes, t_ops),
-                       bound_by="bytes" if t_bytes >= t_ops else "operations",
-                       fp32_err=worst[(s, d, dv)][kname],
-                       bf16_err_over_plain=worst[(s, d, dv)]["bf16_ratio"])
-            rows[kname].append(row)
-            log(f"[routes time] CUDA-core {kname} H={ROUTES_HEADS} S={s} "
-                f"D={d} Dv={dv} B={HIRES_BATCH} bf16 (x{n}): kernel "
-                f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-                f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
-                f"{row['bound_ms'] / ms:.2%} of bound; on {name} ({smi})")
-        del args, g, o, m, lse, delta, dssum, calls, q, k, v
-        torch.cuda.empty_cache()
+    rows: dict = {}
+    for dtype in (bf16, f32):
+        itemsize, peak = (2, PEAK_BF16_FLOPS) if dtype == bf16 else \
+            (4, PEAK_FP32_FLOPS)
+        for i, ((s, d, dv), n) in enumerate(sorted(ROUTES_LAYERS.items())):
+            if kh.tensor_cores(s, d, dv, bf16):
+                continue
+            args = hires_inputs(torch, HIRES_BATCH, s, d, dv, dev, dtype,
+                                seed=1560 + i, h=ROUTES_HEADS)
+            g = grad_like(torch, HIRES_BATCH, s, dv, dev, dtype,
+                          seed=1570 + i, h=ROUTES_HEADS)
+            kw = dict(scale=d ** -0.5, dtype=dtype)
+            o, m, lse = kh.hires_fwd_res_plain(*args, **kw)
+            delta = (g.float() * o.float()).sum(-1)
+            q, k, v, w1, b1, w2, _ = args
+            dssum = kh.hires_dq_plain(q, k, v, g, m, lse, delta, w1, b1, w2,
+                                      **kw)[1]
+            calls = {
+                "fwd_res": (lambda: kh.hires_fwd_res(*args, **kw),
+                            lambda: kh.hires_fwd_res_plain(*args, **kw)),
+                "fwd_only": (lambda: kh.fused_attention_forward(*args, **kw),
+                             lambda: ka.attention_core(*args, use_mask=True,
+                                                       **kw)),
+                "dq": (lambda: kh.hires_dq(q, k, v, g, m, lse, delta, w1,
+                                           b1, w2, **kw),
+                       lambda: kh.hires_dq_plain(q, k, v, g, m, lse, delta,
+                                                 w1, b1, w2, **kw)),
+                "dkv": (lambda: kh.hires_dkv(q, k, v, g, m, lse, delta,
+                                             dssum, **kw),
+                        lambda: kh.hires_dkv_plain(q, k, v, g, m, lse, delta,
+                                                   dssum, **kw)),
+            }
+            bounds = hires_bounds(HIRES_BATCH, s, d, dv, itemsize,
+                                  h=ROUTES_HEADS, peak=peak)
+            for kname, (kern, plain) in calls.items():
+                family = ("wide" if kh.tensor_cores(
+                    s, d, dv, dtype, pass_of[wrapper_of[kname]])
+                    else "cuda_core")
+                if dtype == f32 and kname == "dq":
+                    continue   # its entry is the bf16 call's, the main path's
+                ms = cuda_ms(torch, kern, 2, warmup=1)
+                plain_ms = cuda_ms(torch, plain, 2, warmup=1)
+                t_bytes, t_ops = bounds[kname]
+                w = worst[(s, d, dv)]
+                row = dict(H=ROUTES_HEADS, S=s, D=d, Dv=dv, B=HIRES_BATCH,
+                           dtype=str(dtype).removeprefix("torch."),
+                           launches=n, ms=ms, plain_ms=plain_ms,
+                           bound_ms=max(t_bytes, t_ops),
+                           bound_by=("bytes" if t_bytes >= t_ops
+                                     else "operations"),
+                           fp32_err=w[kname],
+                           bf16_abs_err=w["bf16_abs"][kname],
+                           bf16_err_over_plain=w["bf16_over_plain"][kname])
+                rows.setdefault((kname, family), []).append(row)
+                log(f"[routes time] {family} {kname} H={ROUTES_HEADS} S={s} "
+                    f"D={d} Dv={dv} B={HIRES_BATCH} {row['dtype']} (x{n}): "
+                    f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+                    f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
+                    f"{row['bound_ms'] / ms:.2%} of bound; on {name} ({smi})")
+            del args, g, o, m, lse, delta, dssum, calls, q, k, v
+            torch.cuda.empty_cache()
     wide_kernels = []
     meta = {
         "fwd_res": ("hires_attention_fwd_res", kh.SOURCE,
@@ -3326,21 +3458,46 @@ def routes_phase(torch, name, smi):
         "fwd_only": ("hires_attention_fwd_only", kh.SOURCE,
                      kh.REPLACES_FWD_ONLY),
     }
-    for key, (kname, source, replaces) in meta.items():
-        r = rows[key]
+    for (key, family), r in sorted(rows.items()):
+        kname, source, replaces = meta[key]
         t_bytes = sum(x["launches"] * x["bound_ms"] for x in r
                       if x["bound_by"] == "bytes")
         t_ops = sum(x["launches"] * x["bound_ms"] for x in r
                     if x["bound_by"] == "operations")
+        # The error against the plain version on the same inputs: fp32 for
+        # the CUDA-core kernels, bf16 for the wide ones (bf16 only).
+        err = "bf16_abs_err" if family == "wide" else "fp32_err"
         wide_kernels.append({
-            "name": f"{kname}_cuda_core", "route": "cuda", "source": source,
+            "name": f"{kname}_{family}", "route": "cuda", "source": source,
             "replaces": replaces, "launches": 0,
-            "max_abs_err": max(x["fp32_err"] for x in r),
+            "max_abs_err": max(x[err] for x in r),
+            "max_abs_err_of": r[0]["dtype"] if family == "wide" else
+            "float32",
             "ms": sum(x["launches"] * x["ms"] for x in r),
             "plain_ms": sum(x["launches"] * x["plain_ms"] for x in r),
             "bound_ms": t_bytes + t_ops,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None, "launches_by_path": {}, "per_shape": r})
+    # What the card makes of the wide kernels (the forward's shared memory
+    # grows with D): registers, spills, shared memory, CTAs per SM.
+    occupancy = {d: kh.wide_occupancy(d) for d in sorted(
+        {d for _, d, _ in ROUTES_LAYERS if d > kh.TC_SLICE})}
+    for d, occ in occupancy.items():
+        for kname, o in occ.items():
+            log(f"[routes] D={d} {kname}: {o['registers']} registers, spill "
+                f"{o['spill_bytes']} bytes, {o['smem_bytes']} bytes of shared "
+                f"memory a CTA, {o['ctas_per_sm']} CTAs per SM")
+    for k in wide_kernels:
+        if k["name"].endswith("_wide"):
+            stem = ("hires_dkv_wide_bf16_kernel" if "_dkv_" in k["name"] else
+                    "hires_attention_wide_bf16_kernel")
+            flag = {"hires_attention_fwd_res_wide": ", 1>",
+                    "hires_attention_fwd_only_wide": ", 0>"}.get(k["name"],
+                                                                 ">")
+            k["occupancy_by_D"] = {
+                str(d): {n: o for n, o in occ.items()
+                         if n.startswith(stem) and n.endswith(flag)}
+                for d, occ in occupancy.items()}
     metrics["time_seconds"] = time.time() - t0
 
     # (b) chunked against xla, forced, at S 1024, D = Dv 512, H 6, B 16.
@@ -3410,8 +3567,9 @@ def routes_phase(torch, name, smi):
         "ms_fwd_bwd": hires_ms,
         "errors": {n: norm_err(t.float(), r) for n, t, r in
                    zip(names, hk, ref)}}
-    log(f"[routes] (b) the hires kernels (CUDA cores) on the same inputs, "
-        f"'auto': {hires_ms:.3f} ms forward + backward; bf16 errors of the "
+    log(f"[routes] (b) the hires kernels on the same inputs, 'auto' (the "
+        "wide forward and dk/dv kernels, the CUDA-core dq kernel): "
+        f"{hires_ms:.3f} ms forward + backward; bf16 errors of the "
         "fp32 route: " + ", ".join(
             f"{n} {v:.2e}" for n, v in
             compare["hires_kernels"]["errors"].items()))
@@ -3435,35 +3593,48 @@ def routes_phase(torch, name, smi):
                 else v.head_dim
             key = (v.seq_len_new, dd, v.head_dim)
             shapes[key] = shapes.get(key, 0) + 1
-    if shapes != ROUTES_LAYERS or ROUTES_CUDA_CORE != sum(
-            n for (s_, dd, dv), n in shapes.items()
-            if not kh.tensor_cores(s_, dd, dv, bf16)):
+    per_forward = [families(s_, dd, dv, bf16, pass_of)
+                   for (s_, dd, dv), n in shapes.items() for _ in range(n)]
+    derived = [{k: sum(f[j].get(k, 0) for f in per_forward) for k in want}
+               for j, want in enumerate((ROUTES_CUDA_CORE, ROUTES_WIDE))]
+    if shapes != ROUTES_LAYERS or derived != [ROUTES_CUDA_CORE, ROUTES_WIDE]:
         raise AssertionError(f"routes: hires-cls-1024 at heads="
                              f"{ROUTES_HEADS} has shapes {shapes}, expected "
-                             f"{ROUTES_LAYERS}")
+                             f"{ROUTES_LAYERS}; CUDA-core and wide launches "
+                             f"{derived}, expected {ROUTES_CUDA_CORE}, "
+                             f"{ROUTES_WIDE}")
     log(f"[routes] (c) hires-cls-1024 at heads={ROUTES_HEADS}: attention "
         f"shapes (S, D, Dv): layers = {shapes}; model and power iterations "
         f"{time.time() - t0:.1f} s")
     trainee = copy.deepcopy(model)
     by_path: dict = {}
 
-    def split(got, got_stages, cc):
+    def split(got, got_stages, cc, wd):
         """Launches and stage launches by wrapper, the hires wrappers'
-        CUDA-core calls apart (`<wrapper>:cuda_core`): every hires call
-        makes the same stage launches on either family."""
-        launches = {k: n for k, n in got.items() if ":" not in k}
+        CUDA-core and wide calls apart (`<wrapper>:cuda_core`,
+        `<wrapper>:wide`): every hires call of a path makes the same stage
+        launches on every family."""
+        launches = by_family(got, cc, wd)
         stage = dict(got_stages)
-        for k, n in cc.items():
-            per_call = got_stages.get(k, 0) // got[k]
-            if got_stages.get(k, 0) != per_call * got[k]:
-                raise AssertionError(f"routes {k}: {got_stages.get(k)} stage "
-                                     f"launches over {got[k]} calls")
-            launches[k] -= n
-            launches[f"{k}:cuda_core"] = n
-            if per_call:
-                stage[k] -= per_call * n
-                stage[f"{k}:cuda_core"] = per_call * n
-        return {"launches": launches, "stages": stage}
+        for suffix, part in ((":cuda_core", cc), (":wide", wd)):
+            for k, n in part.items():
+                per_call = got_stages.get(k, 0) // got[k]
+                if got_stages.get(k, 0) != per_call * got[k]:
+                    raise AssertionError(f"routes {k}: {got_stages.get(k)} "
+                                         f"stage launches over {got[k]} "
+                                         "calls")
+                if per_call:
+                    stage[k] -= per_call * n
+                    stage[k + suffix] = per_call * n
+        return {"launches": launches,
+                "stages": {k: n for k, n in stage.items() if n}}
+
+    def want_families(names):
+        """ROUTES_CUDA_CORE and ROUTES_WIDE of `names`, zeros left out."""
+        return tuple({k: n for k, n in table.items() if k in names and n}
+                     for table in (ROUTES_CUDA_CORE, ROUTES_WIDE))
+
+    by_path["routes_limits"] = {"launches": limits_launches, "stages": {}}
 
     rng = np.random.default_rng(1700)
     images = rng.integers(0, 256, (ROUTES_TRAIN_BATCH, cfg.image_size,
@@ -3471,23 +3642,34 @@ def routes_phase(torch, name, smi):
     pred = Predictor(model, crop=cfg.crop, dtype=bf16)
     zero_counts()
     labels, probs = pred.classify(images[:HIRES_BATCH])
-    got, got_stages, cc = counts(), stages(), cuda_core()
+    got, got_stages, cc, wd = counts(), stages(), cuda_core(), wide()
     log(f"[routes] (c) classify B={HIRES_BATCH} bf16: launches {got}, of them "
-        f"on the CUDA-core kernels {cc}, stage launches {got_stages}")
+        f"on the CUDA-core kernels {cc} and on the wide kernels {wd}, stage "
+        f"launches {got_stages}")
     want_stages = {"fused_attention_forward":
                    HIRES_STAGES_PER_CALL["fwd_only"]
                    * ROUTES_CLASSIFY_LAUNCHES["fused_attention_forward"]}
+    want_cc, want_wd = want_families(("fused_attention_forward",))
     if (got != ROUTES_CLASSIFY_LAUNCHES or got_stages != want_stages
-            or cc != {"fused_attention_forward": ROUTES_CUDA_CORE}):
+            or (cc, wd) != (want_cc, want_wd)):
         raise AssertionError(f"routes classify: expected "
                              f"{ROUTES_CLASSIFY_LAUNCHES}, {want_stages}, "
-                             f"{ROUTES_CUDA_CORE} on CUDA cores; got {got}, "
-                             f"{got_stages}, {cc}")
+                             f"{want_cc} on CUDA cores, {want_wd} on the "
+                             f"wide kernels; got {got}, {got_stages}, {cc}, "
+                             f"{wd}")
     if labels.shape != (HIRES_BATCH, 5) or not np.isfinite(probs).all():
         raise AssertionError("routes classify: bad shape or non-finite")
-    by_path["routes_classify"] = split(got, got_stages, cc)
+    by_path["routes_classify"] = split(got, got_stages, cc, wd)
     p32 = Predictor(pred.model, crop=cfg.crop, dtype=f32)
+    zero_counts()
     l_gpu, kl_gpu = p32.predict(images[:1])
+    got, cc = counts(), cuda_core()
+    n_fwd = ROUTES_CLASSIFY_LAUNCHES["fused_attention_forward"]
+    if got.get("fused_attention_forward") != n_fwd or wide() \
+            or cc != {"fused_attention_forward": n_fwd}:
+        raise AssertionError(f"routes fp32 predict: {got}, CUDA-core {cc}, "
+                             f"wide {wide()}")
+    by_path["routes_predict_fp32"] = split(got, stages(), cc, {})
     t1 = time.perf_counter()
     p_cpu = Predictor(copy.deepcopy(pred.model).cpu(), crop=cfg.crop,
                       dtype=f32)
@@ -3531,8 +3713,8 @@ def routes_phase(torch, name, smi):
             "image": eval_preprocess(bt["image"], crop=cfg.crop),
             "label": bt["label"]})
     b_ = ROUTES_TRAIN_BATCH
-    want_cc = {k: ROUTES_CUDA_CORE for k in ("fused_hires_attention",
-                                             "hires_dq", "hires_dkv")}
+    want_cc, want_wd = want_families(("fused_hires_attention", "hires_dq",
+                                      "hires_dkv"))
     step_ms, losses = [], []
     torch.cuda.reset_peak_memory_stats()
     for i in range(ROUTES_TRAIN_STEPS):
@@ -3542,22 +3724,23 @@ def routes_phase(torch, name, smi):
         state, m = train_step(state, batch)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t1) * 1e3)
-        got, cc = counts(), cuda_core()
+        got, cc, wd = counts(), cuda_core(), wide()
         m = {k: float(v) for k, v in m.items()}
         losses.append(m["loss"])
         log(f"[routes] (c) training step {i} B={b_} bf16 remat: loss "
             f"{m['loss']:.6f}, grad_norm {m['grad_norm']:.4f}, "
             f"{step_ms[-1]:.1f} ms, launches {got}, of them on the CUDA-core "
-            f"kernels {cc}")
-        if got != ROUTES_STEP_LAUNCHES or cc != want_cc:
+            f"kernels {cc} and on the wide kernels {wd}")
+        if got != ROUTES_STEP_LAUNCHES or (cc, wd) != (want_cc, want_wd):
             raise AssertionError(f"routes training step {i}: expected "
                                  f"{ROUTES_STEP_LAUNCHES}, {want_cc} on CUDA "
-                                 f"cores; got {got}, {cc}")
+                                 f"cores, {want_wd} on the wide kernels; got "
+                                 f"{got}, {cc}, {wd}")
         if not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
                 and m["grad_norm"] > 0):
             raise AssertionError(f"routes step {i}: {m}")
         if i == 0:
-            by_path["routes_train_step_0"] = split(got, stages(), cc)
+            by_path["routes_train_step_0"] = split(got, stages(), cc, wd)
             dead = [k for k, p_ in trainee.named_parameters()
                     if p_.grad is None or not torch.isfinite(p_.grad).all()
                     or float(p_.grad.abs().max()) == 0.0]

@@ -113,7 +113,10 @@ def test_evaluate_known_answers(tmp_path, carried, capsys, offset, want):
     assert f"over {N_IMAGES} images" in out
     assert stats["images"] == N_IMAGES
     assert set(stats) == {"wall_s", "images", "img_per_s", "loader_wait_s",
-                          "device_s"}
+                          "device_s", "exact_s"}
+    assert set(stats["exact_s"]) == {"wall", "loader_wait", "device"}
+    for key in ("wall", "loader_wait", "device"):
+        assert round(stats["exact_s"][key], 2) == stats[f"{key}_s"]
 
 
 def test_evaluate_against_jax_labels(tmp_path, carried):

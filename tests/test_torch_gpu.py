@@ -712,29 +712,43 @@ def test_hires_kernels_ragged_shape_match_plain(cuda_device):
     assert _norm_err(out, ref) <= 2 * _norm_err(plain, ref) + 1e-6
 
 
-# Shapes past the tensor-core kernels, (H, S, D, Dv): the six-head
-# hires-cls-1024 stages (D over 256: the output split over the grid), a D
-# unequal to Dv on both sides of 256, and bf16 head dims off the multiple
-# of 8 with an S off it.
+# Shapes past the D, Dv <= 256 tensor-core kernels, (H, S, D, Dv): the
+# six-head hires-cls-1024 stages (D over 256: the output split over the
+# grid), a D unequal to Dv on both sides of 256 (a partial slice on the D
+# side; Dv past 256 with D below it), a bf16 S off the multiple of 8, and
+# bf16 head dims off the multiple with an S off it.
 WIDE_SHAPES = [(6, 1024, 512, 512), (6, 832, 416, 416), (6, 640, 320, 320),
-               (4, 256, 264, 200), (3, 192, 130, 300), (2, 132, 76, 36)]
+               (4, 256, 264, 200), (4, 256, 200, 264), (4, 1020, 256, 256),
+               (3, 192, 130, 300), (2, 132, 76, 36)]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("h,s,d,dv", WIDE_SHAPES,
                          ids=lambda x: str(x))
 def test_hires_cuda_core_kernels_match_plain(cuda_device, h, s, d, dv):
-    """The four hires kernels at shapes the tensor-core kernels do not
-    take, which run the CUDA-core kernels in fp32 and in bf16: fp32 forward
-    at rtol 2e-4 / atol 2e-5 and backward within 1e-4 of each output's
-    largest value, bf16 at most twice the plain bf16 error and the same
-    bits from two launches."""
+    """The four hires kernels at shapes the D, Dv <= 256 tensor-core
+    kernels do not take: in fp32 the CUDA-core kernels; in bf16 the wide
+    tensor-core forward and dk/dv kernels where S, D, Dv are multiples of
+    8 (the dq pass then on the CUDA cores), else the CUDA-core kernels, as
+    the wrappers' counters show. fp32 forward at rtol 2e-4 / atol 2e-5 and
+    backward within 1e-4 of each output's largest value, bf16 at most twice
+    the plain bf16 error and the same bits from two launches."""
     from calm_vit_dte_tpu_torch.kernels import hires_attention as kh
 
     rng = np.random.default_rng(s + d + dv)
     f32, bf16 = torch.float32, torch.bfloat16
     assert not kh.tensor_cores(s, d, dv, bf16)
     assert kh.refusal(s, d, dv, bf16) is None
+    aligned = not (s % 8 or d % 8 or dv % 8)
+    assert kh.tensor_cores(s, d, dv, bf16, "fwd") == aligned
+    assert kh.tensor_cores(s, d, dv, bf16, "dkv") == aligned
+    assert not kh.tensor_cores(s, d, dv, bf16, "dq")
+    wrappers = (kh.fused_hires_attention, kh.fused_attention_forward,
+                kh.hires_dq, kh.hires_dkv)
+
+    def families():
+        return [(fn.cuda_core_launches, getattr(fn, "wide_launches", 0))
+                for fn in wrappers]
 
     def n(*shape, scale):
         return _normal(rng, cuda_device, *shape, scale=scale)
@@ -765,6 +779,7 @@ def test_hires_cuda_core_kernels_match_plain(cuda_device, h, s, d, dv):
     a16 = [a.to(bf16) if a.dim() == 4 else a for a in args]
     a32 = [a.float() for a in a16]
     g16 = g.to(bf16)
+    before = families()
     k16 = kh.hires_fwd_res(*a16, scale=scale, dtype=bf16)
     p16 = kh.hires_fwd_res_plain(*a16, scale=scale, dtype=bf16)
     r32 = kh.hires_fwd_res_plain(*a32, scale=scale, dtype=f32)
@@ -775,12 +790,18 @@ def test_hires_cuda_core_kernels_match_plain(cuda_device, h, s, d, dv):
     out = kh.fused_attention_forward(*a16, scale=scale, dtype=bf16)
     plain = ka.attention_core(*a16, scale=scale, dtype=bf16, use_mask=True)
     assert _norm_err(out, r32[0]) <= 2 * _norm_err(plain, r32[0]) + 1e-6
+    assert torch.equal(out, kh.fused_attention_forward(*a16, scale=scale,
+                                                       dtype=bf16))
     o16, m16, lse16 = p16
     delta16 = (g16.float() * o16.float()).sum(-1)
     k16 = _hires_bwd_all(kh, a16, g16, m16, lse16, delta16, scale, bf16,
                          False)
     again = _hires_bwd_all(kh, a16, g16, m16, lse16, delta16, scale, bf16,
                            False)
+    # Two launches of each forward, then of each backward pass.
+    family = (0, 2) if aligned else (2, 0)
+    assert [(c - c0, w - w0) for (c, w), (c0, w0) in
+            zip(families(), before)] == [family, family, (2, 0), family]
     b16 = _hires_bwd_all(kh, a16, g16, m16, lse16, delta16, scale, bf16,
                          True)
     r32 = _hires_bwd_all(kh, a32, g16.float(), m16, lse16, delta16, scale,
@@ -1081,7 +1102,8 @@ def test_kernel_limits_launch_inside_and_past(cuda_device, limit):
     its wrapper and through `masked_attention`; just past, a shape the
     kernel refuses raises from its wrapper and under 'auto' takes the next
     route without launching it, and a hires shape past the tensor-core
-    kernels launches the hires kernels (their CUDA-core kernels)."""
+    kernels launches the hires kernels (each pass on the kernels
+    `tensor_cores` names for it)."""
     from calm_vit_dte_tpu_torch.kernels import hires_attention as kh
     from calm_vit_dte_tpu_torch.ops import attention as ops
 

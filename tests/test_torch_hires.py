@@ -12,6 +12,7 @@ the card.
 """
 
 import dataclasses
+import importlib.util
 import math
 import pathlib
 import re
@@ -151,34 +152,82 @@ def test_wrappers_raise_off_cpu_and_cuda():
 CSRC = pathlib.Path(kh.__file__).resolve().parent.parent / "csrc"
 
 
-_FAMILY = (r"const bool aligned = is_bf16 && !\(S % (\d+) \|\| D % (\d+) "
-           r"\|\| Dv % (\d+)\);\s*return \{aligned, aligned && D <= kSlice "
-           r"&& Dv <= kSlice\};")
+_FAMILY = (r"struct Family \{ bool aligned, tc_fwd, tc_dq, tc_dkv; \}; "
+           r"inline Family family_of\(int is_bf16, int S, int D, int Dv\) "
+           r"\{ const bool aligned = is_bf16 && !\(S % (\d+) \|\| D % (\d+) "
+           r"\|\| Dv % (\d+)\); return \{aligned, ([^,]+), ([^,]+), "
+           r"([^,]+)\}; \}")
+_LIMIT = r"aligned(?: && D <= (\w+))?(?: && Dv <= (\w+))?"
+
+
+def _c_constants(text):
+    return {k: int(v) for k, v in
+            re.findall(r"constexpr int (k\w+) = (\d+);", text)}
 
 
 @pytest.mark.parametrize("source", ["hires_attention.cu",
                                     "hires_attention_bwd.cu"])
 def test_bf16_shape_rule_matches_the_source(source):
     """The wrapper's BF16_MULTIPLE and TC_MAX_D are the multiple of S, D
-    and Dv and the widest D, Dv at which the C entries' bf16 calls run the
-    tensor-core kernels (`family_of` in csrc/hires_common.cuh, which each
-    entry asks), and `tensor_cores` states that rule."""
+    and Dv and, pass by pass, the widest D and Dv at which the C entries'
+    bf16 calls run each attention pass on the tensor cores (`family_of` in
+    csrc/hires_common.cuh, which each entry asks, and whose tc_fwd, tc_dq
+    and tc_dkv pick the forward's, the dq pass's and the dk/dv pass's
+    kernels); TC_SLICE is the width past which the forward and dk/dv
+    passes take their wide kernels; the forward's limit is the widest D
+    whose CTA fits in 232,448 bytes; `tensor_cores` states the rule."""
     text = (CSRC / source).read_text()
     assert "family_of(is_bf16, S, D, Dv)" in text
+    flat = " ".join(text.split())
     common = " ".join((CSRC / "hires_common.cuh").read_text().split())
     rules = re.findall(_FAMILY, common)
     assert len(rules) == 1
-    assert {int(x) for x in rules[0]} == {kh.BF16_MULTIPLE}
-    assert int(re.search(r"constexpr int kSlice = (\d+);", common)[1]) \
-        == kh.TC_MAX_D
+    assert {int(x) for x in rules[0][:3]} == {kh.BF16_MULTIPLE}
+    consts = _c_constants(common)
+    got = {}
+    for name, expr in zip(("fwd", "dq", "dkv"), rules[0][3:]):
+        limit = re.fullmatch(_LIMIT, expr.strip())
+        assert limit, expr
+        got[name] = tuple(None if c is None else consts[c]
+                          for c in limit.groups())
+    assert got == kh.TC_MAX_D
+    assert consts["kSlice"] == kh.TC_SLICE
+    passes = {"hires_attention.cu": ["tc_fwd"],
+              "hires_attention_bwd.cu": ["tc_dkv", "tc_dq"]}[source]
+    assert sorted(set(re.findall(r"fam\.(tc_\w+)", text))) == passes
+    wide = ("tc && D <= kSlice && Dv <= kSlice" if source ==
+            "hires_attention.cu" else "fam.tc_dkv && (D > kSlice || Dv > "
+            "kSlice)")
+    assert wide in flat
+    # The forward CTA: 64 rows of q ([64][D + 8] bf16) and the ring of
+    # four [64][72] bf16 stages, in at most kMaxCtaSmem bytes.
+    ring = 4 * 64 * 72 * 2
+    fwd_d = kh.TC_MAX_D["fwd"][0]
+    assert consts["kMaxCtaSmem"] == 232448
+    assert 64 * (fwd_d + 8) * 2 + ring <= 232448 \
+        < 64 * (fwd_d + 16 + 8) * 2 + ring
     bf16, f32 = torch.bfloat16, torch.float32
-    m, top = kh.BF16_MULTIPLE, kh.TC_MAX_D
+    m, top = kh.BF16_MULTIPLE, kh.TC_MAX_D["dq"][0]
+    # All three passes (pass_ None): D, Dv up to the dq pass's 256.
     assert kh.tensor_cores(1024, top, top, bf16)
     assert not kh.tensor_cores(1024, top + m, top, bf16)
     assert not kh.tensor_cores(1024, top, top + m, bf16)
     assert not kh.tensor_cores(1024 - m // 2, top, top, bf16)
     assert not kh.tensor_cores(1024, top - m // 2, top, bf16)
     assert not kh.tensor_cores(1024, top, top, f32)
+    # Pass by pass.
+    assert kh.tensor_cores(1024, top, top, bf16, "dq")
+    assert not kh.tensor_cores(1024, top + m, top, bf16, "dq")
+    assert not kh.tensor_cores(1024, top, top + m, bf16, "dq")
+    assert kh.tensor_cores(1024, fwd_d, 4096, bf16, "fwd")
+    assert not kh.tensor_cores(1024, fwd_d + m, 64, bf16, "fwd")
+    assert kh.tensor_cores(1024, 4096, 4096, bf16, "dkv")
+    for pass_ in ("fwd", "dq", "dkv"):
+        assert kh.tensor_cores(1024, top + m, top - m, bf16, pass_) == \
+            (pass_ != "dq")
+        assert not kh.tensor_cores(1024 - m // 2, top, top, bf16, pass_)
+        assert not kh.tensor_cores(1024, top - m // 2, top, bf16, pass_)
+        assert not kh.tensor_cores(1024, top, top, f32, pass_)
 
 
 _DIMS_CHECK = {
@@ -266,6 +315,31 @@ def test_every_hires_shape_takes_the_bf16_kernels():
         torch.empty(1, 1, 452, 112, dtype=bf16)
     assert kh._dims(q, q, v, bf16) == (1, 1, 452, 112, 112)
     assert not kh.tensor_cores(452, 112, 112, bf16)
+    # hires-cls-1024 at heads=6 (chip_smoke.py phase 15): the forward and
+    # dk/dv passes on the tensor cores at all four shapes (the wide kernels
+    # past 256), the dq pass on the CUDA cores at the three past 256.
+    base = configs.get_config("hires-cls-1024").model
+    six = {}
+    for _, bcfg in dataclasses.replace(base, heads=6).backbone_cfg() \
+            .block_configs():
+        for v in (bcfg.encoder_cfg(), bcfg.decoder_cfg(), bcfg.cross_cfg()):
+            d = (v.head_dim_content + v.head_dim_rope) if v.reduce \
+                else v.head_dim
+            key = (v.seq_len_new, d, v.head_dim)
+            six[key] = six.get(key, 0) + 1
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", pathlib.Path(__file__).resolve().parent.parent
+        / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert six == smoke.ROUTES_LAYERS
+    assert len(six) == 4
+    for s, d, dv in six:
+        assert pick_route(1, 6, s, s, d, dv, bf16)[0] == "hires"
+        assert kh.tensor_cores(s, d, dv, bf16, "fwd"), (s, d, dv)
+        assert kh.tensor_cores(s, d, dv, bf16, "dkv"), (s, d, dv)
+        assert kh.tensor_cores(s, d, dv, bf16, "dq") == (d <= 256), (s, d)
+    assert sum(n for (_, d, _), n in six.items() if d > 256) == 15
 
 
 VMLA_CFGS = {

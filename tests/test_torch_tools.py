@@ -88,12 +88,35 @@ def test_eval_on_16_staged_images(tmp_path, evidence_untouched):
     assert set(jax) <= set(out)
     assert out["images"] == out["corpus_images"] == 16
     assert 0.0 <= out["top1"] <= 1.0
-    assert out["loader_wait_s"] + out["device_s"] <= out["wall_s"] + 0.01
+    assert bench_eval_50k.accounting_fault(out["exact_s"]) is None
     assert out["decoder"] == "native" and out["card"] == NO_CARD
     assert out["kernel_launches"] == {}
     assert (tmp_path / "corpus" / "val" / "class_0001" /
             "img_00007.jpg").is_file()
     assert not (tmp_path / "corpus" / "train").exists()
+
+
+@pytest.mark.parametrize("exact,fault", [
+    # Nested exactly (0.0151 + 0.0471 = 0.0622): rounded, 0.02 + 0.05 passes
+    # 0.06 + 0.01 in float arithmetic, so the rounded check failed.
+    ({"loader_wait": 0.0151, "device": 0.0471, "wall": 0.0622}, False),
+    # Within the slack.
+    ({"loader_wait": 1.0, "device": 2.0, "wall": 2.995}, False),
+    # Past the wall by more than the slack.
+    ({"loader_wait": 1.0, "device": 2.0, "wall": 2.985}, True),
+])
+def test_eval_accounting_checks_unrounded_seconds(exact, fault):
+    """bench_eval_50k holds loader wait + device <= wall + SLACK_S on the
+    unrounded seconds; the rounded keys' sum can pass the rounded wall
+    with no fault."""
+    rounded = {k: round(v, 2) for k, v in exact.items()}
+    assert bench_eval_50k.SLACK_S == 0.01
+    if not fault:
+        assert exact["loader_wait"] + exact["device"] <= exact["wall"] + 0.01
+    assert (bench_eval_50k.accounting_fault(exact) is not None) == fault
+    if exact["wall"] == 0.0622:
+        assert rounded["loader_wait"] + rounded["device"] > \
+            rounded["wall"] + 0.01
 
 
 def test_profile_opt_on_the_cpu(tmp_path, evidence_untouched):
