@@ -65,6 +65,27 @@
 //     a (rows x S) dm and ssum per CTA, which does not fit in 227 KB at
 //     S = 1024. fp32 (hires_dq_kernel): the key tiles (v, then k, through
 //     one buffer) in fp32 shared memory, ds through shared memory.
+//   * dq past 256 columns of D or Dv, bf16 (hires_dq_wide_bf16_kernel, the
+//     dq part of the TPU's dq pass, axial_attention.py:1087): a warp's
+//     accumulators for 16 rows x all of D are 256 a thread at D = 512, and
+//     the D <= 256 kernel recomputes nothing but would need them. Bound:
+//     2 B H S^2 (2D + Dv) operations, 154.6 GFLOP at S = 1024, D = Dv =
+//     512, B = 8, H = 6 (0.156 ms at 989 TFLOP/s) against 0.32 GB moved
+//     (0.095 ms at 3.35 TB/s): operations. The design splits the work by product and dq
+//     by columns inside one CTA of 8 warps over 64 query rows, as the dk/dv
+//     CTA splits by output: warps 0-3 form s = q k^T, warps 4-7 dp = g v^T
+//     over the same 16 rows each (q and g resident, k and v chunk pairs
+//     streamed through a 3-stage ring); p and dp cross between the groups
+//     through a 32 KB exchange in fragment order, both groups round the
+//     same ds, and each adds ds k over its half of dq's columns (at most
+//     256: 128 accumulators a thread), the k chunks of both halves paired
+//     in a second pass through the ring. So no score is recomputed up to D
+//     = 512 (all of hires-cls-1024's six-head widths), where splitting dq
+//     over the grid, as the wide forward splits o, would recompute s and
+//     dp per slice (5/3 the products at D = Dv). Past 512 the CTAs split
+//     dq's columns further over the grid (blockIdx.x = head * ns + z), each
+//     recomputing the scores. q and g resident bound D, Dv to kTcDqMaxD =
+//     544 (229,376 bytes a CTA there; 221,184 at 512; one CTA an SM).
 //   * dk, dv, bf16 (hires_dkv_bf16_kernel): one CTA of 8 warps per (64
 //     keys, head, batch element), grid (H, ceil(S/64), B) with the heads
 //     fastest, so the H CTAs that read the same key columns of m and dssum
@@ -110,11 +131,11 @@
 //     hires_common.cuh), and an output wider than 256 columns is split over
 //     the grid's z axis, each CTA recomputing the scores for its slice. They
 //     run every fp32 call and every bf16 pass the tensor-core kernels do not
-//     take (family_of: the dq pass past D, Dv 256, or S, D, Dv off the
+//     take (family_of: the dq pass past D, Dv 544, or S, D, Dv off the
 //     multiple of 8), reading bf16 and rounding at the same points.
 // The bf16 tensor-core kernels take S, D and Dv that are multiples of 8
-// (16-byte rows): the dq kernel D, Dv <= 256, the dk/dv kernels every
-// width; the C entries take any shape.
+// (16-byte rows): the dq kernels D, Dv <= kTcDqMaxD, the dk/dv kernels
+// every width; the C entries take any shape.
 
 #include "hires_mma.cuh"
 
@@ -1039,6 +1060,249 @@ cudaError_t dkv_wide_bf16(const bf16* q, const bf16* k, const bf16* v,
   }
 }
 
+// The wide bf16 dq CTA (D or Dv past kSlice, both at most kTcDqMaxD): 8
+// warps over 64 query rows of one (batch element, head), warps w and w + 4
+// on the same 16 rows. The q and g rows stay resident; per key tile, pass
+// 1 streams (k, v) chunk pairs through the ring and warps 0-3 form s = q
+// k^T, warps 4-7 dp = g v^T; warps 0-3 turn s into p = exp(scale s + m -
+// lse); each group hands its tile to the other through shared memory in
+// fragment order, and both form the same ds = round(scale p (dp - delta) +
+// dssum) for their 16 rows (the same expression on the same fp32 values,
+// so the same bits). Pass 2 streams pairs of k chunks, one of each group's
+// columns, and each group adds ds k[:, its columns] from the A fragments
+// in registers. CTA (blockIdx.x = head * ns + z) owns parts 2z and 2z + 1
+// of dq's columns, split_cols(D, 2 ns) each, at most kSlice (NQ chunks,
+// 128 accumulators a thread), one a group; ns = 1 to D = 512, where no
+// score is recomputed, 2 past it (each CTA recomputes s and dp).
+// Dynamic shared memory: the resident q and g tiles, kPairStages chunk
+// pairs and the two-way exchange (221,184 bytes at D = Dv = 512, one CTA
+// an SM).
+constexpr size_t dq_wide_smem(int D, int Dv) {
+  return sizeof(bf16) * ((size_t)kAttnRows * (tcore::pad16(D) + 8 +
+                                               tcore::pad16(Dv) + 8) +
+                         (size_t)kPairStages * 2 * kChunkElems) +
+         sizeof(float) * 2 * (size_t)kXchFloats;
+}
+static_assert(dq_wide_smem(kTcDqMaxD, kTcDqMaxD) <= (size_t)kMaxCtaSmem &&
+                  dq_wide_smem(kTcDqMaxD + 16, kTcDqMaxD + 16) >
+                      (size_t)kMaxCtaSmem,
+              "kTcDqMaxD is the widest D = Dv whose wide dq CTA fits");
+
+template <int NQ>
+__global__ void __launch_bounds__(kDkvThreads, 1) hires_dq_wide_bf16_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ g, const Residuals R,
+    const float* __restrict__ dssum, int D, int Dv, int ns,
+    bf16* __restrict__ dq) {
+  using namespace tcore;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int H = R.H, S = R.S;
+  const int ldq = pad16(D) + 8, ldg = pad16(Dv) + 8;
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sG = sQ + kAttnRows * ldq;
+  bf16* ring = sG + kAttnRows * ldg;
+  // [p from warps 0-3, dp from warps 4-7][warp][n][lane], 8 float4 a thread.
+  float4* sXch = reinterpret_cast<float4*>(ring + kPairStages * 2 *
+                                           kChunkElems);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int w = warp & (kAttnWarps - 1);       // rows 16w of the CTA's 64
+  const bool dp_warp = warp >= kAttnWarps;
+  const int grp = dp_warp ? 1 : 0;
+  const int gr = lane >> 2, t = lane & 3;
+  const int z = blockIdx.x % ns;
+  const int b = blockIdx.z, q0 = blockIdx.y * kAttnRows;
+  const size_t head = ((size_t)b * H + blockIdx.x / ns) * S;
+  const bf16* kh = k + head * D;
+  const bf16* vh = v + head * Dv;
+  // The two groups' columns of dq: [ca, ca + wa) and [cb, cb + wb).
+  const int cw = split_cols(D, 2 * ns);
+  const int ca = 2 * z * cw, cb = ca + cw;
+  const int wa = max(0, min(cw, D - ca)), wb = max(0, min(cw, D - cb));
+  const int nkc = chunks_of(D), nvc = chunks_of(Dv);
+  const int n1 = max(nkc, nvc);   // pass 1's stages of a key tile
+  const int per = n1 + NQ;        // and pass 2's
+  const int nkt = (S + kAttnRows - 1) / kAttnRows;
+
+  // Stage `at`: key tile at / per; in pass 1 column chunk c of k and of v,
+  // in pass 2 chunk c - n1 of each group's columns of k.
+  auto pair = [&](int at) {
+    if (at < nkt * per) {
+      const int j = at / per, c = at - j * per, t0 = j * kAttnRows;
+      bf16* dst = ring + (at % kPairStages) * 2 * kChunkElems;
+      const bf16* kt = kh + (size_t)t0 * D;
+      if (c < n1) {
+        if (c < nkc) copy_chunk<kDkvThreads>(dst, kt, D, S - t0, c);
+        if (c < nvc)
+          copy_chunk<kDkvThreads>(dst + kChunkElems, vh + (size_t)t0 * Dv,
+                                  Dv, S - t0, c);
+      } else {
+        const int c1 = (c - n1) * kChunkCols;
+        if (c1 < wa)
+          copy_rows<kDkvThreads>(dst, kChunkLd, kt, D, S - t0, ca + c1,
+                                 ca + wa, kChunkCols);
+        if (c1 < wb)
+          copy_rows<kDkvThreads>(dst + kChunkElems, kChunkLd, kt, D, S - t0,
+                                 cb + c1, cb + wb, kChunkCols);
+      }
+    }
+    cp_commit();
+  };
+  copy_resident<kDkvThreads>(sQ, q + (head + q0) * D, D, S - q0);  // join
+  copy_resident<kDkvThreads>(sG, g + (head + q0) * Dv, Dv, S - q0);  // pair 0
+#pragma unroll
+  for (int at = 0; at < kPairStages - 1; ++at) pair(at);
+  int i = 0;
+  auto next = [&]() -> const bf16* {
+    cp_wait<kPairStages - 2>();
+    __syncthreads();  // pair i has landed; pair i - 1's stage is free
+    pair(i + kPairStages - 1);
+    return ring + (i++ % kPairStages) * 2 * kChunkElems;
+  };
+
+  int rows[2];
+  float l[2], de[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    rows[hf] = q0 + w * 16 + gr + 8 * hf;
+    l[hf] = rows[hf] < S ? R.lse[head + rows[hf]] : 0.f;
+    de[hf] = rows[hf] < S ? R.delta[head + rows[hf]] : 0.f;
+  }
+  // This warp's operands: pass 1 its resident rows and their width, then
+  // in both passes its half of a stage, and its columns of dq.
+  const bf16* rows_a = dp_warp ? sG : sQ;
+  const int lda = dp_warp ? ldg : ldq;
+  const int w1 = dp_warp ? Dv : D;
+  const int half = grp * kChunkElems;
+  const int c2 = dp_warp ? cb : ca, w2 = dp_warp ? wb : wa;
+  float4* mine = sXch + (grp * kAttnWarps + w) * 8 * 32 + lane;
+  const float4* theirs = sXch + ((1 - grp) * kAttnWarps + w) * 8 * 32 + lane;
+
+  float acc[NQ * kChunkN][4];
+#pragma unroll
+  for (int n = 0; n < NQ * kChunkN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  for (int j = 0; j < nkt; ++j) {
+    float s[8][4];   // rows 16w + gr (+8) x keys 8n + 2t (+1): s or dp
+    zero8(s);
+    for (int c = 0; c < n1; ++c) {
+      const bf16* X = next();
+      if (c < chunks_of(w1))
+        rows_by_chunk(s, rows_a, lda, c, X + half, chunk_steps(w1, c), lane,
+                      w);
+    }
+    if (!dp_warp) {
+      // p = exp(scale s + m - lse) (0 outside the matrix; key + 1 < S iff
+      // key < S).
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int key = j * kAttnRows + n * 8 + 2 * t;
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          float2 p = make_float2(0.f, 0.f);
+          if (key < S && rows[hf] < S) {
+            const float2 mm = *reinterpret_cast<const float2*>(
+                R.m + ((size_t)b * S + rows[hf]) * S + key);
+            p.x = __expf(s[n][2 * hf] * R.scale + mm.x - l[hf]);
+            p.y = __expf(s[n][2 * hf + 1] * R.scale + mm.y - l[hf]);
+          }
+          s[n][2 * hf] = p.x;
+          s[n][2 * hf + 1] = p.y;
+        }
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      mine[n * 32] = make_float4(s[n][0], s[n][1], s[n][2], s[n][3]);
+    uint32_t da[4][4];
+#pragma unroll
+    for (int u = 0; u < NQ; ++u) {
+      const bf16* X = next();   // after the first: p and dp are exchanged
+      if (u == 0) {
+        // ds = round(scale p (dp - delta) + dssum), s holding p or dp.
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const float4 o4 = theirs[n * 32];
+          const float o[4] = {o4.x, o4.y, o4.z, o4.w};
+          const int key = j * kAttnRows + n * 8 + 2 * t;
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            float2 dd = make_float2(0.f, 0.f);
+            const bool live = key < S && rows[hf] < S;
+            if (live)
+              dd = *reinterpret_cast<const float2*>(
+                  dssum + ((size_t)b * S + rows[hf]) * S + key);
+#pragma unroll
+            for (int x = 0; x < 2; ++x) {
+              const int e = 2 * hf + x;
+              const float p = dp_warp ? o[e] : s[n][e];
+              const float dp = dp_warp ? s[n][e] : o[e];
+              s[n][e] = live ? p * (dp - de[hf]) * R.scale + (x ? dd.y : dd.x)
+                             : 0.f;
+            }
+          }
+        }
+#pragma unroll
+        for (int kb = 0; kb < 4; ++kb) c_to_a(da[kb], s[2 * kb], s[2 * kb + 1]);
+      }
+      if (u < chunks_of(w2))
+        probs_by_chunk(acc, u, da, X + half, chunk_steps(w2, u), lane);
+    }
+  }
+  cp_wait<0>();
+
+  bf16* out = dq + head * D + c2;
+#pragma unroll
+  for (int n = 0; n < NQ * kChunkN; ++n) {
+    const int d = n * 8 + 2 * t;
+    if (d < w2) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        if (rows[hf] < S)
+          *reinterpret_cast<uint32_t*>(out + (size_t)rows[hf] * D + d) =
+              pack(acc[n][2 * hf], acc[n][2 * hf + 1]);
+    }
+  }
+}
+
+template <int NQ>
+cudaError_t launch_dq_wide_bf16(const bf16* q, const bf16* k, const bf16* v,
+                                const bf16* g, const Residuals& R,
+                                const float* dssum, int B, int D, int Dv,
+                                int ns, bf16* dq, cudaStream_t st,
+                                Report& rep) {
+  auto kern = hires_dq_wide_bf16_kernel<NQ>;
+  const size_t smem = dq_wide_smem(D, Dv);
+  cudaError_t err = allow_smem(kern, smem);
+  if (err != cudaSuccess) return err;
+  kern<<<dim3(ns * R.H, (R.S + kAttnRows - 1) / kAttnRows, B), kDkvThreads,
+         smem, st>>>(q, k, v, g, R, dssum, D, Dv, ns, dq);
+  return rep.done(smem);
+}
+
+// dq in 2 ns parts of split_cols(D, 2 ns) columns, two a CTA (ns = 1 up to
+// D = 2 kSlice); NQ = the chunks of a part.
+cudaError_t dq_wide_bf16(const bf16* q, const bf16* k, const bf16* v,
+                         const bf16* g, const Residuals& R,
+                         const float* dssum, int B, int D, int Dv, bf16* dq,
+                         cudaStream_t st, Report& rep) {
+  const int ns = (D + 2 * kSlice - 1) / (2 * kSlice);
+  switch (chunks_of(split_cols(D, 2 * ns))) {
+    case 1:
+      return launch_dq_wide_bf16<1>(q, k, v, g, R, dssum, B, D, Dv, ns, dq,
+                                    st, rep);
+    case 2:
+      return launch_dq_wide_bf16<2>(q, k, v, g, R, dssum, B, D, Dv, ns, dq,
+                                    st, rep);
+    case 3:
+      return launch_dq_wide_bf16<3>(q, k, v, g, R, dssum, B, D, Dv, ns, dq,
+                                    st, rep);
+    default:
+      return launch_dq_wide_bf16<4>(q, k, v, g, R, dssum, B, D, Dv, ns, dq,
+                                    st, rep);
+  }
+}
+
 template <int NC>
 cudaError_t launch_dkv_bf16(const bf16* q, const bf16* k, const bf16* v,
                             const bf16* g, const Residuals& R,
@@ -1113,6 +1377,8 @@ cudaError_t dq_pass(const T* q, const T* k, const T* v, const T* g,
                     Report& rep) {
   if constexpr (std::is_same<T, bf16>::value) {
     static_assert(kMaxChunks == 4, "one case per chunk count");
+    if (fam.tc_dq && (D > kSlice || Dv > kSlice))
+      return dq_wide_bf16(q, k, v, g, R, dssum, B, D, Dv, dq, st, rep);
     if (fam.tc_dq) {
       switch (chunks_of(D)) {
         case 1:
@@ -1399,6 +1665,25 @@ extern "C" int hires_dkv_wide_occupancy(int* out) {
   for (int k = 0; k < 4; ++k) {
     const cudaError_t err = occupancy(fns[k], kDkvThreads, kDkvWideSmem,
                                       out + 4 * k);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
+
+// What the card makes of each wide bf16 dq instantiation at head dims D,
+// Dv (at most kTcDqMaxD): kernel k (NQ = k + 1) fills out[4k..4k+3] as
+// occupancy() does (hires_common.cuh). Returns a cudaError_t.
+extern "C" int hires_dq_wide_occupancy(int D, int Dv, int* out) {
+  const void* fns[4] = {
+      reinterpret_cast<const void*>(hires_dq_wide_bf16_kernel<1>),
+      reinterpret_cast<const void*>(hires_dq_wide_bf16_kernel<2>),
+      reinterpret_cast<const void*>(hires_dq_wide_bf16_kernel<3>),
+      reinterpret_cast<const void*>(hires_dq_wide_bf16_kernel<4>)};
+  if (D < 1 || Dv < 1 || D > kTcDqMaxD || Dv > kTcDqMaxD)
+    return (int)cudaErrorInvalidValue;
+  for (int k = 0; k < 4; ++k) {
+    const cudaError_t err = occupancy(fns[k], kDkvThreads,
+                                      dq_wide_smem(D, Dv), out + 4 * k);
     if (err != cudaSuccess) return (int)err;
   }
   return 0;

@@ -312,24 +312,30 @@ constexpr int kMaxCtaSmem = 232448;
 // ring, which fit in kMaxCtaSmem up to D = 1520 (hires_attention.cu
 // asserts it). Dv has no limit there: o's columns are split over the grid.
 constexpr int kTcFwdMaxD = 1520;
+// The widest D and Dv of the bf16 dq pass on the tensor cores: past kSlice
+// its wide CTA keeps 64 rows of q and of g resident ([64][pad16(D) + 8]
+// and [64][pad16(Dv) + 8] bf16) beside a 27,648-byte chunk ring and a
+// 32,768-byte exchange of p and dp, which fit in kMaxCtaSmem up to D = Dv
+// = 544 (hires_attention_bwd.cu asserts it).
+constexpr int kTcDqMaxD = 544;
 
 // The kernels of a call, pass by pass. bf16 calls whose S, D and Dv are
 // multiples of 8 (rows of 16 bytes) run their strided products and the
 // dm/ssum pass on the tensor cores (aligned); of their attention passes,
 // the forward runs there with D <= kTcFwdMaxD (tc_fwd), the dq pass with
-// D, Dv <= kSlice (tc_dq), and the dk/dv pass at every D and Dv (tc_dkv:
+// D, Dv <= kTcDqMaxD (tc_dq), and the dk/dv pass at every D and Dv (tc_dkv:
 // its CTA streams k and v through its ring, so its shared memory does not
-// grow with them). Past kSlice the forward and dk/dv passes run their
-// wide kernels, which split o, dk and dv over the grid. Every other pass,
-// fp32 or bf16, runs the CUDA-core kernels, which read the compute type
-// and accumulate in fp32.
+// grow with them). Past kSlice all three run their wide kernels, which
+// split o, dq, dk and dv over warps or the grid. Every other pass, fp32 or
+// bf16, runs the CUDA-core kernels, which read the compute type and
+// accumulate in fp32.
 struct Family {
   bool aligned, tc_fwd, tc_dq, tc_dkv;
 };
 inline Family family_of(int is_bf16, int S, int D, int Dv) {
   const bool aligned = is_bf16 && !(S % 8 || D % 8 || Dv % 8);
   return {aligned, aligned && D <= kTcFwdMaxD,
-          aligned && D <= kSlice && Dv <= kSlice, aligned};
+          aligned && D <= kTcDqMaxD && Dv <= kTcDqMaxD, aligned};
 }
 
 // Rows [row0, row0 + 64) x columns [c0, c0 + cols) of a row-major matrix

@@ -35,19 +35,21 @@ launches its kernels or raises. The kernels take every shape (Sq == Skv,
 any S, D, Dv). A bf16 call whose S, D and Dv are multiples of 8 runs its
 strided products and dm/ssum pass on the tensor cores, and each of its
 attention passes there within that pass's limits (`tensor_cores`,
-`TC_MAX_D`): the forward up to D 1520, the dk/dv pass at every D and Dv,
-both on their wide kernels past 256 columns (o, dk and dv split over the
-grid, the scores recomputed by each slice), the dq pass up to D, Dv 256.
-Every other pass, and every fp32 call (the card-vs-CPU checks), runs the
-CUDA-core kernels, which stream every contraction over D or Dv through
-shared memory 64 columns at a time and split an output wider than 256
-columns over the grid. Each wrapper counts its calls in `.launches`, and
-of them the calls on the CUDA-core kernels in `.cuda_core_launches` and
-(forward and dk/dv) those on the wide tensor-core kernels in
-`.wide_launches`; the C entries report the kernels each call launched and
-the largest dynamic shared memory a CTA of them asked for, and the
-wrappers add the launches past the counted one to `.stage_launches` and
-keep the shared memory of their last call in `.smem_bytes`.
+`TC_MAX_D`, `family`): the forward up to D 1520, the dk/dv pass at every D
+and Dv, the dq pass up to D, Dv 544, each on its wide kernel past 256
+columns (the forward's o and the dk/dv pass's dk, dv split over the grid,
+the scores recomputed by each slice; the dq pass's dq split between two
+warp groups of one CTA, which share the scores). Every other pass, and
+every fp32 call (the card-vs-CPU checks), runs the CUDA-core kernels,
+which stream every contraction over D or Dv through shared memory 64
+columns at a time and split an output wider than 256 columns over the
+grid. Each wrapper counts its calls in `.launches`, and of them the calls
+on the CUDA-core kernels in `.cuda_core_launches` and those on the wide
+tensor-core kernels in `.wide_launches`; the C entries report the kernels
+each call launched and the largest dynamic shared memory a CTA of them
+asked for, and the wrappers add the launches past the counted one to
+`.stage_launches` and keep the shared memory of their last call in
+`.smem_bytes`.
 """
 
 from __future__ import annotations
@@ -74,11 +76,13 @@ REPLACES_FWD_ONLY = "calm_vit_dte_tpu/kernels/axial_attention.py:1221"
 # The widest (D, Dv) of each attention pass's tensor-core kernels, None
 # where there is no limit (`family_of` in csrc/hires_common.cuh): the
 # forward keeps 64 rows of q resident in shared memory, which fit up to D
-# 1520 (kTcFwdMaxD), and splits o over the grid; the dq kernel holds D, Dv
-# up to 256 (kSlice); the dk/dv kernels stream k and v through their ring
-# and split dk and dv over the grid, at every width.
-TC_MAX_D = {"fwd": (1520, None), "dq": (256, 256), "dkv": (None, None)}
-TC_SLICE = 256     # past it in D or Dv: the wide forward and dk/dv kernels
+# 1520 (kTcFwdMaxD), and splits o over the grid; the dq kernels keep 64
+# rows of q and of g resident, which the wide one's CTA (with its ring and
+# its exchange of p and dp) fits up to D = Dv = 544 (kTcDqMaxD); the dk/dv
+# kernels stream k and v through their ring and split dk and dv over the
+# grid, at every width.
+TC_MAX_D = {"fwd": (1520, None), "dq": (544, 544), "dkv": (None, None)}
+TC_SLICE = 256     # past it in D or Dv: each pass's wide kernel
 BF16_MULTIPLE = 8  # S, D and Dv of the tensor-core kernels: 16-byte rows
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -192,13 +196,22 @@ def tensor_cores(s: int, d: int, dv: int, dtype,
             and (max_dv is None or dv <= max_dv))
 
 
-def _count(counter, s: int, d: int, dv: int, dtype, pass_: str) -> None:
-    """Add one launch of `pass_` to `counter.cuda_core_launches` or, on
-    the wide tensor-core kernels (the forward and dk/dv passes past
-    TC_SLICE), to `counter.wide_launches`."""
+def family(s: int, d: int, dv: int, dtype, pass_: str) -> str:
+    """The kernels that run a call's attention pass `pass_`: "cuda_core"
+    (`tensor_cores` false), "wide" (the tensor-core kernel past TC_SLICE
+    in D or Dv) or "tensor_cores"."""
     if not tensor_cores(s, d, dv, dtype, pass_):
+        return "cuda_core"
+    return "wide" if max(d, dv) > TC_SLICE else "tensor_cores"
+
+
+def _count(counter, s: int, d: int, dv: int, dtype, pass_: str) -> None:
+    """Add one launch of `pass_` to `counter.cuda_core_launches` or
+    `counter.wide_launches` by its `family`."""
+    fam = family(s, d, dv, dtype, pass_)
+    if fam == "cuda_core":
         counter.cuda_core_launches += 1
-    elif max(d, dv) > TC_SLICE:
+    elif fam == "wide":
         counter.wide_launches += 1
 
 
@@ -390,7 +403,8 @@ def _launch_dkv(q, k, v, g, m, lse, delta, dssum, *, scale,
 
 def wide_occupancy(d: int) -> dict:
     """What the card makes of each wide tensor-core kernel instantiation,
-    the forward's at head dim `d`: {name: {"registers", "spill_bytes",
+    the forward's at head dim `d` and the dq pass's at D = Dv = `d` (at
+    most TC_MAX_D["dq"]): {name: {"registers", "spill_bytes",
     "smem_bytes" (static + dynamic, a CTA), "ctas_per_sm"}}, from
     cudaFuncGetAttributes and cudaOccupancyMaxActiveBlocksPerMultiprocessor
     in the C entries."""
@@ -400,6 +414,9 @@ def wide_occupancy(d: int) -> dict:
             ("hires_attention", "hires_attention_wide_occupancy",
              [f"hires_attention_wide_bf16_kernel<{nv}, {r}>"
               for nv in range(2, 5) for r in (0, 1)], [d]),
+            ("hires_attention_bwd", "hires_dq_wide_occupancy",
+             [f"hires_dq_wide_bf16_kernel<{nq}>" for nq in range(1, 5)],
+             [d, d]),
             ("hires_attention_bwd", "hires_dkv_wide_occupancy",
              [f"hires_dkv_wide_bf16_kernel<{nc}>" for nc in range(1, 5)],
              [])):
@@ -532,11 +549,10 @@ for _counter in (fused_hires_attention, hires_dq, hires_weight_grads,
     _counter.smem_bytes = 0
 # Of `.launches`, the calls whose attention pass ran the CUDA-core kernels
 # (`tensor_cores` false for the pass: fp32, or bf16 past its tensor-core
-# kernels) and, for the passes that have them, the wide tensor-core
-# kernels (D or Dv past TC_SLICE).
+# kernels) and those that ran the wide tensor-core kernels (D or Dv past
+# TC_SLICE): `family`.
 for _counter in (fused_hires_attention, hires_dq, hires_dkv,
                  fused_attention_forward):
     _counter.cuda_core_launches = 0
-for _counter in (fused_hires_attention, hires_dkv, fused_attention_forward):
     _counter.wide_launches = 0
 del _counter

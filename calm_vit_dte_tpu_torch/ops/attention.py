@@ -77,11 +77,10 @@ AUTO_SCORE_BUDGET = 1 << 28
 # drive: (what, the shape just inside, the shape just past, the route each
 # takes, the dtypes), shapes (B, H, Sq, Skv, Dc, Dr, Dv) with Dr = 0 for q,
 # k rotated already (`masked_attention`). Past a tensor-core hires kernel's
-# limit a shape stays on the hires route (`hires_attention.tensor_cores`,
-# per pass): at bf16 D = Dv 264 the forward and dk/dv passes run their wide
-# tensor-core kernels and the dq pass its CUDA-core kernel; at bf16 S 1020
-# every pass runs the CUDA-core kernels; in fp32 D 264 is the first head
-# the CUDA-core kernels split over the grid.
+# limit a shape stays on the hires route (`hires_attention.family`, per
+# pass): at bf16 D = Dv 264 every pass runs its wide tensor-core kernel; at
+# bf16 S 1020 every pass runs the CUDA-core kernels; in fp32 D 264 is the
+# first head the CUDA-core kernels split over the grid.
 ROUTE_LIMITS = (
     ("rope Dv 64 -> 72", (2, 12, 224, 224, 32, 32, 64),
      (2, 12, 224, 224, 32, 32, 72), "rope", "hires", ("float32", "bfloat16")),

@@ -62,8 +62,9 @@ def step_against_one_process(cards: int, work: Path, env: dict) -> dict:
     process on card 0."""
     run = dict(STEP_RUN, restore=str(work / "carried"),
                meshes=[[cards, 1], [cards // 2, 2]])
-    ps.carry_state(run, run["restore"], torch.device("cuda", 0))
-    single = ps.run_one(run, None, torch.device("cuda", 0))
+    with ps.deterministic_cudnn():   # as the ranks run
+        ps.carry_state(run, run["restore"], torch.device("cuda", 0))
+        single = ps.run_one(run, None, torch.device("cuda", 0))
     _check_launches("one process", single["launches"])
     torch.cuda.empty_cache()
     spec = {"out": str(work / "ranks"), "device": "cuda", "backend": "nccl",
@@ -87,10 +88,13 @@ def step_against_one_process(cards: int, work: Path, env: dict) -> dict:
         rel = max(abs(a - b) / abs(b)
                   for a, b in zip(losses, out["one_process_losses"]))
         past = ps.excess(recs[0], single, 3e-3, atol)
-        if rel > 1e-5 or past > 0:
+        if rel > 1e-5 or past["excess"] > 0:
             raise AssertionError(f"{layout} against one process: loss rel "
                                  f"{rel:.3g} (limit 1e-5), state past rtol "
-                                 f"3e-3 / atol {atol} by {past:.3g}")
+                                 f"3e-3 / atol {atol} by {past['excess']:.3g}"
+                                 f" at {past['tensor']}[{past['index']}] "
+                                 f"({past['got']!r} against "
+                                 f"{past['want']!r})")
         out[layout] = {
             "losses": losses, "loss_max_rel": rel,
             "ms_per_step": [float(np.median(r["ms"][1:])) for r in recs],

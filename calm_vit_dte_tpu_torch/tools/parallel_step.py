@@ -39,6 +39,7 @@ the rank stores.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import datetime
 import json
 import os
@@ -111,6 +112,22 @@ def global_batch(run: dict) -> dict[str, np.ndarray]:
             "label": t / t.sum(-1, keepdims=True)}
 
 
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms, autotuning off, for a scope (the
+    settings restored after it). By default the chain route's convolution
+    backward varies the last bits of the fp32 gradients from run to run on
+    the card; the ranks (`main`) and the one-process step they are held
+    against both run under these settings."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -165,14 +182,23 @@ def carry_state(run: dict, path: str, device: torch.device) -> str:
     return path
 
 
-def excess(got: dict, want: dict, rtol: float, atol: float) -> float:
-    """How far the state of record `got` is past rtol / atol of `want`'s,
-    at its worst element (<= 0: within the limits)."""
-    worst = -float("inf")
+def excess(got: dict, want: dict, rtol: float, atol: float) -> dict:
+    """Where the state of record `got` is furthest past rtol / atol of
+    `want`'s: {"tensor": its name, "index": the flat index, "got", "want":
+    the two values, "excess": by how much} at that element (excess <= 0:
+    every element within the limits)."""
+    worst = {"tensor": None, "index": None, "got": None, "want": None,
+             "excess": -float("inf")}
     for k, w in want["state"].items():
-        w = w.double()
-        d = (got["state"][k].double() - w).abs()
-        worst = max(worst, float((d - (atol + rtol * w.abs())).max()))
+        w = w.double().flatten()
+        x = got["state"][k].double().flatten()
+        if not w.numel():
+            continue
+        past = (x - w).abs() - (atol + rtol * w.abs())
+        i = int(past.argmax())
+        if float(past[i]) > worst["excess"]:
+            worst = {"tensor": k, "index": i, "got": float(x[i]),
+                     "want": float(w[i]), "excess": float(past[i])}
     return worst
 
 
@@ -337,9 +363,12 @@ def main(argv: list[str] | None = None) -> None:
         torch.set_num_threads(1)
     else:
         torch.cuda.set_device(_device(spec, args.rank))
-    # fp32 comparisons: true fp32 products on the card.
+    # fp32 comparisons: true fp32 products on the card, and convolutions
+    # that give the same bits from run to run (`deterministic_cudnn`).
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
     if args.world > 1:
         dist.init_process_group(
             spec.get("backend", "gloo"),

@@ -62,7 +62,8 @@ PARTS = {
                           "hires_attention_bf16_kernel",
                           "hires_attention_wide_bf16_kernel"),
     "dm/ssum": ("hires_dm_ssum_kernel", "hires_dm_ssum_bf16_kernel"),
-    "dq": ("hires_dq_kernel", "hires_dq_bf16_kernel"),
+    "dq": ("hires_dq_kernel", "hires_dq_bf16_kernel",
+           "hires_dq_wide_bf16_kernel"),
     "dk/dv": ("hires_dkv_kernel", "hires_dkv_bf16_kernel",
               "hires_dkv_wide_bf16_kernel"),
     "strided product": ("namespace)::gemm_kernel", "gemm_tc_kernel"),

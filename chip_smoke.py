@@ -187,11 +187,14 @@ Phases, each fatal on failure (any exception exits non-zero):
              the flagship at full width in fp32, global batch 8, injected
              global noise: DP 2x1 and TP 1x2 (tp_min_shard_dim 512, 59
              weights) against the single-process card step (loss rtol
-             1e-5; state rtol 3e-3 / atol 3e-5 for DP, 3e-4 for TP), the
-             ranks bit-identical, 24 + 24 rope launches a step on every
-             rank; each rank's stored bytes under TP against DP (13,267,968
-             elements x 12 B less), host ms a step at world 1 and 2, and
-             the ms the global noise draw adds;
+             1e-5; state rtol 3e-3 / atol 3e-5 for DP, 3e-4 for TP; each
+             comparison's worst element printed: tensor, index, values),
+             both sides with cuDNN's deterministic algorithms, the
+             one-process step run twice and held against itself with the
+             DP limits, the ranks bit-identical, 24 + 24 rope launches a
+             step on every rank; each rank's stored bytes under TP against
+             DP (13,267,968 elements x 12 B less), host ms a step at world
+             1 and 2, and the ms the global noise draw adds;
  14. tools   the ported scripts (calm_vit_dte_tpu_torch/tools/), each run
              in this process at a reduced size into a temporary directory
              and checked for what it is for: stage_dataset (a local tar
@@ -215,9 +218,9 @@ Phases, each fatal on failure (any exception exits non-zero):
  15. routes  the attention dispatch (ops/attention.py) and the JAX
              package's 'chunked' and 'xla' routes: (a) at each limit of the
              dispatcher (rope Dv 64 -> 72 at S 224: rope -> hires; D = Dv
-             256 -> 264 at S 1024: in bf16 the forward and dk/dv passes
-             from the tensor-core kernels to their wide forms, dq to the
-             CUDA cores; bf16 S 1024 -> 1020: every pass to the CUDA cores;
+             256 -> 264 at S 1024: in bf16 every pass from the
+             tensor-core kernels to their wide forms; bf16 S 1024 -> 1020:
+             every pass to the CUDA cores;
              Sq = Skv 224 -> Skv 256: rope -> 'xla'), fp32 and bf16, mask
              on and off, with and without grad, one counter each (the
              launches by family: the path routes_limits); the route's fp32
@@ -227,10 +230,10 @@ Phases, each fatal on failure (any exception exits non-zero):
              264, a partial D slice, Dv past 256 with D below it, bf16 S
              1020 and head dims off the multiple of 8) against their plain
              versions as phase 8 holds the tensor-core ones, bf16 twice
-             bit for bit, and timed at B=8 (the wide kernels and the bf16
-             CUDA-core dq kernel; the fp32 CUDA-core forward and dk/dv
-             kernels), with the wide kernels' registers, spills, shared
-             memory and CTAs per SM from the runtime; (b) 'chunked' (chunk
+             bit for bit, and timed at B=8 (the wide kernels in bf16, the
+             CUDA-core kernels in fp32), with the wide kernels' registers,
+             spills, shared memory and CTAs per SM from the runtime (a
+             spill fails the run); (b) 'chunked' (chunk
              2) against 'xla' forced at B 16, H 6,
              S 1024, D = Dv 512 in bf16, forward and backward, each within
              twice the other's error of the fp32 route, each one's device
@@ -242,9 +245,9 @@ Phases, each fatal on failure (any exception exits non-zero):
              wide kernel, + 8 conv), fp32 logits card vs CPU on 1 image
              (phase 8's limits; 24 forward-only launches on the CUDA-core
              kernel), and make_train_step steps at B=16 in bf16 with remat
-             (exactly 24 + 24 + 24 hires launches: 15 forwards and 15 dk/dv
-             passes on the wide kernels, 15 dq passes on the CUDA-core
-             kernel, no route; the loss finite, every gradient finite and
+             (exactly 24 + 24 + 24 hires launches: 15 forwards, 15 dq and
+             15 dk/dv passes on the wide kernels, none on the CUDA-core
+             kernels, no route; the loss finite, every gradient finite and
              nonzero), images/s and ms a step.
 
 Every fp32 comparison runs with torch.backends.cuda.matmul.allow_tf32 and
@@ -414,12 +417,14 @@ TENSOR_CORE_KERNELS = ("rope_attention_fwd_bf16_kernel", "bwd_rows_kernel",
                        "hires_dm_ssum_bf16_kernel", "hires_dq_bf16_kernel",
                        "hires_dkv_bf16_kernel", "gemm_tc_kernel",
                        "hires_attention_wide_bf16_kernel",
+                       "hires_dq_wide_bf16_kernel",
                        "hires_dkv_wide_bf16_kernel")
 # The hires tensor-core kernels, whose ptxas reports must show no spills.
 NO_SPILL_KERNELS = ("hires_attention_bf16_kernel",
                     "hires_dm_ssum_bf16_kernel", "hires_dq_bf16_kernel",
                     "hires_dkv_bf16_kernel", "gemm_tc_kernel",
                     "hires_attention_wide_bf16_kernel",
+                    "hires_dq_wide_bf16_kernel",
                     "hires_dkv_wide_bf16_kernel")
 
 
@@ -2530,8 +2535,14 @@ def parallel_phase(torch, name, smi):
     tp_min_shard_dim 512), three steps each, held against the
     single-process card step: DP loss rtol 1e-5, state rtol 3e-3 / atol
     3e-5; TP loss rtol 1e-5, state rtol 3e-3 / atol 3e-4
-    (tests/test_sharding.py's limits); the ranks' states bit for bit
-    equal; 24 + 24 rope launches a step on every rank. Prints each rank's
+    (tests/test_sharding.py's limits), each comparison's worst element
+    (tensor, flat index, both values) printed; both sides under cuDNN's
+    deterministic algorithms (`parallel_step.deterministic_cudnn`, only
+    around the in-process runs here: the carried state and the
+    one-process step), and the one-process step run twice,
+    the second held against the first with the DP limits; the ranks'
+    states bit for bit equal; 24 + 24 rope launches a step on every rank.
+    Prints each rank's
     stored bytes of parameters and moments under TP against DP, the host
     ms a step at world 1 and 2, and the ms the global noise draw adds.
     Returns (launches by path and kernel, metrics)."""
@@ -2649,16 +2660,33 @@ def parallel_phase(torch, name, smi):
                     "state_seed": 3, "restore": str(work / "carried"),
                     "meshes": [[2, 1], [1, 2]], "min_shard_dim": 512,
                     "time_noise": True}
-        ps.carry_state(spec_run, spec_run["restore"],
-                       torch.device("cuda", 0))
-        torch.cuda.empty_cache()
-        zero = launch_counts()
-        single = ps.run_one(spec_run, None, torch.device("cuda", 0))
-        if any(n != zero[k] + 24 * PARALLEL_STEPS
-               for k, n in launch_counts().items() if k in ROPE_PER_STEP):
-            raise AssertionError("parallel: single-process launches")
-        record("parallel_single_fp32", single["launches"], PARALLEL_STEPS)
-        torch.cuda.empty_cache()
+        # The carried state and the one-process step (twice), with cuDNN's
+        # deterministic algorithms as the ranks run (tools/parallel_step.
+        # main; the chain route's convolution backward otherwise varies the
+        # fp32 state's last bits from run to run, and with them the state
+        # every comparison starts from): the second step held against the
+        # first with the DP limits measures the card's own run-to-run
+        # spread.
+        singles = []
+        with ps.deterministic_cudnn():
+            ps.carry_state(spec_run, spec_run["restore"],
+                           torch.device("cuda", 0))
+            torch.cuda.empty_cache()
+            for path in ("parallel_single_fp32",
+                         "parallel_single_fp32_rerun"):
+                zero = launch_counts()
+                singles.append(ps.run_one(spec_run, None,
+                                          torch.device("cuda", 0)))
+                if any(n != zero[k] + 24 * PARALLEL_STEPS
+                       for k, n in launch_counts().items()
+                       if k in ROPE_PER_STEP):
+                    raise AssertionError(f"parallel: {path} launches")
+                record(path, singles[-1]["launches"], PARALLEL_STEPS)
+                torch.cuda.empty_cache()
+        single = singles[0]
+        rerun = ps.excess(singles[1], single, 3e-3, 3e-5)
+        rerun_same = all(torch.equal(v, singles[1]["state"][k])
+                         for k, v in single["state"].items())
         spec = {"out": str(work / "ranks"), "device": "cuda",
                 "timeout_s": 600, "runs": [spec_run]}
         spec_path = work / "spec.json"
@@ -2671,7 +2699,19 @@ def parallel_phase(torch, name, smi):
                                     weights_only=False) for r in range(2)]
                 for layout in ("2x1", "1x2")}
 
-        summary = {}
+        def where(x):
+            return (f"{x['excess']:.3g} at {x['tensor']}[{x['index']}] "
+                    f"({x['got']!r} against {x['want']!r})")
+
+        summary = {"one_process_rerun": dict(rerun, bit_identical=rerun_same)}
+        log(f"[parallel] the one-process fp32 step run twice: "
+            f"{'bit for bit equal' if rerun_same else 'not bit-identical'}"
+            f"; its state past rtol 3e-3 / atol 3e-5 of the first run's by "
+            f"{where(rerun)}")
+        if rerun["excess"] > 0:
+            raise AssertionError(f"parallel: the one-process step against "
+                                 f"itself beyond rtol 3e-3 / atol 3e-5 by "
+                                 f"{where(rerun)}")
         for layout, atol in (("2x1", 3e-5), ("1x2", 3e-4)):
             rec = recs[layout]
             for r, one in enumerate(rec):
@@ -2689,14 +2729,17 @@ def parallel_phase(torch, name, smi):
             losses_1 = [m["loss"] for m in single["metrics"]]
             rel = max(abs(a - b) / abs(b) for a, b in zip(losses_l,
                                                           losses_1))
-            excess = ps.excess(rec[0], single, 3e-3, atol)
-            if rel > 1e-5 or excess > 0:
+            past = ps.excess(rec[0], single, 3e-3, atol)
+            log(f"[parallel] {layout} against one process: loss rel "
+                f"{rel:.3g}; state past rtol 3e-3 / atol {atol} by "
+                f"{where(past)}")
+            if rel > 1e-5 or past["excess"] > 0:
                 raise AssertionError(
                     f"parallel {layout} against one process: loss rel "
                     f"{rel:.3g} (limit 1e-5), state beyond rtol 3e-3 / atol "
-                    f"{atol} by {excess:.3g}")
+                    f"{atol} by {where(past)}")
             summary[layout] = {
-                "losses": losses_l, "loss_max_rel": rel,
+                "losses": losses_l, "loss_max_rel": rel, "state": past,
                 "ms_per_step": [float(np.median(one["ms"][1:]))
                                 for one in rec],
                 "stored_bytes": [one["stored"]["params"]
@@ -2760,6 +2803,7 @@ TOOLS_KERNEL_NAMES = {
     "hires_dkv:cuda_core": "hires_attention_dkv_cuda_core",
     "fused_attention_forward:cuda_core": "hires_attention_fwd_only_cuda_core",
     "fused_hires_attention:wide": "hires_attention_fwd_res_wide",
+    "hires_dq:wide": "hires_attention_dq_wide",
     "hires_dkv:wide": "hires_attention_dkv_wide",
     "fused_attention_forward:wide": "hires_attention_fwd_only_wide",
 }
@@ -3091,8 +3135,8 @@ ROUTES_TRAIN_STEPS = 2
 # as the hires kernels see them (D = Dc + Dr): layers. Every layer has Sq ==
 # Skv, so every one takes the hires kernels and none the route: the 9 at D
 # 224 their D, Dv <= 256 tensor-core kernels; the 15 at D 320, 416 and 512
-# (past 256) the wide tensor-core forward and dk/dv kernels and the
-# CUDA-core dq kernel. The TPU takes a Pallas kernel for all 24.
+# (past 256) the wide tensor-core forward, dq and dk/dv kernels. The TPU
+# takes a Pallas kernel for all 24.
 ROUTES_LAYERS = {(448, 224, 224): 9, (640, 320, 320): 6, (832, 416, 416): 6,
                  (1024, 512, 512): 3}
 ROUTES_CLASSIFY_LAUNCHES = {"fused_attention_forward": 24,
@@ -3102,15 +3146,15 @@ ROUTES_STEP_LAUNCHES = {"fused_hires_attention": 24, "hires_dq": 24,
 # Of each hires wrapper's launches in a forward or step: those on the
 # CUDA-core kernels, and those on the wide tensor-core kernels.
 ROUTES_CUDA_CORE = {"fused_hires_attention": 0, "fused_attention_forward": 0,
-                    "hires_dkv": 0, "hires_dq": 15}
+                    "hires_dkv": 0, "hires_dq": 0}
 ROUTES_WIDE = {"fused_hires_attention": 15, "fused_attention_forward": 15,
-               "hires_dkv": 15}
+               "hires_dkv": 15, "hires_dq": 15}
 # Phase 15 (a): the hires kernels past the D, Dv <= 256 tensor-core kernels,
 # (H, S, D, Dv): the six-head model's three shapes past D 256, D 264 (the
 # dispatcher's limit), a partial slice on the D side, Dv past 256 with D
-# below it (bf16: the wide tensor-core forward and dk/dv kernels, the
-# CUDA-core dq kernel; fp32: the CUDA-core kernels), and bf16 S 1020 and
-# head dims off the multiple of 8 (every pass on the CUDA cores).
+# below it (bf16: the wide tensor-core forward, dq and dk/dv kernels; fp32:
+# the CUDA-core kernels), and bf16 S 1020 and head dims off the multiple
+# of 8 (every pass on the CUDA cores).
 ROUTES_WIDE_CHECKS = ((6, 1024, 512, 512), (6, 832, 416, 416),
                       (6, 640, 320, 320), (4, 1024, 264, 264),
                       (4, 256, 264, 200), (4, 256, 200, 264),
@@ -3166,16 +3210,16 @@ def routes_phase(torch, name, smi):
     counter each, with and without grad; the route's fp32 forward and
     gradients card vs CPU; the hires kernels at shapes past the D, Dv <=
     256 tensor-core kernels against their plain versions (bf16 twice bit
-    for bit), and timed at the six-head shapes (the wide kernels and the
-    CUDA-core dq kernel in bf16, the other CUDA-core kernels in fp32); (b)
+    for bit), and timed at the six-head shapes (the wide kernels in bf16,
+    the CUDA-core kernels in fp32); (b)
     'chunked' against 'xla' forced at S 1024, D = Dv 512, H 6, B 16, bf16,
     forward and backward, each one's device ms and peak memory; (c)
     hires-cls-1024 at heads=6 at full width: classify 8 images in bf16 (24
     forward-only hires launches, 15 of them on the wide kernel, + 8 conv),
     fp32 logits card vs CPU on 1 image (24 on the CUDA-core kernel), and
     make_train_step steps at B=16 in bf16 with remat (24 + 24 + 24 hires
-    launches a step: 15 forwards and 15 dk/dv passes on the wide kernels,
-    15 dq passes on the CUDA-core kernel; no route). Returns (launches and
+    launches a step: 15 forwards, 15 dq and 15 dk/dv passes on the wide
+    kernels; no route). Returns (launches and
     stage launches by path and wrapper, metrics, the wide and CUDA-core
     hires kernels' summaries for the kernels line)."""
     from calm_vit_dte_tpu_torch.data.augment import eval_preprocess
@@ -3204,8 +3248,6 @@ def routes_phase(torch, name, smi):
                 kh.hires_dkv, kh.fused_attention_forward)
     hires_wrappers = (kh.fused_hires_attention, kh.hires_dq, kh.hires_dkv,
                       kh.fused_attention_forward)
-    wide_wrappers = (kh.fused_hires_attention, kh.hires_dkv,
-                     kh.fused_attention_forward)
     pass_of = {"fused_hires_attention": "fwd", "fused_attention_forward": "fwd",
                "hires_dq": "dq", "hires_dkv": "dkv"}
     wrapper_of = {"fwd_res": "fused_hires_attention",
@@ -3223,7 +3265,6 @@ def routes_phase(torch, name, smi):
             fn.stage_launches = 0
         for fn in hires_wrappers:
             fn.cuda_core_launches = 0
-        for fn in wide_wrappers:
             fn.wide_launches = 0
         for k in ops.route_calls:
             ops.route_calls[k] = 0
@@ -3238,18 +3279,17 @@ def routes_phase(torch, name, smi):
                 if fn.cuda_core_launches}
 
     def wide():
-        return {fn.__name__: fn.wide_launches for fn in wide_wrappers
+        return {fn.__name__: fn.wide_launches for fn in hires_wrappers
                 if fn.wide_launches}
 
     def families(s, d, dv, dtype, names):
         """The CUDA-core and the wide launches, by wrapper, of one call of
-        each of `names` at a shape, as `tensor_cores` per pass says."""
+        each of `names` at a shape, as `family` per pass says."""
         cc, wd = {}, {}
         for n in names:
-            if not kh.tensor_cores(s, d, dv, dtype, pass_of[n]):
-                cc[n] = 1
-            elif pass_of[n] != "dq" and max(d, dv) > kh.TC_SLICE:
-                wd[n] = 1
+            fam = kh.family(s, d, dv, dtype, pass_of[n])
+            if fam != "tensor_cores":
+                (cc if fam == "cuda_core" else wd)[n] = 1
         return cc, wd
 
     def by_family(got, cc, wd):
@@ -3288,10 +3328,8 @@ def routes_phase(torch, name, smi):
                     got = counts()
                     family = None
                     if want_route == "hires":
-                        family = {p_: ("CUDA cores" if not kh.tensor_cores(
-                            sq, dc + dr, dv, dtype, p_) else "wide kernels"
-                            if p_ != "dq" and max(dc + dr, dv) > kh.TC_SLICE
-                            else "tensor cores") for p_ in kh.TC_MAX_D}
+                        family = {p_: kh.family(sq, dc + dr, dv, dtype, p_)
+                                  for p_ in kh.TC_MAX_D}
                     if got != {route_counter[want_route]: 1}:
                         raise AssertionError(
                             f"routes {what} {shape} {dt_name} mask="
@@ -3366,8 +3404,7 @@ def routes_phase(torch, name, smi):
         w = check_hires_shape(torch, ka, kh, s, d, dv, seed=1520 + 2 * i,
                               h=h, twice=True)
         worst[(s, d, dv)] = w
-        fam = {p_: ("wide" if kh.tensor_cores(s, d, dv, bf16, p_) else
-                    "CUDA cores") for p_ in kh.TC_MAX_D}
+        fam = {p_: kh.family(s, d, dv, bf16, p_) for p_ in kh.TC_MAX_D}
         log(f"[routes check] hires kernels H={h} S={s} D={d} Dv={dv} (bf16 "
             f"passes: {fam}; fp32: CUDA cores): fp32 max err fwd_res "
             f"{w['fwd_res']:.3e}, fwd_only {w['fwd_only']:.3e}, dq pass "
@@ -3384,16 +3421,15 @@ def routes_phase(torch, name, smi):
     # The hires kernels' times at the six-head shapes past D 256, B=8,
     # beside their plain versions and bounds (per forward, or per training
     # step's backward: each shape's time x its layers): in bf16 the wide
-    # tensor-core forward and dk/dv kernels and the CUDA-core dq kernel, the
-    # main path's; in fp32 the CUDA-core forward and dk/dv kernels, which
-    # bf16 no longer takes at these shapes.
+    # tensor-core kernels, the main path's; in fp32 the CUDA-core kernels,
+    # which bf16 no longer takes at these shapes.
     t0 = time.time()
     rows: dict = {}
     for dtype in (bf16, f32):
         itemsize, peak = (2, PEAK_BF16_FLOPS) if dtype == bf16 else \
             (4, PEAK_FP32_FLOPS)
         for i, ((s, d, dv), n) in enumerate(sorted(ROUTES_LAYERS.items())):
-            if kh.tensor_cores(s, d, dv, bf16):
+            if max(d, dv) <= kh.TC_SLICE:
                 continue
             args = hires_inputs(torch, HIRES_BATCH, s, d, dv, dev, dtype,
                                 seed=1560 + i, h=ROUTES_HEADS)
@@ -3423,11 +3459,8 @@ def routes_phase(torch, name, smi):
             bounds = hires_bounds(HIRES_BATCH, s, d, dv, itemsize,
                                   h=ROUTES_HEADS, peak=peak)
             for kname, (kern, plain) in calls.items():
-                family = ("wide" if kh.tensor_cores(
-                    s, d, dv, dtype, pass_of[wrapper_of[kname]])
-                    else "cuda_core")
-                if dtype == f32 and kname == "dq":
-                    continue   # its entry is the bf16 call's, the main path's
+                family = kh.family(s, d, dv, dtype,
+                                   pass_of[wrapper_of[kname]])
                 ms = cuda_ms(torch, kern, 2, warmup=1)
                 plain_ms = cuda_ms(torch, plain, 2, warmup=1)
                 t_bytes, t_ops = bounds[kname]
@@ -3478,8 +3511,9 @@ def routes_phase(torch, name, smi):
             "bound_ms": t_bytes + t_ops,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None, "launches_by_path": {}, "per_shape": r})
-    # What the card makes of the wide kernels (the forward's shared memory
-    # grows with D): registers, spills, shared memory, CTAs per SM.
+    # What the card makes of the wide kernels (the forward's and the dq
+    # pass's shared memory grow with D): registers, spills, shared memory,
+    # CTAs per SM; a wide kernel that spills fails the run.
     occupancy = {d: kh.wide_occupancy(d) for d in sorted(
         {d for _, d, _ in ROUTES_LAYERS if d > kh.TC_SLICE})}
     for d, occ in occupancy.items():
@@ -3487,10 +3521,13 @@ def routes_phase(torch, name, smi):
             log(f"[routes] D={d} {kname}: {o['registers']} registers, spill "
                 f"{o['spill_bytes']} bytes, {o['smem_bytes']} bytes of shared "
                 f"memory a CTA, {o['ctas_per_sm']} CTAs per SM")
+            if o["spill_bytes"] or o["ctas_per_sm"] < 1:
+                raise AssertionError(f"routes: {kname} at D={d}: {o}")
     for k in wide_kernels:
         if k["name"].endswith("_wide"):
-            stem = ("hires_dkv_wide_bf16_kernel" if "_dkv_" in k["name"] else
-                    "hires_attention_wide_bf16_kernel")
+            stem = {"dkv": "hires_dkv_wide_bf16_kernel",
+                    "dq": "hires_dq_wide_bf16_kernel"}.get(
+                k["name"].split("_")[2], "hires_attention_wide_bf16_kernel")
             flag = {"hires_attention_fwd_res_wide": ", 1>",
                     "hires_attention_fwd_only_wide": ", 0>"}.get(k["name"],
                                                                  ">")
@@ -3568,7 +3605,7 @@ def routes_phase(torch, name, smi):
         "errors": {n: norm_err(t.float(), r) for n, t, r in
                    zip(names, hk, ref)}}
     log(f"[routes] (b) the hires kernels on the same inputs, 'auto' (the "
-        "wide forward and dk/dv kernels, the CUDA-core dq kernel): "
+        "wide forward, dq and dk/dv kernels): "
         f"{hires_ms:.3f} ms forward + backward; bf16 errors of the "
         "fp32 route: " + ", ".join(
             f"{n} {v:.2e}" for n, v in

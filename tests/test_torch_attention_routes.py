@@ -100,9 +100,11 @@ def test_pick_route_matches_jax(shape):
 @pytest.mark.parametrize("limit", port.ROUTE_LIMITS, ids=lambda x: x[0])
 def test_each_limit_moves_the_shape_to_the_next_route(limit):
     """Just inside a limit the shape takes the first route, just past the
-    second; a hires shape past the tensor-core kernels stays on the hires
-    route and runs the CUDA-core kernels; forcing a kernel route on a shape
-    its kernels refuse raises."""
+    second; a hires shape past a hires kernel's limit stays on the hires
+    route and runs other hires kernels (in bf16, a pass changes family: the
+    wide tensor-core kernels, or the CUDA-core kernels past the tensor-core
+    ones; in fp32, the CUDA-core kernels on both sides); forcing a kernel
+    route on a shape its kernels refuse raises."""
     _, inside, past, first, second, dtypes = limit
     for dtype in (getattr(torch, n) for n in dtypes):
         for use_mask in (True, False):
@@ -112,10 +114,15 @@ def test_each_limit_moves_the_shape_to_the_next_route(limit):
                                     use_mask=use_mask)
                 assert got == want, (shape, dtype, use_mask)
             b, h, sq, skv, dc, dr, dv = past
-            if first == second:   # the hires kernels' two families
-                assert dtype == F32 or kh.tensor_cores(
-                    inside[2], sum(inside[4:6]), inside[6], dtype)
-                assert not kh.tensor_cores(sq, dc + dr, dv, dtype)
+            if first == second:   # the hires kernels' families
+                fams = [[kh.family(x[2], x[4] + x[5], x[6], dtype, p)
+                         for p in kh.TC_MAX_D] for x in (inside, past)]
+                if dtype == F32:
+                    assert fams == [["cuda_core"] * 3] * 2
+                else:
+                    assert kh.tensor_cores(inside[2], sum(inside[4:6]),
+                                           inside[6], dtype)
+                    assert fams[0] != fams[1], fams
                 continue
             with attention_impl(first), pytest.raises(ValueError,
                                                       match="refuses"):

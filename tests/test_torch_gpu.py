@@ -714,12 +714,14 @@ def test_hires_kernels_ragged_shape_match_plain(cuda_device):
 
 # Shapes past the D, Dv <= 256 tensor-core kernels, (H, S, D, Dv): the
 # six-head hires-cls-1024 stages (D over 256: the output split over the
-# grid), a D unequal to Dv on both sides of 256 (a partial slice on the D
-# side; Dv past 256 with D below it), a bf16 S off the multiple of 8, and
-# bf16 head dims off the multiple with an S off it.
+# grid or the dq CTA's warp groups), a D unequal to Dv on both sides of 256
+# (a partial slice on the D side; Dv past 256 with D below it), D = Dv 16
+# past the wide dq kernel's limit (its pass on the CUDA cores), a bf16 S
+# off the multiple of 8, and bf16 head dims off the multiple with an S off
+# it.
 WIDE_SHAPES = [(6, 1024, 512, 512), (6, 832, 416, 416), (6, 640, 320, 320),
-               (4, 256, 264, 200), (4, 256, 200, 264), (4, 1020, 256, 256),
-               (3, 192, 130, 300), (2, 132, 76, 36)]
+               (4, 256, 264, 200), (4, 256, 200, 264), (1, 128, 560, 560),
+               (4, 1020, 256, 256), (3, 192, 130, 300), (2, 132, 76, 36)]
 
 
 @pytest.mark.gpu
@@ -728,26 +730,27 @@ WIDE_SHAPES = [(6, 1024, 512, 512), (6, 832, 416, 416), (6, 640, 320, 320),
 def test_hires_cuda_core_kernels_match_plain(cuda_device, h, s, d, dv):
     """The four hires kernels at shapes the D, Dv <= 256 tensor-core
     kernels do not take: in fp32 the CUDA-core kernels; in bf16 the wide
-    tensor-core forward and dk/dv kernels where S, D, Dv are multiples of
-    8 (the dq pass then on the CUDA cores), else the CUDA-core kernels, as
-    the wrappers' counters show. fp32 forward at rtol 2e-4 / atol 2e-5 and
+    tensor-core kernels where S, D, Dv are multiples of 8 (the dq pass
+    past D, Dv 544 on the CUDA cores), else the CUDA-core kernels, as the
+    wrappers' counters show. fp32 forward at rtol 2e-4 / atol 2e-5 and
     backward within 1e-4 of each output's largest value, bf16 at most twice
     the plain bf16 error and the same bits from two launches."""
     from calm_vit_dte_tpu_torch.kernels import hires_attention as kh
 
     rng = np.random.default_rng(s + d + dv)
     f32, bf16 = torch.float32, torch.bfloat16
-    assert not kh.tensor_cores(s, d, dv, bf16)
     assert kh.refusal(s, d, dv, bf16) is None
     aligned = not (s % 8 or d % 8 or dv % 8)
+    dq_tc = aligned and max(d, dv) <= kh.TC_MAX_D["dq"][0]
+    assert kh.tensor_cores(s, d, dv, bf16) == dq_tc
     assert kh.tensor_cores(s, d, dv, bf16, "fwd") == aligned
     assert kh.tensor_cores(s, d, dv, bf16, "dkv") == aligned
-    assert not kh.tensor_cores(s, d, dv, bf16, "dq")
+    assert kh.tensor_cores(s, d, dv, bf16, "dq") == dq_tc
     wrappers = (kh.fused_hires_attention, kh.fused_attention_forward,
                 kh.hires_dq, kh.hires_dkv)
 
     def families():
-        return [(fn.cuda_core_launches, getattr(fn, "wide_launches", 0))
+        return [(fn.cuda_core_launches, fn.wide_launches)
                 for fn in wrappers]
 
     def n(*shape, scale):
@@ -800,8 +803,9 @@ def test_hires_cuda_core_kernels_match_plain(cuda_device, h, s, d, dv):
                            False)
     # Two launches of each forward, then of each backward pass.
     family = (0, 2) if aligned else (2, 0)
+    dq_family = (0, 2) if dq_tc else (2, 0)
     assert [(c - c0, w - w0) for (c, w), (c0, w0) in
-            zip(families(), before)] == [family, family, (2, 0), family]
+            zip(families(), before)] == [family, family, dq_family, family]
     b16 = _hires_bwd_all(kh, a16, g16, m16, lse16, delta16, scale, bf16,
                          True)
     r32 = _hires_bwd_all(kh, a32, g16.float(), m16, lse16, delta16, scale,

@@ -173,9 +173,10 @@ def test_bf16_shape_rule_matches_the_source(source):
     bf16 calls run each attention pass on the tensor cores (`family_of` in
     csrc/hires_common.cuh, which each entry asks, and whose tc_fwd, tc_dq
     and tc_dkv pick the forward's, the dq pass's and the dk/dv pass's
-    kernels); TC_SLICE is the width past which the forward and dk/dv
-    passes take their wide kernels; the forward's limit is the widest D
-    whose CTA fits in 232,448 bytes; `tensor_cores` states the rule."""
+    kernels); TC_SLICE is the width past which every pass takes its wide
+    kernel; the forward's limit is the widest D whose CTA fits in 232,448
+    bytes, the dq pass's the widest D = Dv whose wide CTA does;
+    `tensor_cores` and `family` state the rule."""
     text = (CSRC / source).read_text()
     assert "family_of(is_bf16, S, D, Dv)" in text
     flat = " ".join(text.split())
@@ -195,10 +196,11 @@ def test_bf16_shape_rule_matches_the_source(source):
     passes = {"hires_attention.cu": ["tc_fwd"],
               "hires_attention_bwd.cu": ["tc_dkv", "tc_dq"]}[source]
     assert sorted(set(re.findall(r"fam\.(tc_\w+)", text))) == passes
-    wide = ("tc && D <= kSlice && Dv <= kSlice" if source ==
-            "hires_attention.cu" else "fam.tc_dkv && (D > kSlice || Dv > "
-            "kSlice)")
-    assert wide in flat
+    wide = (["tc && D <= kSlice && Dv <= kSlice"] if source ==
+            "hires_attention.cu" else
+            [f"fam.{p} && (D > kSlice || Dv > kSlice)"
+             for p in ("tc_dkv", "tc_dq")])
+    assert all(x in flat for x in wide)
     # The forward CTA: 64 rows of q ([64][D + 8] bf16) and the ring of
     # four [64][72] bf16 stages, in at most kMaxCtaSmem bytes.
     ring = 4 * 64 * 72 * 2
@@ -206,9 +208,27 @@ def test_bf16_shape_rule_matches_the_source(source):
     assert consts["kMaxCtaSmem"] == 232448
     assert 64 * (fwd_d + 8) * 2 + ring <= 232448 \
         < 64 * (fwd_d + 16 + 8) * 2 + ring
+    # The wide dq CTA: 64 rows of q and of g ([64][D + 8] bf16 each), the
+    # ring of three stages of two [64][72] chunks and the 32 KB exchange of
+    # p and dp, in at most kMaxCtaSmem bytes; the source asserts the same
+    # sum at the same limit, and the D <= TC_SLICE kernels' limit is 256.
+    assert consts["kTcDqMaxD"] == kh.TC_MAX_D["dq"][0] == \
+        kh.TC_MAX_D["dq"][1]
+    bwd = " ".join((CSRC / "hires_attention_bwd.cu").read_text().split())
+    assert ("static_assert(dq_wide_smem(kTcDqMaxD, kTcDqMaxD) <= (size_t)"
+            "kMaxCtaSmem && dq_wide_smem(kTcDqMaxD + 16, kTcDqMaxD + 16) > "
+            "(size_t)kMaxCtaSmem") in bwd
+    assert "constexpr int kPairStages = 3;" in bwd
+
+    def dq_cta(d):
+        return 2 * 64 * (d + 8) * 2 + 3 * 2 * 64 * 72 * 2 + 2 * 4096 * 4
+
+    dq_d = kh.TC_MAX_D["dq"][0]
+    assert dq_cta(dq_d) <= 232448 < dq_cta(dq_d + 16)
+    assert dq_cta(512) == 221184 and dq_cta(dq_d) == 229376
     bf16, f32 = torch.bfloat16, torch.float32
     m, top = kh.BF16_MULTIPLE, kh.TC_MAX_D["dq"][0]
-    # All three passes (pass_ None): D, Dv up to the dq pass's 256.
+    # All three passes (pass_ None): D, Dv up to the dq pass's 544.
     assert kh.tensor_cores(1024, top, top, bf16)
     assert not kh.tensor_cores(1024, top + m, top, bf16)
     assert not kh.tensor_cores(1024, top, top + m, bf16)
@@ -228,6 +248,16 @@ def test_bf16_shape_rule_matches_the_source(source):
         assert not kh.tensor_cores(1024 - m // 2, top, top, bf16, pass_)
         assert not kh.tensor_cores(1024, top - m // 2, top, bf16, pass_)
         assert not kh.tensor_cores(1024, top, top, f32, pass_)
+    # The family of each pass at the edges of TC_SLICE and of the dq limit.
+    for pass_ in ("fwd", "dq", "dkv"):
+        assert kh.family(1024, kh.TC_SLICE, kh.TC_SLICE, bf16, pass_) == \
+            "tensor_cores"
+        assert kh.family(1024, kh.TC_SLICE + m, 64, bf16, pass_) == "wide"
+        assert kh.family(1024, 64, kh.TC_SLICE + m, bf16, pass_) == "wide"
+        assert kh.family(1024, top, top, bf16, pass_) == "wide"
+        assert kh.family(1024, top + m, top + m, bf16, pass_) == (
+            "cuda_core" if pass_ == "dq" else "wide")
+        assert kh.family(1024, 64, 64, f32, pass_) == "cuda_core"
 
 
 _DIMS_CHECK = {
@@ -315,9 +345,9 @@ def test_every_hires_shape_takes_the_bf16_kernels():
         torch.empty(1, 1, 452, 112, dtype=bf16)
     assert kh._dims(q, q, v, bf16) == (1, 1, 452, 112, 112)
     assert not kh.tensor_cores(452, 112, 112, bf16)
-    # hires-cls-1024 at heads=6 (chip_smoke.py phase 15): the forward and
-    # dk/dv passes on the tensor cores at all four shapes (the wide kernels
-    # past 256), the dq pass on the CUDA cores at the three past 256.
+    # hires-cls-1024 at heads=6 (chip_smoke.py phase 15): every pass on the
+    # tensor cores at all four shapes, on the wide kernels at the three
+    # past 256.
     base = configs.get_config("hires-cls-1024").model
     six = {}
     for _, bcfg in dataclasses.replace(base, heads=6).backbone_cfg() \
@@ -338,7 +368,10 @@ def test_every_hires_shape_takes_the_bf16_kernels():
         assert pick_route(1, 6, s, s, d, dv, bf16)[0] == "hires"
         assert kh.tensor_cores(s, d, dv, bf16, "fwd"), (s, d, dv)
         assert kh.tensor_cores(s, d, dv, bf16, "dkv"), (s, d, dv)
-        assert kh.tensor_cores(s, d, dv, bf16, "dq") == (d <= 256), (s, d)
+        assert kh.tensor_cores(s, d, dv, bf16, "dq"), (s, d, dv)
+        for pass_ in ("fwd", "dq", "dkv"):
+            assert kh.family(s, d, dv, bf16, pass_) == (
+                "wide" if d > 256 else "tensor_cores"), (s, d, pass_)
     assert sum(n for (_, d, _), n in six.items() if d > 256) == 15
 
 

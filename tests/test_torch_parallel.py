@@ -154,3 +154,17 @@ def test_dp_microbatches_group_each_ranks_rows(results):
     assert_state_close(rec, grouped, rtol=3e-3, atol=3e-5)
     # The grouping decides which noise rows meet which images.
     assert abs(losses(rec)[0] - losses(plain)[0]) > 1e-4
+
+
+def test_excess_names_the_worst_element():
+    """`parallel_step.excess` reports the tensor, flat index and both values
+    of the element furthest past rtol / atol, and how far past it is."""
+    want = {"state": {"a": torch.tensor([1.0, -2.0, 0.0]),
+                      "b": torch.tensor([[10.0, 0.0], [0.0, 4.0]])}}
+    got = {"state": {"a": torch.tensor([1.0, -2.1, 0.0]),
+                     "b": torch.tensor([[10.0, 0.0], [0.0, 4.5]])}}
+    worst = ps.excess(got, want, 1e-2, 1e-3)
+    assert (worst["tensor"], worst["index"], worst["got"], worst["want"]) \
+        == ("b", 3, 4.5, 4.0)
+    assert worst["excess"] == pytest.approx(0.5 - (1e-3 + 1e-2 * 4.0))
+    assert ps.excess(want, want, 1e-2, 1e-3)["excess"] < 0
