@@ -82,11 +82,24 @@
 //     a CTA at D = 512, two CTAs an SM);
 //   * the CUDA-core attention kernel (hires_attention_kernel), which runs
 //     every fp32 call and every bf16 call the tensor-core kernels do not
-//     take: two passes over 64-key tiles (the row max and sum of exp, then
-//     p = exp(logit - lse), rounded, times v), the scores' contraction over
-//     D staged through shared memory 64 columns at a time, every product an
-//     fp32 FMA. It takes any D and Dv: past 256 columns of o the grid's z
-//     axis splits them, each CTA recomputing the scores for its slice.
+//     take, every product an fp32 FMA (TF32 would not be fp32). Bound on
+//     the H100 by its fp32 operations, 67 TFLOP/s outside the tensor cores
+//     (19.701 ms of bound per fifteen six-head layers at B=8 with the mask
+//     MLP, PERF.md §6), so the design forms each product once and keeps the
+//     FMA pipes fed: it is built on the product core of hires_common.cuh
+//     (a copy in flight while a chunk is multiplied, at least 8 FMAs per
+//     shared load): one CTA of 8 warps per (64 query
+//     rows, head, batch element) and one pass with the online softmax
+//     above, over 128-key tiles whose scores are formed once for all of
+//     o's columns up to kOutSlice = 512: each thread owns 4 rows x 8 keys
+//     of the score tile and 4 rows x 4 NV columns of o (NV = 64-column
+//     groups, 128 accumulators at Dv = 512), p crosses to the output's
+//     threads through a [64][132] tile in shared memory, and the (q, k)
+//     score chunks (32 columns) and v chunks (16 keys) stream through a
+//     three-stage ring, cp.async where fp32 rows are 16-byte aligned,
+//     registers otherwise (132,864 bytes a CTA at Dv 512). In bf16 p is rounded before its normalisation,
+//     as the tensor-core kernel rounds it. It takes any D and Dv: past 512
+//     columns of o the grid splits them, each CTA recomputing the scores.
 // The tensor-core kernels take bf16 S, D and Dv that are multiples of 8
 // (16-byte rows), the D, Dv <= 256 kernel and the wide one past that up to
 // D = kTcFwdMaxD (family_of, hires_common.cuh); the C entry takes any
@@ -96,100 +109,114 @@
 
 namespace {
 
-template <typename T, int CJ, bool kResiduals>
-__global__ void __launch_bounds__(kThreads) hires_attention_kernel(
+// The CUDA-core attention kernel: one CTA per (64 query rows, head and
+// output slice, batch element), grid (H * ns, ceil(S / 64), B) with the
+// heads fastest, so the H CTAs that read the same rows of m run together.
+// Per 128-key tile its ring carries the (q, k) score chunks, then the
+// tile's v chunks (kVK keys x the slice's columns); one pass with an
+// online softmax: the scores get scale and m, each row's running max and
+// sum of exp move, o is rescaled by exp(old max - new max), and p = exp(
+// logit - running max), rounded to T, goes to the score tile for o += p v.
+// o is divided by the row's sum at the end; slice 0 writes lse = max +
+// log(sum) where lse is not null.
+template <typename T, int NV, bool kAsync>
+__global__ void __launch_bounds__(kThreads, 1) hires_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const float* __restrict__ m, T* __restrict__ o, float* __restrict__ lse,
-    int H, int S, int D, int Dv, float scale) {
-  extern __shared__ float smem[];
-  const int c0 = blockIdx.z * kSlice;   // this CTA's columns of o
-  const int W = min(kSlice, Dv - c0);
-  const int ldx = slice_ld(Dv);
-  float* sA = smem;                 // 64 x kLdC  q chunk
-  float* sB = sA + kTile * kLdC;    // 64 x kLdC  k chunk
-  float* sX = sB + kTile * kLdC;    // 64 x ldx   v tile, the slice's columns
-  float* sP = sX + kTile * ldx;     // 64 x kLdP  p, rounded
-
-  const int q0 = blockIdx.x * kTile;
-  const int bh = blockIdx.y;
-  const int b = bh / H;
+    int H, int S, int D, int Dv, int ns, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  float* sP = smem;                            // [64][kLdS] p, rounded
+  const int z = blockIdx.x % ns;
+  const int b = blockIdx.z, q0 = blockIdx.y * kSQ;
+  const size_t bh = (size_t)b * H + blockIdx.x / ns;
+  const int c0 = z * kOutSlice, W = min(kOutSlice, Dv - c0);
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const size_t head = (size_t)bh * S;
-  const T* qh = q + head * D;
-  const T* kh = k + head * D;
-
-  // m[b, q, t] for this thread's rows (0 where there is no mask).
-  auto mask = [&](int i, int t) -> float {
-    const int r = q0 + ty + 16 * i;
-    return m && r < S ? m[((size_t)b * S + r) * S + t] : 0.f;
-  };
-
-  // Pass 1: row max and sum of exp over all keys.
-  float mx[4], se[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) mx[i] = -INFINITY, se[i] = 0.f;
-  for (int t0 = 0; t0 < S; t0 += kTile) {
-    float s[4][4];
-    zero(s);
-    scores_chunked<T>(s, sA, sB, qh, q0, kh, t0, S, D);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float tmax = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int t = t0 + tx + 16 * j;
-        s[i][j] = t < S ? s[i][j] * scale + mask(i, t) : -INFINITY;
-        tmax = fmaxf(tmax, s[i][j]);
-      }
-      const float nmx = fmaxf(mx[i], row_max16(tmax));
-      float tsum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) tsum += expf(s[i][j] - nmx);
-      se[i] = se[i] * expf(mx[i] - nmx) + row_sum16(tsum);
-      mx[i] = nmx;
+  const T* qh = q + (bh * S + q0) * D;
+  const T* kh = k + bh * S * D;
+  const T* vh = v + bh * S * Dv + c0;
+  const int nkc = (D + kKC - 1) / kKC, nkt = (S + kSK - 1) / kSK;
+  const int per = nkc + kSK / kVK;
+  auto plan = [&](int at, float* st, Block<T>& a, Block<T>& bb) {
+    int t, c;
+    tile_of(at, per, nkt, t, c);
+    const int t0 = t * kSK;
+    if (c < nkc) {
+      const int d0 = c * kKC;
+      a = {qh + d0, D, kSQ, kKC, S - q0, D - d0, st, kLdK};
+      bb = {kh + (size_t)t0 * D + d0, D, kSK, kKC, S - t0, D - d0,
+            st + kSQ * kLdK, kLdK};
+    } else {
+      const int r0 = t0 + (c - nkc) * kVK;
+      a = {vh + (size_t)r0 * Dv, Dv, kVK, 64 * NV, S - r0, W, st, out_ld(NV)};
     }
-  }
-  float l[4];
+  };
+  Ring<T, kAsync, kThreads, cc_stage(NV) / kThreads, decltype(plan)> ring(
+      plan, smem + kSQ * kLdS, cc_stage(NV),
+      (nkt - 1) * per + nkc + out_chunks(S, nkt - 1));
+
+  float mx[4], se[4], acc[4][4 * NV];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    l[i] = mx[i] + logf(se[i]);
-    const int r = q0 + ty + 16 * i;
-    if (kResiduals && blockIdx.z == 0 && tx == 0 && r < S) lse[head + r] = l[i];
+    mx[i] = -INFINITY, se[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4 * NV; ++j) acc[i][j] = 0.f;
   }
-
-  // Pass 2: p = exp(logit - lse), rounded, times the slice of v.
-  float acc[4][CJ];
-  zero(acc);
-  for (int t0 = 0; t0 < S; t0 += kTile) {
-    float s[4][4];
-    zero(s);
-    // (its first barrier: the previous tile is done with sX and sP)
-    scores_chunked<T>(s, sA, sB, qh, q0, kh, t0, S, D);
+  for (int t = 0; t < nkt; ++t) {
+    const int t0 = t * kSK;
+    float s[4][8];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int t = t0 + tx + 16 * j;
-        const float p =
-            t < S ? expf(s[i][j] * scale + mask(i, t) - l[i]) : 0.f;
-        sP[(ty + 16 * i) * kLdP + tx + 16 * j] = rnd<T>(p);
+      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+    for (int c = 0; c < nkc; ++c) score_chunk(s, ring.next());
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = q0 + ty * 4 + i;
+      const float* mr = m && r < S ? m + ((size_t)b * S + r) * S : nullptr;
+      float tmax = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int key = t0 + tx + 16 * j;
+        s[i][j] = key < S ? s[i][j] * scale + (mr ? mr[key] : 0.f)
+                          : -INFINITY;
+        tmax = fmaxf(tmax, s[i][j]);
       }
-    load_cols<T>(sX, ldx, v + head * Dv, Dv, t0, S, c0, W);
-    __syncthreads();
-    mm_nn<CJ>(acc, sP, kLdP, sX, ldx, W);
+      const float nmx = fmaxf(mx[i], row_max16(tmax));
+      const float alpha = expf(mx[i] - nmx);   // 0 at the first tile
+      mx[i] = nmx;
+      se[i] *= alpha;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float p = expf(s[i][j] - nmx);
+        se[i] += p;
+        sP[(ty * 4 + i) * kLdS + tx + 16 * j] = rnd<T>(p);
+      }
+#pragma unroll
+      for (int j = 0; j < 4 * NV; ++j) acc[i][j] *= alpha;
+    }
+    // (the first output chunk's barrier: p is in the score tile)
+    const int nvc = out_chunks(S, t);
+    for (int c = 0; c < nvc; ++c)
+      out_chunk<NV>(acc, sP, c * kVK, ring.next());
   }
+  ring.finish();
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
+    const int r = q0 + ty * 4 + i;
+    const float sum = row_sum16(se[i]);
+    const float inv = 1.f / sum;
+    if (lse && z == 0 && tx == 0 && r < S) lse[bh * S + r] = mx[i] + logf(sum);
     if (r >= S) continue;
+    T* orow = o + (bh * S + r) * Dv + c0;
 #pragma unroll
-    for (int j = 0; j < CJ; ++j) {
-      const int c = tx + 16 * j;
-      if (c < W) o[(head + r) * Dv + c0 + c] = from_f<T>(acc[i][j]);
-    }
+    for (int u = 0; u < NV; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = tx * 4 + 64 * u + e;
+        if (c < W) orow[c] = from_f<T>(acc[i][4 * u + e] * inv);
+      }
   }
 }
-
 
 // Dynamic shared memory of the bf16 attention CTA: the resident q tile and
 // the chunk ring (70,656 bytes at D = 256).
@@ -570,31 +597,38 @@ cudaError_t attention_wide_bf16(const bf16* q, const bf16* k, const bf16* v,
   }
 }
 
-// Dynamic shared memory of the CUDA-core attention CTA: the q and k
-// chunks, a slice of v and p (115,712 bytes at Dv >= 256).
-size_t attention_smem(int Dv) {
-  return sizeof(float) * kTile *
-         ((size_t)2 * kLdC + slice_ld(Dv) + kLdP);
-}
-
-template <typename T, int CJ, bool kResiduals>
+template <typename T, int NV, bool kAsync>
 cudaError_t launch_attention(const T* q, const T* k, const T* v,
                              const float* m, T* o, float* lse, int B, int H,
                              int S, int D, int Dv, float scale,
                              cudaStream_t st, Report& rep) {
-  auto kern = hires_attention_kernel<T, CJ, kResiduals>;
-  const size_t smem = attention_smem(Dv);
+  auto kern = hires_attention_kernel<T, NV, kAsync>;
+  constexpr size_t smem = cc_smem(NV);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + kTile - 1) / kTile, B * H, slices_of(Dv));
-  kern<<<grid, kThreads, smem, st>>>(q, k, v, m, o, lse, H, S, D, Dv, scale);
+  const int ns = out_slices(Dv);
+  const dim3 grid(H * ns, (S + kSQ - 1) / kSQ, B);
+  kern<<<grid, kThreads, smem, st>>>(q, k, v, m, o, lse, H, S, D, Dv, ns,
+                                     scale);
   return rep.done(smem);
+}
+
+// NV = the 64-column groups of o's widest slice (with_nv).
+template <typename T, bool kAsync>
+cudaError_t attention_cuda_cores(const T* q, const T* k, const T* v,
+                                 const float* m, T* o, float* lse, int B,
+                                 int H, int S, int D, int Dv, float scale,
+                                 cudaStream_t st, Report& rep) {
+  return with_nv<kAsync>(nv_of(Dv), [&](auto nv) {
+    return launch_attention<T, decltype(nv)::value, kAsync>(
+        q, k, v, m, o, lse, B, H, S, D, Dv, scale, st, rep);
+  });
 }
 
 // The attention pass: bf16 on the tensor cores where the family allows
 // (tc: the wide kernel past kSlice), every other call on the CUDA-core
-// kernel.
+// kernel, with cp.async staging where q, k and v are fp32 rows of 16 bytes.
 template <typename T, bool kResiduals>
 cudaError_t attention(const T* q, const T* k, const T* v, const float* m,
                       T* o, float* lse, int B, int H, int S, int D, int Dv,
@@ -606,17 +640,15 @@ cudaError_t attention(const T* q, const T* k, const T* v, const float* m,
     if (tc)
       return attention_wide_bf16<kResiduals>(q, k, v, m, o, lse, B, H, S, D,
                                              Dv, scale, st, rep);
-  }
-  switch (cols_per_thread(slice_ld(Dv))) {
-    case 4:
-      return launch_attention<T, 4, kResiduals>(q, k, v, m, o, lse, B, H, S,
-                                                D, Dv, scale, st, rep);
-    case 8:
-      return launch_attention<T, 8, kResiduals>(q, k, v, m, o, lse, B, H, S,
-                                                D, Dv, scale, st, rep);
-    default:
-      return launch_attention<T, 16, kResiduals>(q, k, v, m, o, lse, B, H,
-                                                 S, D, Dv, scale, st, rep);
+    return attention_cuda_cores<T, false>(q, k, v, m, o, lse, B, H, S, D,
+                                          Dv, scale, st, rep);
+  } else {
+    if (rows16<T>(q, D, D, D, D) && rows16<T>(k, D, D, D, D) &&
+        rows16<T>(v, Dv, Dv, Dv, Dv))
+      return attention_cuda_cores<T, true>(q, k, v, m, o, lse, B, H, S, D,
+                                           Dv, scale, st, rep);
+    return attention_cuda_cores<T, false>(q, k, v, m, o, lse, B, H, S, D,
+                                          Dv, scale, st, rep);
   }
 }
 
@@ -704,6 +736,40 @@ extern "C" int hires_attention_fwd(
   return (int)err;
 }
 
+// The strided product alone on the CUDA cores (gemm_kernel,
+// hires_common.cuh), for its card test: C[z] = epilogue(sum_{o < KO} sum_{k
+// < K} A(z, o, m, k) B(z, o, k, n)) for z < Z, A and B in the compute type,
+// C in it too (fp32 for epilogue kStoreF32), C2 fp32, bias (N) fp32 or
+// null. strides: sAz, sAo, sAm, sAk, sBz, sBo, sBk, sBn, sCz, ldc
+// (elements). Returns a cudaError_t; sets *launched and *smem as
+// hires_attention_fwd does.
+extern "C" int hires_strided_product(int is_bf16, int epilogue, const void* A,
+                                     const void* B, void* C, float* C2,
+                                     const float* bias, int M, int N, int K,
+                                     int KO, int Z, const long long* strides,
+                                     void* stream, int* launched,
+                                     long long* smem) {
+  *launched = 0;
+  *smem = 0;
+  if (M < 1 || N < 1 || K < 1 || KO < 1 || Z < 1 || epilogue < kStoreF32 ||
+      epilogue > kDgeluMul || ((epilogue == kDgeluMul) && !C2))
+    return (int)cudaErrorInvalidValue;
+  Gemm g = {};
+  g.A = A; g.B = B; g.C = C; g.C2 = C2; g.bias = bias;
+  g.M = M; g.N = N; g.K = K; g.KO = KO; g.epilogue = epilogue;
+  g.sAz = strides[0]; g.sAo = strides[1]; g.sAm = strides[2];
+  g.sAk = strides[3]; g.sBz = strides[4]; g.sBo = strides[5];
+  g.sBk = strides[6]; g.sBn = strides[7]; g.sCz = strides[8];
+  g.ldc = strides[9];
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  Report rep;
+  const cudaError_t err = is_bf16 ? gemm_cuda_cores<bf16>(g, Z, st, rep)
+                                  : gemm_cuda_cores<float>(g, Z, st, rep);
+  *launched = rep.launched;
+  *smem = (long long)rep.smem;
+  return (int)err;
+}
+
 // What the card makes of each wide bf16 attention instantiation at head dim
 // D: kernel k = 2 (NV - 2) + residuals (NV = 2-4) fills out[4k..4k+3] as
 // occupancy() does (hires_common.cuh). Returns a cudaError_t.
@@ -719,6 +785,27 @@ extern "C" int hires_attention_wide_occupancy(int D, int* out) {
   for (int k = 0; k < 6; ++k) {
     const cudaError_t err = occupancy(fns[k], kAttnThreads,
                                       attention_bf16_smem(D), out + 4 * k);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
+
+// What the card makes of the fp32 CUDA-core attention kernel with cp.async
+// staging (the fp32 route's), NV = 2-8: kernel k (NV = k + 2) fills
+// out[4k..4k+3] as occupancy() does (hires_common.cuh). Returns a
+// cudaError_t.
+extern "C" int hires_attention_cc_occupancy(int* out) {
+  const void* fns[7] = {
+      reinterpret_cast<const void*>(hires_attention_kernel<float, 2, true>),
+      reinterpret_cast<const void*>(hires_attention_kernel<float, 3, true>),
+      reinterpret_cast<const void*>(hires_attention_kernel<float, 4, true>),
+      reinterpret_cast<const void*>(hires_attention_kernel<float, 5, true>),
+      reinterpret_cast<const void*>(hires_attention_kernel<float, 6, true>),
+      reinterpret_cast<const void*>(hires_attention_kernel<float, 7, true>),
+      reinterpret_cast<const void*>(hires_attention_kernel<float, 8, true>)};
+  for (int k = 0; k < 7; ++k) {
+    const cudaError_t err =
+        occupancy(fns[k], kThreads, cc_smem(k + 2), out + 4 * k);
     if (err != cudaSuccess) return (int)err;
   }
   return 0;

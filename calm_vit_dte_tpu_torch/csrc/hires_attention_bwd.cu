@@ -50,7 +50,8 @@
 //     kWgSplits fixed ranges (grid z), each range's partial product goes to
 //     scratch, and sum_partials_kernel adds the partials in order (the 2S x
 //     S output at S = 448 has 28 tiles of 128 x 128: 224 CTAs split). fp32:
-//     one CTA per 64 x 64 output tile runs the whole contraction in order.
+//     one CTA per 128 x 128 (or 64 x 64) output tile of gemm_kernel runs
+//     the whole contraction in order.
 //     The bias grads are two-stage ordered column sums on both routes.
 //   * dq, bf16 (hires_dq_bf16_kernel): one CTA of 4 warps per (64 query
 //     rows, head, batch element), grid (H, ceil(S/64), B) with the heads
@@ -63,8 +64,7 @@
 //     (c_to_a); k is read as B through ldmatrix.trans. The recompute of
 //     q k^T and g v^T in both kernels is kept: the fused Pallas body needs
 //     a (rows x S) dm and ssum per CTA, which does not fit in 227 KB at
-//     S = 1024. fp32 (hires_dq_kernel): the key tiles (v, then k, through
-//     one buffer) in fp32 shared memory, ds through shared memory.
+//     S = 1024. fp32 (hires_dq_kernel): see the CUDA-core kernels below.
 //   * dq past 256 columns of D or Dv, bf16 (hires_dq_wide_bf16_kernel, the
 //     dq part of the TPU's dq pass, axial_attention.py:1087): a warp's
 //     accumulators for 16 rows x all of D are 256 a thread at D = 512, and
@@ -126,13 +126,24 @@
 //     chunks of q and g. 1.5x the products at D = Dv with two slices; each
 //     slice rounds the same p and ds bits, so the slices agree.
 //   * The CUDA-core kernels (hires_dm_ssum_kernel, hires_dq_kernel,
-//     hires_dkv_kernel) take any D and Dv: every contraction over D or Dv
-//     streams through shared memory 64 columns at a time (scores_chunked,
-//     hires_common.cuh), and an output wider than 256 columns is split over
-//     the grid's z axis, each CTA recomputing the scores for its slice. They
-//     run every fp32 call and every bf16 pass the tensor-core kernels do not
-//     take (family_of: the dq pass past D, Dv 544, or S, D, Dv off the
-//     multiple of 8), reading bf16 and rounding at the same points.
+//     hires_dkv_kernel) take any D and Dv. They run every fp32 call and
+//     every bf16 pass the tensor-core kernels do not take (family_of: the
+//     dq pass past D, Dv 544, or S, D, Dv off the multiple of 8), reading
+//     bf16 and rounding at the same points; every product is an fp32 FMA.
+//     The dm/ssum and dq kernels are built on the product core of
+//     hires_common.cuh, as the forward is: the dm/ssum CTA owns a 64 x 128 (query, key) tile and
+//     streams each head's (q, k) and (g, v) chunks through a three-stage
+//     ring (cp.async where fp32 rows are 16-byte aligned), s and dp in
+//     registers (4 x 8 a thread), dl and s summed over the heads in order;
+//     the dq CTA owns 64 query rows and all of dq's columns up to kOutSlice
+//     = 512, so per 128-key tile it forms dp (parked in a [64][132] score
+//     tile) and s once, puts ds in the score tile in dp's place, and adds
+//     ds k over the tile's k chunks (16 keys), each thread 4 rows x 4 NQ
+//     columns of dq. Past 512 columns dq splits over the grid. The dk/dv
+//     kernel keeps 4 x 4 register tiles: every contraction over D or Dv streams
+//     through shared memory 64 columns at a time (scores_chunked), and dk
+//     and dv wider than 256 columns split over the grid's z axis, each CTA
+//     recomputing the scores for its slice.
 // The bf16 tensor-core kernels take S, D and Dv that are multiples of 8
 // (16-byte rows): the dq kernels D, Dv <= kTcDqMaxD, the dk/dv kernels
 // every width; the C entries take any shape.
@@ -156,57 +167,73 @@ __device__ __forceinline__ void softmax_grad(float s, float dp, float m,
   dl = p * (dp - delta);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) hires_dm_ssum_kernel(
+// dm and ssum of one (64 query, 128 key) tile of one batch element, summed
+// over the heads in order: per head h the ring carries the (q_h, k_h) score
+// chunks, then the (g_h, v_h) ones; s = q_h k_h^T and dp = g_h v_h^T stay
+// in registers, and dl_h = p_h (dp - delta_h) and s add into the sums.
+template <typename T, bool kAsync>
+__global__ void __launch_bounds__(kThreads, 1) hires_dm_ssum_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ g, const Residuals R, int D, int Dv,
     T* __restrict__ dm, T* __restrict__ ssum) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int H = R.H, S = R.S;
-  float* sA = smem;               // 64 x kLdC   q_h chunk, then g_h chunk
-  float* sB = sA + kTile * kLdC;  // 64 x kLdC   k_h chunk, then v_h chunk
-  const int t0 = blockIdx.x * kTile, q0 = blockIdx.y * kTile;
-  const int b = blockIdx.z;
+  const int t0 = blockIdx.x * kSK, q0 = blockIdx.y * kSQ, b = blockIdx.z;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float acc_dm[4][4], acc_ss[4][4];
-  zero(acc_dm);
-  zero(acc_ss);
-  float mv[4][4];
+  const int nkc = (D + kKC - 1) / kKC, nvc = (Dv + kKC - 1) / kKC;
+  const int per = nkc + nvc;
+  auto plan = [&](int at, float* st, Block<T>& a, Block<T>& bb) {
+    const int h = at / per, c = at - h * per;
+    const size_t head = ((size_t)b * H + h) * S;
+    const bool qk = c < nkc;
+    const int w = qk ? D : Dv, d0 = (qk ? c : c - nkc) * kKC;
+    const T* x = qk ? q : g;
+    const T* y = qk ? k : v;
+    a = {x + (head + q0) * w + d0, w, kSQ, kKC, S - q0, w - d0, st, kLdK};
+    bb = {y + (head + t0) * w + d0, w, kSK, kKC, S - t0, w - d0,
+          st + kSQ * kLdK, kLdK};
+  };
+  Ring<T, kAsync, kThreads, kScoreChunk / kThreads, decltype(plan)> ring(
+      plan, smem, kScoreChunk, H * per);
+
+  float acc_dm[4][8], acc_ss[4][8];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int r = q0 + ty + 16 * i, t = t0 + tx + 16 * j;
-      mv[i][j] = r < S && t < S ? R.m[((size_t)b * S + r) * S + t] : 0.f;
-    }
+    for (int j = 0; j < 8; ++j) acc_dm[i][j] = 0.f, acc_ss[i][j] = 0.f;
   for (int h = 0; h < H; ++h) {
     const size_t head = ((size_t)b * H + h) * S;
-    float s[4][4], dp[4][4];
-    zero(s);
-    zero(dp);
-    scores_chunked<T>(s, sA, sB, q + head * D, q0, k + head * D, t0, S, D);
-    scores_chunked<T>(dp, sA, sB, g + head * Dv, q0, v + head * Dv, t0, S,
-                      Dv);
+    float s[4][8], dp[4][8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[i][j] = 0.f, dp[i][j] = 0.f;
+    for (int c = 0; c < nkc; ++c) score_chunk(s, ring.next());
+    for (int c = 0; c < nvc; ++c) score_chunk(dp, ring.next());
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int r = q0 + ty + 16 * i;
+      const int r = q0 + ty * 4 + i;
       const float l = r < S ? R.lse[head + r] : 0.f;
       const float de = r < S ? R.delta[head + r] : 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < 8; ++j) {
+        const int t = t0 + tx + 16 * j;
+        const float mv =
+            r < S && t < S ? R.m[((size_t)b * S + r) * S + t] : 0.f;
         float p, dl;
-        softmax_grad(s[i][j], dp[i][j], mv[i][j], l, de, R.scale, p, dl);
+        softmax_grad(s[i][j], dp[i][j], mv, l, de, R.scale, p, dl);
         acc_dm[i][j] += dl;
         acc_ss[i][j] += s[i][j];
       }
     }
   }
+  ring.finish();
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
+    const int r = q0 + ty * 4 + i;
     if (r >= S) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < 8; ++j) {
       const int t = t0 + tx + 16 * j;
       if (t >= S) continue;
       const size_t at = ((size_t)b * S + r) * S + t;
@@ -217,74 +244,112 @@ __global__ void __launch_bounds__(kThreads) hires_dm_ssum_kernel(
 }
 
 // dq of 64 query rows of one (batch element, head), columns [c0, c0 + W)
-// of it (the grid's z slice).
-template <typename T, int CJ>
-__global__ void __launch_bounds__(kThreads) hires_dq_kernel(
+// of it (slice z of the grid's split past kOutSlice). Per 128-key tile the
+// ring carries the (g, v) score chunks (dp, parked in the score tile), the
+// (q, k) ones (s), then the tile's k chunks (kVK keys x the slice's
+// columns): ds = round(scale * dl + dssum) replaces dp in the score tile
+// and dq += ds k.
+template <typename T, int NQ, bool kAsync>
+__global__ void __launch_bounds__(kThreads, 1) hires_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ g, const Residuals R,
-    const float* __restrict__ dssum, int D, int Dv, T* __restrict__ dq) {
-  extern __shared__ float smem[];
+    const float* __restrict__ dssum, int D, int Dv, int ns,
+    T* __restrict__ dq) {
+  extern __shared__ __align__(16) float smem[];
+  float* sS = smem;                            // [64][kLdS] dp, then ds
   const int H = R.H, S = R.S;
-  const int c0 = blockIdx.z * kSlice, W = min(kSlice, D - c0);
-  const int ldx = slice_ld(D);
-  float* sA = smem;                // 64 x kLdC  g or q chunk
-  float* sB = sA + kTile * kLdC;   // 64 x kLdC  v or k chunk
-  float* sX = sB + kTile * kLdC;   // 64 x ldx   k tile, the slice's columns
-  float* sS = sX + kTile * ldx;    // 64 x kLdP  ds, rounded
-  const int q0 = blockIdx.x * kTile;
-  const int bh = blockIdx.y, b = bh / H;
+  const int z = blockIdx.x % ns;
+  const int b = blockIdx.z, q0 = blockIdx.y * kSQ;
+  const size_t bh = (size_t)b * H + blockIdx.x / ns, head = bh * S;
+  const int c0 = z * kOutSlice, W = min(kOutSlice, D - c0);
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const size_t head = (size_t)bh * S;
-  const T* qh = q + head * D;
+  const T* qh = q + (head + q0) * D;
   const T* kh = k + head * D;
-  const T* gh = g + head * Dv;
+  const T* gh = g + (head + q0) * Dv;
   const T* vh = v + head * Dv;
-  float l[4], de[4];
+  const int nvc = (Dv + kKC - 1) / kKC, nkc = (D + kKC - 1) / kKC;
+  const int nkt = (S + kSK - 1) / kSK, per = nvc + nkc + kSK / kVK;
+  auto plan = [&](int at, float* st, Block<T>& a, Block<T>& bb) {
+    int t, c;
+    tile_of(at, per, nkt, t, c);
+    const int t0 = t * kSK;
+    if (c < nvc + nkc) {
+      const bool gv = c < nvc;
+      const int w = gv ? Dv : D, d0 = (gv ? c : c - nvc) * kKC;
+      a = {(gv ? gh : qh) + d0, w, kSQ, kKC, S - q0, w - d0, st, kLdK};
+      bb = {(gv ? vh : kh) + (size_t)t0 * w + d0, w, kSK, kKC, S - t0,
+            w - d0, st + kSQ * kLdK, kLdK};
+    } else {
+      const int r0 = t0 + (c - nvc - nkc) * kVK;
+      a = {kh + (size_t)r0 * D + c0, D, kVK, 64 * NQ, S - r0, W, st,
+           out_ld(NQ)};
+    }
+  };
+  Ring<T, kAsync, kThreads, cc_stage(NQ) / kThreads, decltype(plan)> ring(
+      plan, smem + kSQ * kLdS, cc_stage(NQ),
+      (nkt - 1) * per + nvc + nkc + out_chunks(S, nkt - 1));
+
+  float acc[4][4 * NQ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
-    l[i] = r < S ? R.lse[head + r] : 0.f;
-    de[i] = r < S ? R.delta[head + r] : 0.f;
-  }
-  float acc[4][CJ];
-  zero(acc);
-  for (int t0 = 0; t0 < S; t0 += kTile) {
-    float s[4][4], dp[4][4];
-    zero(s);
-    zero(dp);
-    // (the first barrier: the previous tile is done with sX and sS)
-    scores_chunked<T>(dp, sA, sB, gh, q0, vh, t0, S, Dv);
-    scores_chunked<T>(s, sA, sB, qh, q0, kh, t0, S, D);
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4 * NQ; ++j) acc[i][j] = 0.f;
+  for (int t = 0; t < nkt; ++t) {
+    const int t0 = t * kSK;
+    float s[4][8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+    for (int c = 0; c < nvc; ++c) score_chunk(s, ring.next());
+    // dp to this thread's own elements of the score tile (the previous
+    // tile's dq chunks are done: the barriers above).
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        sS[(ty * 4 + i) * kLdS + tx + 16 * j] = s[i][j];
+        s[i][j] = 0.f;
+      }
+    for (int c = 0; c < nkc; ++c) score_chunk(s, ring.next());
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int r = q0 + ty + 16 * i;
+      const int r = q0 + ty * 4 + i;
+      // (read here, not held across the tile: the registers go to dq)
+      const float l = r < S ? R.lse[head + r] : 0.f;
+      const float de = r < S ? R.delta[head + r] : 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int t = t0 + tx + 16 * j;
+      for (int j = 0; j < 8; ++j) {
+        const int key = t0 + tx + 16 * j;
+        float* at_s = sS + (ty * 4 + i) * kLdS + tx + 16 * j;
         float ds = 0.f;
-        if (r < S && t < S) {
-          const size_t at = ((size_t)b * S + r) * S + t;
+        if (r < S && key < S) {
+          const size_t at = ((size_t)b * S + r) * S + key;
           float p, dl;
-          softmax_grad(s[i][j], dp[i][j], R.m[at], l[i], de[i], R.scale, p,
-                       dl);
+          softmax_grad(s[i][j], *at_s, R.m[at], l, de, R.scale, p, dl);
           ds = rnd<T>(dl * R.scale + dssum[at]);
         }
-        sS[(ty + 16 * i) * kLdP + tx + 16 * j] = ds;
+        *at_s = ds;
       }
     }
-    load_cols<T>(sX, ldx, kh, D, t0, S, c0, W);
-    __syncthreads();
-    mm_nn<CJ>(acc, sS, kLdP, sX, ldx, W);
+    // (the first dq chunk's barrier: ds is in the score tile)
+    const int nqc = out_chunks(S, t);
+    for (int c = 0; c < nqc; ++c)
+      out_chunk<NQ>(acc, sS, c * kVK, ring.next());
   }
+  ring.finish();
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
+    const int r = q0 + ty * 4 + i;
     if (r >= S) continue;
+    T* drow = dq + (head + r) * D + c0;
 #pragma unroll
-    for (int j = 0; j < CJ; ++j) {
-      const int c = tx + 16 * j;
-      if (c < W) dq[(head + r) * D + c0 + c] = from_f<T>(acc[i][j]);
-    }
+    for (int u = 0; u < NQ; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = tx * 4 + 64 * u + e;
+        if (c < W) drow[c] = from_f<T>(acc[i][4 * u + e]);
+      }
   }
 }
 
@@ -371,11 +436,12 @@ __global__ void __launch_bounds__(kThreads) hires_dkv_kernel(
   }
 }
 
-// Dynamic shared memory of the CUDA-core kernels: the two contraction
-// chunks, and for the dq kernel (n_score_tiles 1) and the dk/dv kernel (2)
-// a slice-wide row tile and the score tiles (132,352 bytes for dk/dv at
-// D or Dv >= 256).
-size_t dm_ssum_smem() { return sizeof(float) * 2 * kTile * (size_t)kLdC; }
+// Dynamic shared memory of the CUDA-core dk/dv kernel: the two contraction
+// chunks, a slice-wide row tile and the score tiles (n_score_tiles 2;
+// 132,352 bytes at D or Dv >= 256). The dm/ssum kernel's CTA holds its ring
+// (82,944 bytes), the dq kernel's as the forward's (cc_smem,
+// hires_common.cuh).
+constexpr size_t kDmSsumCcSmem = sizeof(float) * kRing * kScoreChunk;
 
 size_t tiled_smem(int width, int n_score_tiles) {
   return sizeof(float) * kTile *
@@ -1338,9 +1404,9 @@ template <typename T>
 cudaError_t dm_ssum(const T* q, const T* k, const T* v, const T* g,
                     const Residuals& R, int B, int D, int Dv, T* dm, T* ssum,
                     Family fam, cudaStream_t st, Report& rep) {
-  const unsigned tiles = (unsigned)((R.S + kTile - 1) / kTile);
   if constexpr (std::is_same<T, bf16>::value) {
     if (fam.aligned) {
+      const unsigned tiles = (unsigned)((R.S + kTile - 1) / kTile);
       cudaError_t err = allow_smem(hires_dm_ssum_bf16_kernel, kDmSsumSmem);
       if (err != cudaSuccess) return err;
       hires_dm_ssum_bf16_kernel<<<dim3(tiles, tiles, B), kAttnThreads,
@@ -1349,25 +1415,50 @@ cudaError_t dm_ssum(const T* q, const T* k, const T* v, const T* g,
       return rep.done(kDmSsumSmem);
     }
   }
-  const size_t smem = dm_ssum_smem();
-  cudaError_t err = allow_smem(hires_dm_ssum_kernel<T>, smem);
+  const dim3 grid((R.S + kSK - 1) / kSK, (R.S + kSQ - 1) / kSQ, B);
+  if constexpr (std::is_same<T, float>::value) {
+    if (rows16<T>(q, D, D, D, D) && rows16<T>(k, D, D, D, D) &&
+        rows16<T>(v, Dv, Dv, Dv, Dv) && rows16<T>(g, Dv, Dv, Dv, Dv)) {
+      auto kern = hires_dm_ssum_kernel<T, true>;
+      cudaError_t err = allow_smem(kern, kDmSsumCcSmem);
+      if (err != cudaSuccess) return err;
+      kern<<<grid, kThreads, kDmSsumCcSmem, st>>>(q, k, v, g, R, D, Dv, dm,
+                                                  ssum);
+      return rep.done(kDmSsumCcSmem);
+    }
+  }
+  auto kern = hires_dm_ssum_kernel<T, false>;
+  cudaError_t err = allow_smem(kern, kDmSsumCcSmem);
   if (err != cudaSuccess) return err;
-  hires_dm_ssum_kernel<T><<<dim3(tiles, tiles, B), kThreads, smem, st>>>(
-      q, k, v, g, R, D, Dv, dm, ssum);
-  return rep.done(smem);
+  kern<<<grid, kThreads, kDmSsumCcSmem, st>>>(q, k, v, g, R, D, Dv, dm, ssum);
+  return rep.done(kDmSsumCcSmem);
 }
 
-template <typename T, int CJ>
+template <typename T, int NQ, bool kAsync>
 cudaError_t launch_dq(const T* q, const T* k, const T* v, const T* g,
                       const Residuals& R, const float* dssum, int B, int D,
                       int Dv, T* dq, cudaStream_t st, Report& rep) {
-  auto kern = hires_dq_kernel<T, CJ>;
-  const size_t smem = tiled_smem(D, 1);
+  auto kern = hires_dq_kernel<T, NQ, kAsync>;
+  constexpr size_t smem = cc_smem(NQ);
   cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return err;
-  kern<<<dim3((R.S + kTile - 1) / kTile, B * R.H, slices_of(D)), kThreads,
-         smem, st>>>(q, k, v, g, R, dssum, D, Dv, dq);
+  const int ns = out_slices(D);
+  kern<<<dim3(R.H * ns, (R.S + kSQ - 1) / kSQ, B), kThreads, smem, st>>>(
+      q, k, v, g, R, dssum, D, Dv, ns, dq);
   return rep.done(smem);
+}
+
+// The CUDA-core dq kernel, NQ = the 64-column groups of dq's widest slice
+// (with_nv, hires_common.cuh).
+template <typename T, bool kAsync>
+cudaError_t dq_cuda_cores(const T* q, const T* k, const T* v, const T* g,
+                          const Residuals& R, const float* dssum, int B,
+                          int D, int Dv, T* dq, cudaStream_t st,
+                          Report& rep) {
+  return with_nv<kAsync>(nv_of(D), [&](auto nq) {
+    return launch_dq<T, decltype(nq)::value, kAsync>(q, k, v, g, R, dssum, B,
+                                                     D, Dv, dq, st, rep);
+  });
 }
 
 template <typename T>
@@ -1396,14 +1487,12 @@ cudaError_t dq_pass(const T* q, const T* k, const T* v, const T* g,
       }
     }
   }
-  switch (cols_per_thread(slice_width(D))) {
-    case 4:
-      return launch_dq<T, 4>(q, k, v, g, R, dssum, B, D, Dv, dq, st, rep);
-    case 8:
-      return launch_dq<T, 8>(q, k, v, g, R, dssum, B, D, Dv, dq, st, rep);
-    default:
-      return launch_dq<T, 16>(q, k, v, g, R, dssum, B, D, Dv, dq, st, rep);
-  }
+  if (rows16<T>(q, D, D, D, D) && rows16<T>(k, D, D, D, D) &&
+      rows16<T>(v, Dv, Dv, Dv, Dv) && rows16<T>(g, Dv, Dv, Dv, Dv))
+    return dq_cuda_cores<T, std::is_same<T, float>::value>(
+        q, k, v, g, R, dssum, B, D, Dv, dq, st, rep);
+  return dq_cuda_cores<T, false>(q, k, v, g, R, dssum, B, D, Dv, dq, st,
+                                 rep);
 }
 
 template <typename T, int CJ>
@@ -1684,6 +1773,28 @@ extern "C" int hires_dq_wide_occupancy(int D, int Dv, int* out) {
   for (int k = 0; k < 4; ++k) {
     const cudaError_t err = occupancy(fns[k], kDkvThreads,
                                       dq_wide_smem(D, Dv), out + 4 * k);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
+
+// What the card makes of the fp32 CUDA-core dq kernel with cp.async staging
+// (NQ = 2-8: kernel k, NQ = k + 2) and of the fp32 dm/ssum kernel (kernel
+// 7): out[4k..4k+3] as occupancy() fills them (hires_common.cuh). Returns a
+// cudaError_t.
+extern "C" int hires_dq_cc_occupancy(int* out) {
+  const void* fns[8] = {
+      reinterpret_cast<const void*>(hires_dq_kernel<float, 2, true>),
+      reinterpret_cast<const void*>(hires_dq_kernel<float, 3, true>),
+      reinterpret_cast<const void*>(hires_dq_kernel<float, 4, true>),
+      reinterpret_cast<const void*>(hires_dq_kernel<float, 5, true>),
+      reinterpret_cast<const void*>(hires_dq_kernel<float, 6, true>),
+      reinterpret_cast<const void*>(hires_dq_kernel<float, 7, true>),
+      reinterpret_cast<const void*>(hires_dq_kernel<float, 8, true>),
+      reinterpret_cast<const void*>(hires_dm_ssum_kernel<float, true>)};
+  for (int k = 0; k < 8; ++k) {
+    const cudaError_t err = occupancy(
+        fns[k], kThreads, k < 7 ? cc_smem(k + 2) : kDmSsumCcSmem, out + 4 * k);
     if (err != cudaSuccess) return (int)err;
   }
   return 0;

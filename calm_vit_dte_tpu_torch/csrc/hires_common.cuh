@@ -4,8 +4,13 @@
 //   * a batched, strided matrix product with fused epilogues (the mask MLP,
 //     the head-summed scores, the weight grads): every product the Pallas
 //     bodies hand to the MXU inside the kernel runs here, not in a library;
-//   * the register-tile products over 64-row tiles in shared memory that the
-//     attention kernels are built from, and their row reductions.
+//   * the CUDA-core product core (a ring of fp32 stages in shared memory,
+//     cp.async or register staging, float4 fragments, register tiles of at
+//     least 4 x 8 a thread) that the strided product, the CUDA-core forward,
+//     dm/ssum and dq kernels are built from, and its attention tiles;
+//   * the 4 x 4 register-tile products over 64-row tiles (mm_nt, mm_nn,
+//     scores_chunked), which the CUDA-core dk/dv kernel is built from, and
+//     the row reductions.
 // Every product reads the compute type T (float or bf16) and accumulates in
 // fp32 as fp32 FMAs: the fp32 route. The bf16 route's products run on the
 // tensor cores (hires_mma.cuh). Nothing is
@@ -15,12 +20,13 @@
 #include <type_traits>
 
 #include "attention_common.cuh"
+#include "mma_common.cuh"
 
 namespace {
 
 constexpr int kTile = 64;    // rows and columns of a product tile
-constexpr int kDepth = 16;   // contraction step staged in shared memory
 constexpr int kLdP = kTile + 1;
+constexpr int kSMs = 132;    // the H100 SXM's streaming multiprocessors
 
 __device__ __forceinline__ float dgelu(float x) {
   const float cdf = 0.5f * (1.0f + erff(x * 0.70710678118654752f));
@@ -32,9 +38,10 @@ __device__ __forceinline__ float dgelu(float x) {
 // C[z] = epilogue( sum_{o < KO} sum_{k < K} A(z, o, m, k) B(z, o, k, n) )
 // with A(z, o, m, k) = A[z*sAz + o*sAo + m*sAm + k*sAk] and B likewise, so a
 // transpose is a choice of strides and a sum over heads is the outer
-// contraction index o. One CTA of 256 threads owns a 64 x 64 tile of C and
-// runs the whole contraction in order; each thread owns 4 x 4 outputs at
-// rows ty + 16i, columns tx + 16j.
+// contraction index o. Of each operand, the contraction axis or the row
+// axis is unit-stride. The CUDA-core kernel (gemm_kernel, below) and the
+// tensor-core one (gemm_tc_kernel, hires_mma.cuh) each give one CTA a tile
+// of C and run its whole contraction in order.
 enum Epilogue {
   kStoreF32 = 0,   // C (fp32) = acc + bias[n]
   kStoreT = 1,     // C (T) = round(acc + bias[n])
@@ -116,61 +123,324 @@ __device__ __forceinline__ void store_c(const Gemm& g, int m, int n,
   }
 }
 
-// CUDA-core FMAs (the fp32 route).
-template <typename T>
-__global__ void __launch_bounds__(kThreads) gemm_kernel(const Gemm g) {
-  __shared__ float sA[kDepth][kTile + 4];
-  __shared__ float sB[kDepth][kTile + 4];
-  const T* A = static_cast<const T*>(g.A) + blockIdx.z * g.sAz;
-  const T* Bm = static_cast<const T*>(g.B) + blockIdx.z * g.sBz;
-  const int m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const bool a_k_fast = g.sAk == 1, b_n_fast = g.sBn == 1;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+// ---------------------------------------------------------------------------
+// The CUDA-core product core (fp32 FMAs): the strided product below and the
+// CUDA-core attention kernels (hires_attention.cu, hires_attention_bwd.cu)
+// are built on it. Operand blocks are staged in fp32 shared memory one chunk
+// at a time through a ring of kRing stages, the copy of chunk i + 2 in flight
+// while chunk i is multiplied:
+//   * kAsync (T = float, every row of every block starting on 16 bytes): one
+//     16-byte cp.async per four elements, zeros stored past the live edge;
+//   * otherwise (bf16, or fp32 rows off the multiple of 4) through
+//     registers: chunk i + 2 is loaded and converted to fp32 while chunk i
+//     is multiplied, and stored into its stage at the next step.
+// Products read their fragments as float4 (16-byte) shared loads, and a
+// thread owns at least 4 x 8 outputs, so one load feeds at least 8 FMAs.
+// Every sum runs over the contraction in order, with no atomics.
+constexpr int kRing = 3;
 
-  for (int o = 0; o < g.KO; ++o) {
-    const T* Ao = A + o * g.sAo;
-    const T* Bo = Bm + o * g.sBo;
-    for (int k0 = 0; k0 < g.K; k0 += kDepth) {
-      for (int idx = threadIdx.x; idx < kDepth * kTile; idx += kThreads) {
-        // Walk the unit-stride axis fastest, so that loads coalesce.
-        const int ka = a_k_fast ? idx % kDepth : idx / kTile;
-        const int ma = a_k_fast ? idx / kDepth : idx % kTile;
-        const int m = m0 + ma, k = k0 + ka;
-        sA[ka][ma] = m < g.M && k < g.K
-                         ? to_f(Ao[m * g.sAm + k * g.sAk]) : 0.f;
-        const int kb = b_n_fast ? idx / kTile : idx % kDepth;
-        const int nb = b_n_fast ? idx % kTile : idx / kDepth;
-        const int n = n0 + nb, kk = k0 + kb;
-        sB[kb][nb] = n < g.N && kk < g.K
-                         ? to_f(Bo[kk * g.sBk + n * g.sBn]) : 0.f;
-      }
-      __syncthreads();
+// Rows [0, nr) x columns [0, nc) of a row-major matrix of T whose element
+// (r, c) is src[r * ld + c], into fp32 shared memory at dst (row stride
+// lds); rows at or past live_r and columns at or past live_c become zeros.
+// nc, lds and (kAsync) ld and live_c are multiples of 4.
+template <typename T>
+struct Block {
+  const T* src;
+  long long ld;
+  int nr, nc, live_r, live_c;
+  float* dst;
+  int lds;
+};
+
+template <int kNT>
+__device__ __forceinline__ void copy_async(const Block<float>& b) {
+  const int units = b.nc >> 2;
+  for (int idx = threadIdx.x; idx < b.nr * units; idx += kNT) {
+    const int r = idx / units, c = (idx - r * units) << 2;
+    float* d = b.dst + r * b.lds + c;
+    if (r < b.live_r && c < b.live_c)
+      tcore::cp_async16(d, b.src + r * b.ld + c);
+    else
+      *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// The register path: element e = threadIdx.x + u kNT of the pair (a's
+// first, then b's) goes to v[u].
+template <typename T, int kNT, int kPf>
+__device__ __forceinline__ void load_regs(float (&v)[kPf], const Block<T>& a,
+                                          const Block<T>& b) {
+  const int na = a.nr * a.nc, n = na + b.nr * b.nc;
 #pragma unroll
-      for (int kk = 0; kk < kDepth; ++kk) {
-        float a[4], b[4];
+  for (int u = 0; u < kPf; ++u) {
+    const int e = threadIdx.x + u * kNT;
+    float x = 0.f;
+    if (e < na) {
+      const int r = e / a.nc, c = e - r * a.nc;
+      if (r < a.live_r && c < a.live_c) x = to_f(a.src[r * a.ld + c]);
+    } else if (e < n) {
+      const int f = e - na, r = f / b.nc, c = f - r * b.nc;
+      if (r < b.live_r && c < b.live_c) x = to_f(b.src[r * b.ld + c]);
+    }
+    v[u] = x;
+  }
+}
+
+template <typename T, int kNT, int kPf>
+__device__ __forceinline__ void store_regs(const float (&v)[kPf],
+                                           const Block<T>& a,
+                                           const Block<T>& b) {
+  const int na = a.nr * a.nc, n = na + b.nr * b.nc;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = sA[kk][ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = sB[kk][tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
+  for (int u = 0; u < kPf; ++u) {
+    const int e = threadIdx.x + u * kNT;
+    if (e < na) {
+      const int r = e / a.nc;
+      a.dst[r * a.lds + e - r * a.nc] = v[u];
+    } else if (e < n) {
+      const int f = e - na, r = f / b.nc;
+      b.dst[r * b.lds + f - r * b.nc] = v[u];
     }
   }
+}
+
+// The ring of kRing stages of `stage` floats at `base`, over n chunks;
+// plan(at, stage, a, b) names chunk at's one or two blocks (b left empty:
+// one) at its stage. Construction begins chunks 0 and 1; each next() waits
+// for chunk i (a barrier: every thread is done with chunk i - 1), starts
+// chunk i + 2 and returns chunk i's stage. kNT threads call every step; kPf
+// bounds a thread's elements of one chunk on the register path.
+template <typename T, bool kAsync, int kNT, int kPf, typename Plan>
+struct Ring {
+  static_assert(!kAsync || std::is_same<T, float>::value,
+                "cp.async copies fp32 rows");
+  const Plan& plan;
+  float* base;
+  int stage, n, i;
+  float v[kAsync ? 1 : kPf];
+
+  __device__ Ring(const Plan& p, float* b, int st, int count)
+      : plan(p), base(b), stage(st), n(count), i(0) {
+    issue(0);
+    if constexpr (!kAsync) put(0);
+    issue(1);
+  }
+  __device__ float* at(int c) const { return base + (c % kRing) * stage; }
+  __device__ void issue(int c) {
+    if (c < n) {
+      Block<T> a{}, b{};
+      plan(c, at(c), a, b);
+      if constexpr (kAsync) {
+        copy_async<kNT>(a);
+        if (b.nr) copy_async<kNT>(b);
+      } else {
+        load_regs<T, kNT, kPf>(v, a, b);
+      }
+    }
+    if constexpr (kAsync) tcore::cp_commit();
+  }
+  __device__ void put(int c) {
+    if (c < n) {
+      Block<T> a{}, b{};
+      plan(c, at(c), a, b);
+      store_regs<T, kNT, kPf>(v, a, b);
+    }
+  }
+  __device__ const float* next() {
+    if constexpr (kAsync) {
+      tcore::cp_wait<kRing - 2>();
+      __syncthreads();
+    } else {
+      __syncthreads();
+      put(i + 1);
+    }
+    issue(i + 2);
+    return at(i++);
+  }
+  __device__ void finish() {
+    if constexpr (kAsync) tcore::cp_wait<0>();
+  }
+};
+
+// Whether the cp.async path can stage a block of T read at p with the
+// given strides (elements) and unit-stride extent: fp32, 16-byte aligned.
+template <typename T>
+bool rows16(const void* p, long long s0, long long s1, long long s2,
+            long long extent) {
+  return std::is_same<T, float>::value &&
+         reinterpret_cast<uintptr_t>(p) % 16 == 0 && s0 % 4 == 0 &&
+         s1 % 4 == 0 && s2 % 4 == 0 && extent % 4 == 0;
+}
+
+__device__ __forceinline__ float lane_of(const float4& x, int e) {
+  return e == 0 ? x.x : e == 1 ? x.y : e == 2 ? x.z : x.w;
+}
+
+// CUDA-core FMAs (the fp32 route, and bf16 off the multiple of 8). One CTA
+// of BM * BM / 64 threads owns a BM x BM tile of C (BM = 128, or 64; see
+// gemm_cc_staged) and runs the whole contraction in
+// order, BK = BM / 8 deep a chunk; each thread owns 8 x 8 outputs: rows
+// ty * 4 + (i % 4) + (i / 4) BM / 2, columns tx * 4 + (j % 4) + (j / 4) BM / 2
+// or, where B's contraction axis is unit-stride (kBK), tx + (BM / 8) j. An
+// operand whose contraction axis is unit-stride (kAK, kBK) is staged as it
+// lies ([row][k], row stride BK + 4: consecutive rows on different banks)
+// and read as float4 along k; the other is staged [k][row] (row stride BM +
+// 4) and read as float4 along its rows. So no staging transposes, and with
+// kVec every copy is a 16-byte cp.async.
+template <int BM>
+__host__ __device__ constexpr int gemm_op_floats() {
+  return (BM / 8) * (BM + 4) > BM * (BM / 8 + 4) ? (BM / 8) * (BM + 4)
+                                                 : BM * (BM / 8 + 4);
+}
+template <int BM>
+constexpr size_t gemm_smem() {
+  return sizeof(float) * kRing * 2 * gemm_op_floats<BM>();
+}
+
+template <typename T, bool kAK, bool kBK, bool kVec, int BM>
+__global__ void __launch_bounds__(BM * BM / 64) gemm_kernel(const Gemm g) {
+  constexpr int kNT = BM * BM / 64, BK = BM / 8, kHalf = BM / 2;
+  constexpr int ldk = BK + 4, ldr = BM + 4;
+  constexpr int kOp = gemm_op_floats<BM>();
+  extern __shared__ __align__(16) float smem[];
+  const T* A = static_cast<const T*>(g.A) + blockIdx.z * g.sAz;
+  const T* Bm = static_cast<const T*>(g.B) + blockIdx.z * g.sBz;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BM;
+  const int tx = threadIdx.x % (BM / 8), ty = threadIdx.x / (BM / 8);
+  const int nk = (g.K + BK - 1) / BK;
+
+  // Chunk c: head o = c / nk, contraction columns [k0, k0 + BK).
+  auto plan = [&](int c, float* st, Block<T>& a, Block<T>& b) {
+    const int o = c / nk, k0 = (c - o * nk) * BK;
+    const T* Ao = A + o * g.sAo;
+    const T* Bo = Bm + o * g.sBo;
+    if (kAK)
+      a = {Ao + m0 * g.sAm + k0, g.sAm, BM, BK, g.M - m0, g.K - k0, st, ldk};
+    else
+      a = {Ao + k0 * g.sAk + m0, g.sAk, BK, BM, g.K - k0, g.M - m0, st, ldr};
+    if (kBK)
+      b = {Bo + n0 * g.sBn + k0, g.sBn, BM, BK, g.N - n0, g.K - k0, st + kOp,
+           ldk};
+    else
+      b = {Bo + k0 * g.sBk + n0, g.sBk, BK, BM, g.K - k0, g.N - n0, st + kOp,
+           ldr};
+  };
+  Ring<T, kVec, kNT, 2 * BM * BK / kNT, decltype(plan)> ring(
+      plan, smem, 2 * kOp, g.KO * nk);
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  for (int c = 0; c < g.KO * nk; ++c) {
+    const float* sA = ring.next();
+    const float* sB = sA + kOp;
+#pragma unroll
+    for (int k = 0; k < BK; k += 4) {
+      float a[8][4], b[4][8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int r = ty * 4 + (i & 3) + (i >> 2) * kHalf;
+        if (kAK) {
+          const float4 x = *reinterpret_cast<const float4*>(sA + r * ldk + k);
+          a[i][0] = x.x, a[i][1] = x.y, a[i][2] = x.z, a[i][3] = x.w;
+        } else if ((i & 3) == 0) {
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const float4 x =
+                *reinterpret_cast<const float4*>(sA + (k + kk) * ldr + r);
+            a[i][kk] = x.x, a[i + 1][kk] = x.y, a[i + 2][kk] = x.z,
+            a[i + 3][kk] = x.w;
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (kBK) {
+          const int n = tx + (BM / 8) * j;
+          const float4 x = *reinterpret_cast<const float4*>(sB + n * ldk + k);
+          b[0][j] = x.x, b[1][j] = x.y, b[2][j] = x.z, b[3][j] = x.w;
+        } else if ((j & 3) == 0) {
+          const int n = tx * 4 + (j >> 2) * kHalf;
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const float4 x =
+                *reinterpret_cast<const float4*>(sB + (k + kk) * ldr + n);
+            b[kk][j] = x.x, b[kk][j + 1] = x.y, b[kk][j + 2] = x.z,
+            b[kk][j + 3] = x.w;
+          }
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            acc[i][j] = fmaf(a[i][kk], b[kk][j], acc[i][j]);
+    }
+  }
+  ring.finish();
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + ty * 4 + (i & 3) + (i >> 2) * kHalf;
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      store_c<T>(g, m0 + ty + 16 * i, n0 + tx + 16 * j, acc[i][j]);
+    for (int j = 0; j < 8; ++j) {
+      const int n = n0 + (kBK ? tx + (BM / 8) * j
+                              : tx * 4 + (j & 3) + (j >> 2) * kHalf);
+      store_c<T>(g, m, n, acc[i][j]);
+    }
+  }
+}
+
+template <typename T, bool kAK, bool kBK, bool kVec, int BM>
+cudaError_t launch_gemm_cc(const Gemm& g, int Z, cudaStream_t st,
+                           Report& rep) {
+  auto kern = gemm_kernel<T, kAK, kBK, kVec, BM>;
+  constexpr size_t smem = gemm_smem<BM>();
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((g.N + BM - 1) / BM, (g.M + BM - 1) / BM, Z);
+  kern<<<grid, BM * BM / 64, smem, st>>>(g);
+  return rep.done(smem);
+}
+
+template <typename T, bool kAK, bool kBK>
+cudaError_t gemm_cc_staged(const Gemm& g, int Z, bool vec, cudaStream_t st,
+                           Report& rep) {
+  // With cp.async staging (the fp32 route), 128 x 128 tiles where they give
+  // every SM two CTAs, else 64 x 64; on the register path (bf16 off the
+  // multiple of 8, fp32 off the multiple of 4) 64 x 64, which keeps the
+  // library's build short.
+  if constexpr (std::is_same<T, float>::value) {
+    const long long big = (long long)((g.N + 127) / 128) *
+                          ((g.M + 127) / 128) * Z;
+    if (vec)
+      return big >= 2 * kSMs
+                 ? launch_gemm_cc<T, kAK, kBK, true, 128>(g, Z, st, rep)
+                 : launch_gemm_cc<T, kAK, kBK, true, 64>(g, Z, st, rep);
+  }
+  return launch_gemm_cc<T, kAK, kBK, false, 64>(g, Z, st, rep);
+}
+
+// The strided product on the CUDA cores (gemm_kernel), staged as each
+// operand's strides ask: an operand with neither stride 1 is not taken.
+template <typename T>
+cudaError_t gemm_cuda_cores(const Gemm& g, int Z, cudaStream_t st,
+                            Report& rep) {
+  const bool ak = g.sAk == 1, bk = g.sBk == 1;
+  if ((!ak && g.sAm != 1) || (!bk && g.sBn != 1))
+    return cudaErrorInvalidValue;
+  const bool vec =
+      rows16<T>(g.A, g.sAz, g.sAo, ak ? g.sAm : g.sAk, ak ? g.K : g.M) &&
+      rows16<T>(g.B, g.sBz, g.sBo, bk ? g.sBn : g.sBk, bk ? g.K : g.N);
+  if (ak && bk) return gemm_cc_staged<T, true, true>(g, Z, vec, st, rep);
+  if (ak) return gemm_cc_staged<T, true, false>(g, Z, vec, st, rep);
+  if (bk) return gemm_cc_staged<T, false, true>(g, Z, vec, st, rep);
+  return gemm_cc_staged<T, false, false>(g, Z, vec, st, rep);
 }
 
 // Column sums of a row-major (R x N) X in the compute type, in two ordered
@@ -371,6 +641,148 @@ __device__ void scores_chunked(float (&acc)[4][4], float* sA, float* sB,
     __syncthreads();
     mm_nt<4>(acc, sA, kLdC, sB, kLdC, w);
   }
+}
+
+// ---------------------------------------------------------------------------
+// The CUDA-core attention kernels' tiles, on the product core above: 256
+// threads as 16 x 16 (tx = threadIdx % 16, ty = threadIdx / 16); a thread
+// owns rows ty * 4 + i (i < 4) of a CTA's 64 query rows, so the 16 threads
+// that share rows are one half-warp and row reductions are shuffles over
+// lane bits 0-3 (row_max16, row_sum16). A score tile is 64 queries x 128
+// keys, a thread's 4 x 8 at keys tx + 16 j; an output tile is the 64 rows
+// x up to kOutSlice columns, a thread's 4 x 4 NV at columns tx * 4 + 64 u +
+// e. The scores of a key tile are formed once, whatever the output's width
+// up to kOutSlice: they cross to the output's threads through a [64][kLdS]
+// tile in shared memory. Past kOutSlice output columns the grid splits the
+// output (each CTA recomputing the scores).
+constexpr int kSQ = 64;                // query rows of a CTA
+constexpr int kSK = 128;               // keys of a score tile
+constexpr int kKC = 32;                // contraction columns of a score chunk
+constexpr int kLdK = kKC + 4;          // its row stride: 5 bank groups apart
+constexpr int kScoreChunk = (kSQ + kSK) * kLdK;   // floats of a score chunk
+constexpr int kVK = 16;                // keys (rows) of an output chunk
+constexpr int kLdS = kSK + 4;          // row stride of the score tile
+constexpr int kOutSlice = 512;         // output columns of one CTA
+constexpr int kMaxNV = kOutSlice / 64;
+
+// Columns of an output tile NV (2-8) and its chunk's row stride.
+__host__ __device__ constexpr int out_ld(int nv) { return 64 * nv + 4; }
+// Floats of one ring stage: a score chunk or an output chunk.
+__host__ __device__ constexpr int cc_stage(int nv) {
+  return kScoreChunk > kVK * out_ld(nv) ? kScoreChunk : kVK * out_ld(nv);
+}
+// Dynamic shared memory of a CUDA-core attention CTA: the score tile and the
+// ring (132,864 bytes at NV = 8, 116,736 at NV <= 6).
+__host__ __device__ constexpr size_t cc_smem(int nv) {
+  return sizeof(float) * ((size_t)kSQ * kLdS + (size_t)kRing * cc_stage(nv));
+}
+static_assert(cc_smem(kMaxNV) <= kMaxCtaSmem, "the CTA fits");
+// NV of an output `width` columns wide (at most kOutSlice a CTA).
+inline int nv_of(int width) {
+  const int nv = ((width < kOutSlice ? width : kOutSlice) + 63) / 64;
+  return nv < 2 ? 2 : nv;
+}
+inline int out_slices(int width) {
+  return (width + kOutSlice - 1) / kOutSlice;
+}
+
+// f(std::integral_constant<int, NV>{}) for the NV that serves nv_of's nv:
+// each of 2-8 with cp.async staging (the fp32 route), 2, 4 or 8 on the
+// register path (bf16 off the multiple of 8, fp32 rows off the multiple of
+// 4), which keeps the libraries' build short.
+template <bool kAsync, typename F>
+cudaError_t with_nv(int nv, F&& f) {
+  static_assert(kMaxNV == 8, "one case per NV");
+  using std::integral_constant;
+  if constexpr (kAsync) {
+    switch (nv) {
+      case 2: return f(integral_constant<int, 2>{});
+      case 3: return f(integral_constant<int, 3>{});
+      case 4: return f(integral_constant<int, 4>{});
+      case 5: return f(integral_constant<int, 5>{});
+      case 6: return f(integral_constant<int, 6>{});
+      case 7: return f(integral_constant<int, 7>{});
+      default: break;
+    }
+  } else {
+    if (nv <= 2) return f(integral_constant<int, 2>{});
+    if (nv <= 4) return f(integral_constant<int, 4>{});
+  }
+  return f(integral_constant<int, 8>{});
+}
+
+// s[i][j] += sum_{k < kKC} A[ty * 4 + i][k] * B[tx + 16 j][k] for the score
+// chunk at st: A (64 rows) then B (128 rows), row-major, row stride kLdK.
+__device__ __forceinline__ void score_chunk(float (&s)[4][8],
+                                            const float* st) {
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const float* A = st + ty * 4 * kLdK;
+  const float* B = st + (kSQ + tx) * kLdK;
+#pragma unroll
+  for (int k = 0; k < kKC; k += 4) {
+    float4 a[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[i] = *reinterpret_cast<const float4*>(A + i * kLdK + k);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float4 b = *reinterpret_cast<const float4*>(B + 16 * j * kLdK + k);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[i][j] = fmaf(a[i].x, b.x, s[i][j]);
+        s[i][j] = fmaf(a[i].y, b.y, s[i][j]);
+        s[i][j] = fmaf(a[i].z, b.z, s[i][j]);
+        s[i][j] = fmaf(a[i].w, b.w, s[i][j]);
+      }
+    }
+  }
+}
+
+// acc[i][4 u + e] += sum_{k < kVK} P[ty * 4 + i][k0 + k] X[k][tx * 4 + 64 u
+// + e]: P the [64][kLdS] score tile, X an output chunk ([kVK][out_ld(NV)]).
+template <int NV>
+__device__ __forceinline__ void out_chunk(float (&acc)[4][4 * NV],
+                                          const float* P, int k0,
+                                          const float* X) {
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const float* Pr = P + ty * 4 * kLdS + k0;
+  const float* Xc = X + tx * 4;
+#pragma unroll
+  for (int k = 0; k < kVK; k += 4) {
+    float4 p[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      p[i] = *reinterpret_cast<const float4*>(Pr + i * kLdS + k);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+#pragma unroll
+      for (int u = 0; u < NV; ++u) {
+        const float4 x = *reinterpret_cast<const float4*>(
+            Xc + (k + e) * out_ld(NV) + 64 * u);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float pe = lane_of(p[i], e);
+          acc[i][4 * u] = fmaf(pe, x.x, acc[i][4 * u]);
+          acc[i][4 * u + 1] = fmaf(pe, x.y, acc[i][4 * u + 1]);
+          acc[i][4 * u + 2] = fmaf(pe, x.z, acc[i][4 * u + 2]);
+          acc[i][4 * u + 3] = fmaf(pe, x.w, acc[i][4 * u + 3]);
+        }
+      }
+    }
+  }
+}
+
+// Chunk `at` of a key tile's sequence in a CUDA-core attention kernel:
+// which key tile, and which chunk of it. Every tile but the last has `per`
+// chunks (its score chunks and kSK / kVK output chunks); the last has
+// fewer output chunks where S ends inside it.
+__device__ __forceinline__ void tile_of(int at, int per, int n_tiles,
+                                        int& t, int& c) {
+  t = min(at / per, n_tiles - 1);
+  c = at - t * per;
+}
+__device__ __forceinline__ int out_chunks(int S, int t) {
+  return (min(kSK, S - t * kSK) + kVK - 1) / kVK;
 }
 
 }  // namespace

@@ -211,7 +211,8 @@ cudaError_t launch_gemm_tc(const Gemm& g, int Z, cudaStream_t st,
 // The strided product in the compute type: bf16 on the tensor cores where
 // the call's operands are `aligned` (Family; the staging of each operand
 // picked by which of its strides is 1), every other call on the CUDA cores
-// (gemm_kernel, which takes no split of the contraction: Ktot 0).
+// (gemm_kernel, hires_common.cuh, which takes no split of the contraction:
+// Ktot 0).
 template <typename T>
 cudaError_t gemm(const Gemm& g, int Z, bool aligned, cudaStream_t st,
                  Report& rep) {
@@ -224,9 +225,7 @@ cudaError_t gemm(const Gemm& g, int Z, bool aligned, cudaStream_t st,
       return launch_gemm_tc<false, false>(g, Z, st, rep);
     }
   }
-  const dim3 grid((g.N + kTile - 1) / kTile, (g.M + kTile - 1) / kTile, Z);
-  gemm_kernel<T><<<grid, kThreads, 0, st>>>(g);
-  return rep.done(0);
+  return gemm_cuda_cores<T>(g, Z, st, rep);
 }
 
 // out_j[i] = sum_{z < splits} part_j[z * n + i] in order of z, for the two

@@ -40,10 +40,13 @@ and Dv, the dq pass up to D, Dv 544, each on its wide kernel past 256
 columns (the forward's o and the dk/dv pass's dk, dv split over the grid,
 the scores recomputed by each slice; the dq pass's dq split between two
 warp groups of one CTA, which share the scores). Every other pass, and
-every fp32 call (the card-vs-CPU checks), runs the CUDA-core kernels,
-which stream every contraction over D or Dv through shared memory 64
-columns at a time and split an output wider than 256 columns over the
-grid. Each wrapper counts its calls in `.launches`, and of them the calls
+every fp32 call (the card-vs-CPU checks), runs the CUDA-core kernels (fp32
+FMAs): the forward, dm/ssum and dq kernels and the strided product on a
+register-tiled product core whose operands stream through a ring of
+shared-memory stages, each key tile's scores formed once for up to 512
+output columns (past that the grid splits the output); the dk/dv kernel
+streams its contractions 64 columns at a time and splits dk, dv wider than
+256 columns over the grid. Each wrapper counts its calls in `.launches`, and of them the calls
 on the CUDA-core kernels in `.cuda_core_launches` and those on the wide
 tensor-core kernels in `.wide_launches`; the C entries report the kernels
 each call launched and the largest dynamic shared memory a CTA of them
@@ -431,6 +434,68 @@ def wide_occupancy(d: int) -> dict:
         for k, name in enumerate(names):
             out[name] = dict(zip(keys, buf[4 * k:4 * k + 4]))
     return out
+
+
+def cuda_core_occupancy() -> dict:
+    """What the card makes of the fp32 CUDA-core kernels with cp.async
+    staging, the fp32 route's: the attention kernel and the dq kernel at NV
+    (or NQ) = 2-8 64-column groups of their output slice, and the dm/ssum
+    kernel, as `wide_occupancy` reports them."""
+    keys = ("registers", "spill_bytes", "smem_bytes", "ctas_per_sm")
+    out = {}
+    for lib, entry, names in (
+            ("hires_attention", "hires_attention_cc_occupancy",
+             [f"hires_attention_kernel<float, {nv}>" for nv in range(2, 9)]),
+            ("hires_attention_bwd", "hires_dq_cc_occupancy",
+             [f"hires_dq_kernel<float, {nq}>" for nq in range(2, 9)]
+             + ["hires_dm_ssum_kernel<float>"])):
+        fn = getattr(library(lib), entry)
+        if fn.argtypes is None:
+            fn.argtypes = [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        buf = (ctypes.c_int * (4 * len(names)))()
+        err = fn(buf)
+        if err != 0:
+            raise RuntimeError(f"{entry}: CUDA error {err}")
+        for k, name in enumerate(names):
+            out[name] = dict(zip(keys, buf[4 * k:4 * k + 4]))
+    return out
+
+
+EPILOGUES = ("f32", "t", "gelu", "dgelu_mul")
+
+
+def strided_product_cuda_cores(a, b, c, *, dims: tuple, strides: tuple,
+                               epilogue: str, dtype, c2=None, bias=None):
+    """The CUDA-core strided product alone (`gemm_kernel` in
+    csrc/hires_common.cuh, through `hires_strided_product`), on card
+    tensors, for its card test: with dims = (M, N, K, KO, Z) and strides =
+    (sAz, sAo, sAm, sAk, sBz, sBo, sBk, sBn, sCz, ldc) in elements, c[z, m,
+    n] (at z sCz + m ldc + n) = epilogue(sum over o < KO, k < K of a[z sAz
+    + o sAo + m sAm + k sAk] b[z sBz + o sBo + k sBk + n sBn]): "f32" + bias
+    into fp32 c, "t" + bias rounded to `dtype`, "gelu": gelu(. + bias)
+    rounded with gelu'(. + bias) into c2 (if given), "dgelu_mul": (.) c2
+    rounded. a, b and c (but fp32 c) in `dtype`; no plain version: the test
+    composes torch products."""
+    for t in (a, b, c):
+        if t.device.type != "cuda":
+            raise ValueError("strided_product_cuda_cores runs on the card")
+    fn = getattr(library("hires_attention"), "hires_strided_product")
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
+                       + [ctypes.c_int] * 5
+                       + [ctypes.POINTER(ctypes.c_longlong),
+                          ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
+                          ctypes.POINTER(ctypes.c_longlong)])
+        fn.restype = ctypes.c_int
+    launched, smem = ctypes.c_int(0), ctypes.c_longlong(0)
+    err = fn(int(dtype == torch.bfloat16), EPILOGUES.index(epilogue),
+             _ptr(a), _ptr(b), _ptr(c), _ptr(c2), _ptr(bias), *dims,
+             (ctypes.c_longlong * 10)(*strides),
+             torch.cuda.current_stream(c.device).cuda_stream,
+             ctypes.byref(launched), ctypes.byref(smem))
+    _raise_on(err, "hires_strided_product", dims, dtype)
+    return launched.value
 
 
 def _on(t: torch.Tensor) -> str:

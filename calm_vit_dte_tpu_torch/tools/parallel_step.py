@@ -27,7 +27,10 @@ injected standard normals, call i of each step from seed n + i),
 from), "meshes" ([[D, M], ...]), "min_shard_dim", "time_noise" (also time
 the step's noise drawn from a generator at the global and at the local
 shapes)}. Every run is fp32, from the config's seed-0 weights, without
-remat, with the optimizer of `OPT`.
+remat, with the optimizer of `OPT`. A run may also name "grads": weight
+names (or their ends), whose gradients after its last step (the mean over
+the ranks, as the optimizer takes it) and, on a mesh, each rank's own
+gradient before that mean go into the output (`tools/dp_grad_drift.py`).
 
 Each output holds the step's metrics, host ms and kernel launches per
 step, the full final state gathered from the ranks (state_dict, moments,
@@ -237,13 +240,20 @@ def run_one(run: dict, mesh, device: torch.device,
                            remat=False, preprocess=pre,
                            microbatches=run.get("microbatches", 1))
     rec = {"metrics": [], "ms": [], "launches": [], "noise_shapes": []}
+    named = [(name, p) for name, p in model.named_parameters()
+             if any(name.endswith(w) for w in run.get("grads", ()))]
+    local: dict = {}
+    def spy():
+        return (_local_grads(model, [n for n, _ in named], local) if named
+                else contextlib.nullcontext())
+
     for _ in range(run["steps"]):
         noise = (NoiseSeq(run["noise_seed"])
                  if run.get("noise_seed") is not None else None)
         before = launch_counts()
         _sync(device)
         t0 = time.perf_counter()
-        with noise_override(noise):
+        with noise_override(noise), spy():
             state, metrics = step(state, batch)
         _sync(device)
         rec["ms"].append((time.perf_counter() - t0) * 1e3)
@@ -255,6 +265,9 @@ def run_one(run: dict, mesh, device: torch.device,
     if run.get("time_noise") and rec["noise_shapes"][-1]:
         rec["noise_global_ms"], rec["noise_local_ms"] = noise_draw_ms(
             rec["noise_shapes"][-1], data, device)
+    if named:
+        rec["grads"] = {n: p.grad.detach().cpu().clone() for n, p in named}
+        rec["local_grads"] = local
     sd, mu, nu = full_tensors(state)
     opt = state.opt_state
     rec.update(
@@ -277,6 +290,28 @@ def run_one(run: dict, mesh, device: torch.device,
         rank=mesh.rank if mesh is not None else 0,
         mesh=[mesh.data, mesh.model] if mesh is not None else [1, 1])
     return rec
+
+
+@contextlib.contextmanager
+def _local_grads(model, names: list[str], out: dict):
+    """Within the scope, each step's rank-local gradients of the named
+    weights, as `train/step.py` hands them to the mean over the ranks, go
+    to `out` (nothing without a mesh: the step takes no mean)."""
+    from calm_vit_dte_tpu_torch.train import step as step_module
+
+    inner = step_module._mean_over_ranks
+    order = [n for n, _ in model.named_parameters()]
+
+    def spy(grads, *args, **kwargs):
+        for n in names:
+            out[n] = grads[order.index(n)].detach().cpu().clone()
+        return inner(grads, *args, **kwargs)
+
+    step_module._mean_over_ranks = spy
+    try:
+        yield
+    finally:
+        step_module._mean_over_ranks = inner
 
 
 def _device(spec: dict, rank: int) -> torch.device:

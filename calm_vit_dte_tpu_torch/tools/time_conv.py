@@ -1,9 +1,9 @@
-"""Time the conv residual's bf16 kernels on the card at a config's conv
-sizes, beside their bytes bound and their CUDA-core floor.
+"""Time the conv residual's kernels on the card at a config's conv sizes,
+beside their bound and their CUDA-core floor.
 
 For every conv S of one forward of each config (imagenet-cls-224 and
 hires-cls-1024 by default) it times, with CUDA events on random inputs from
-a seed, in bf16: the forward (`fused_conv_residual`), the forward that
+a seed, in bf16 (or the --dtype given): the forward (`fused_conv_residual`), the forward that
 saves h and acc (`conv_residual_fwd_resid`) and the recomputing backward
 with its ordered weight-grad sum (`conv_residual_bwd`); each as the median
 of `--reps` runs of 5 launches, and a digest of each kernel's outputs
@@ -15,7 +15,11 @@ backward), with the card's name, power limit and SM clock.
 
     python -m calm_vit_dte_tpu_torch.tools.time_conv \\
         [--config imagenet-cls-224 hires-cls-1024] [--batch 128 8] \\
-        [--reps 5] [--label NAME]
+        [--reps 5] [--dtype bfloat16|float32] [--label NAME]
+
+The bound is the larger of the bytes (each input read once, each output
+written once) over the HBM rate and the operations over the compute type's
+peak (bf16: the bytes, at every size; fp32: the operations at 67 TFLOP/s).
 
 It times the package found first on `sys.path`: to compare two versions of
 the kernels on one card in one run, start it from each checkout's root in
@@ -40,6 +44,11 @@ from calm_vit_dte_tpu_torch.kernels import conv_residual as kc
 from calm_vit_dte_tpu_torch.utils.configs import get_config
 
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
+PEAK_FLOPS = {torch.bfloat16: 989e12,   # H100 SXM dense bf16 tensor cores
+              torch.float32: 67e12}     # H100 SXM fp32 outside them
+# Operations per pixel of each kernel's products (2 x 32 x 15 a forward;
+# the backward three times that), as chip_smoke.py counts them.
+FLOPS = {"fwd": 2 * 32 * 15, "fwd_resid": 2 * 32 * 15, "bwd": 6 * 32 * 15}
 LANES_PER_SM = 128         # fp32 lanes of one SM
 GELU_OPS = 13              # one GELU, csrc/conv_residual_common.cuh
 # Lane-ops per pixel of the work itself (no halo, no loads or stores):
@@ -78,11 +87,14 @@ def card_clock() -> tuple[int, float]:
         float(mhz) * 1e6
 
 
-def bound_ms(kind: str, b: int, s: int) -> float:
-    """Bytes each input read once and each output written once, bf16, over
-    the HBM rate (the operations' time on the tensor cores is smaller)."""
+def bound_ms(kind: str, b: int, s: int, dtype=torch.bfloat16) -> float:
+    """The larger of the bytes each input read once and each output
+    written once in `dtype` over the HBM rate, and the operations over
+    `dtype`'s peak (in bf16 always the bytes)."""
     extra = WEIGHT_BYTES + (32 * 24 * 4 if kind == "bwd" else 0)
-    return (b * s * s * VALUES[kind] * 2 + extra) / PEAK_BYTES * 1e3
+    item = torch.finfo(dtype).bits // 8
+    return max((b * s * s * VALUES[kind] * item + extra) / PEAK_BYTES,
+               FLOPS[kind] * b * s * s / PEAK_FLOPS[dtype]) * 1e3
 
 
 def floor_ms(kind: str, b: int, s: int, sms: int, clock_hz: float) -> float:
@@ -90,17 +102,16 @@ def floor_ms(kind: str, b: int, s: int, sms: int, clock_hz: float) -> float:
     return LANE_OPS[kind] * b * s * s / (sms * LANES_PER_SM * clock_hz) * 1e3
 
 
-def inputs(b: int, s: int, seed: int) -> tuple:
-    """x, g (B,S,S,3) bf16 on the card and the fp32 weights (w1, b1, wd,
-    bd, w2, b2) at the scales of the GPU tests."""
+def inputs(b: int, s: int, seed: int, dt=torch.bfloat16) -> tuple:
+    """x, g (B,S,S,3) in `dt` on the card and the fp32 weights (w1, b1,
+    wd, bd, w2, b2) at the scales of the GPU tests."""
     rng = np.random.default_rng(seed)
 
     def n(*shape, scale=1.0, dt=torch.float32):
         return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
             np.float32)).to(device="cuda", dtype=dt)
 
-    bf16 = torch.bfloat16
-    return (n(b, s, s, 3, dt=bf16), n(b, s, s, 3, scale=0.5, dt=bf16),
+    return (n(b, s, s, 3, dt=dt), n(b, s, s, 3, scale=0.5, dt=dt),
             (n(32, 3, scale=0.3), n(32, scale=0.1), n(3, 3, 32, scale=0.3),
              n(32, scale=0.1), n(3, 32, scale=0.2), n(3, scale=0.1)))
 
@@ -130,23 +141,22 @@ def digest(out) -> str:
 
 
 def time_config(name: str, b: int, reps: int, sms: int,
-                clock_hz: float) -> list[dict]:
-    bf16 = torch.bfloat16
+                clock_hz: float, dtype=torch.bfloat16) -> list[dict]:
     rows = []
     for s, launches in sorted(conv_sizes(get_config(name).model).items(),
                               reverse=True):
-        x, g, w = inputs(b, s, seed=s)
+        x, g, w = inputs(b, s, seed=s, dt=dtype)
         calls = {
-            "fwd": lambda: kc.fused_conv_residual(x, *w, dtype=bf16),
+            "fwd": lambda: kc.fused_conv_residual(x, *w, dtype=dtype),
             "fwd_resid": lambda: kc.conv_residual_fwd_resid(x, *w,
-                                                            dtype=bf16),
-            "bwd": lambda: kc.conv_residual_bwd(x, g, *w[:5], dtype=bf16),
+                                                            dtype=dtype),
+            "bwd": lambda: kc.conv_residual_bwd(x, g, *w[:5], dtype=dtype),
         }
         row = {"config": name, "S": s, "B": b, "launches": launches}
         for kind, fn in calls.items():
             row[f"{kind}_ms"] = median_ms(fn, reps)
             row[f"{kind}_digest"] = digest(fn())
-            row[f"{kind}_bound_ms"] = bound_ms(kind, b, s)
+            row[f"{kind}_bound_ms"] = bound_ms(kind, b, s, dtype)
             row[f"{kind}_floor_ms"] = floor_ms(kind, b, s, sms, clock_hz)
         print(json.dumps(row), flush=True)
         rows.append(row)
@@ -162,6 +172,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--batch", type=int, nargs="+", default=[128, 8])
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--label", default="")
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"),
+                    default="bfloat16")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("time_conv times CUDA kernels: no card")
@@ -171,11 +183,13 @@ def main(argv=None) -> dict:
         timeout=60, check=True).stdout.strip().splitlines()[0]
     sms, clock_hz = card_clock()
     out = {"label": a.label, "package": kc.__file__, "card": smi,
+           "dtype": a.dtype,
            "sms": sms, "clock_mhz": clock_hz / 1e6}
     if hasattr(kc, "card_occupancy"):
         out["occupancy"] = kc.card_occupancy()
     for name, b in zip(a.config, a.batch):
-        rows = time_config(name, b, a.reps, sms, clock_hz)
+        rows = time_config(name, b, a.reps, sms, clock_hz,
+                           getattr(torch, a.dtype))
         out[name] = {
             f"{kind}_{what}": sum(r["launches"] * r[f"{kind}_{what}"]
                                   for r in rows)

@@ -2,8 +2,9 @@
 `hires-cls-1024`'s shapes, by part, beside their library yardsticks.
 
 For every kernel shape (S, D, Dv) of one hires forward it times, at B=8
-bf16 on random inputs from a seed, with CUDA events (median of the
-repetitions): the forward with residuals (`hires_fwd_res`), the
+in bf16 (or the --dtype given) on random inputs from a seed, with CUDA
+events (median of the repetitions), beside each call's bound (`bound_ms`):
+the forward with residuals (`hires_fwd_res`), the
 forward-only kernel (`fused_attention_forward`, also with the mask off:
 the attention kernel alone), the dq pass with its weight-grad reduction
 (`hires_dq`) and the dk/dv pass (`hires_dkv`). A
@@ -26,8 +27,12 @@ per hires forward (per training step for the passes of the backward),
 with the card's name and power limit.
 
     python -m calm_vit_dte_tpu_torch.tools.time_hires [--batch 8] \\
-        [--heads 12] [--reps 5] [--step] [--no-yardsticks] \\
-        [--trace-dir DIR]
+        [--heads 12] [--dtype bfloat16|float32] [--plain] [--reps 5] \\
+        [--step] [--no-yardsticks] [--trace-dir DIR]
+
+With --dtype float32 every pass runs the CUDA-core kernels (the card-vs-CPU
+checks' route), and the yardsticks run in fp32 too; --step always traces the
+model's bf16 training step.
 
 It times the package found first on `sys.path`: to compare two versions of
 the kernels on one card in one run, start it from each checkout's root in
@@ -53,6 +58,9 @@ from calm_vit_dte_tpu_torch.kernels import hires_attention as kh
 from calm_vit_dte_tpu_torch.utils.configs import get_config
 
 H = 12   # hires-cls-1024's heads; --heads overrides
+PEAK_FLOPS = {torch.bfloat16: 989e12,  # H100 SXM dense bf16 tensor cores
+              torch.float32: 67e12}    # H100 SXM fp32 outside them
+PEAK_BYTES = 3.35e12                   # H100 SXM HBM3
 
 # Kernel families of the hires route, by (demangled) kernel name: the fp32
 # and first-design bf16 kernels and the tensor-core ones, the wide ones
@@ -105,6 +113,27 @@ def inputs(b: int, s: int, d: int, dv: int, seed: int, dtype=torch.bfloat16,
     return args, n(b, heads, s, dv, scale=0.3, dt=dtype)
 
 
+def bound_ms(b: int, h: int, s: int, d: int, dv: int, dtype) -> dict:
+    """The least ms the card could take for each call: the larger of its
+    bytes (each input read once, each output written once) over the HBM
+    rate and its products' operations (the mask MLP's included) over the
+    compute type's peak (bf16 tensor cores, or fp32 outside them)."""
+    item = torch.finfo(dtype).bits // 8
+    mlp = 4 * b * s ** 3                       # one (B*S, S) x (S, 2S) product
+    qkvo = b * h * s * (2 * d + 2 * dv) * item
+    weights = (2 * s * 2 * s + 3 * s) * 4
+    sq, vec = b * s * s * 4, b * h * s * 4      # an fp32 (B, S, S); lse
+    attn = 2 * b * h * s * s * (d + dv)
+    work = {"fwd_only": (qkvo + weights, attn + 2 * mlp),
+            "fwd_res": (qkvo + weights + sq + vec, attn + 2 * mlp),
+            "dq": (qkvo + weights + 2 * sq + 2 * vec + b * h * s * d * item
+                   + weights, 2 * b * h * s * s * (2 * d + dv) + 5 * mlp),
+            "dkv": (qkvo + b * h * s * (d + dv) * item + 2 * sq + 2 * vec,
+                    2 * attn)}
+    return {k: max(nb / PEAK_BYTES, fl / PEAK_FLOPS[dtype]) * 1e3
+            for k, (nb, fl) in work.items()}
+
+
 def median_ms(fn, reps: int) -> float:
     fn()
     fn()
@@ -120,6 +149,12 @@ def median_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
+def part_of(kernel: str) -> str:
+    """The part (PARTS) of a kernel by its demangled name, or "other"."""
+    return next((p for p, needles in PARTS.items()
+                 if any(n in kernel for n in needles)), "other")
+
+
 def split(events, counts: dict | None = None) -> dict[str, float]:
     """Device ms of each part (PARTS) and of everything else, from a
     profiler's key_averages(); `counts`, if given, receives each part's
@@ -129,8 +164,7 @@ def split(events, counts: dict | None = None) -> dict[str, float]:
     for e in events:
         if e.device_type.name != "CUDA":
             continue
-        part = next((p for p, needles in PARTS.items()
-                     if any(n in e.key for n in needles)), "other")
+        part = part_of(e.key)
         out[part] += e.self_device_time_total / 1e3
         if counts is not None:
             counts[part] = counts.get(part, 0) + e.count
@@ -226,14 +260,15 @@ def yardsticks(args, reps: int) -> dict[str, float]:
 
 def time_shape(b: int, s: int, d: int, dv: int, seed: int, reps: int,
                plain: bool = False, with_yardsticks: bool = True,
-               heads: int = H, trace_dir: pathlib.Path | None = None) -> dict:
+               heads: int = H, trace_dir: pathlib.Path | None = None,
+               dtype=torch.bfloat16) -> dict:
     """Times of the four kernels (and, with `plain`, their plain versions),
-    their parts and the yardsticks at one shape; with `trace_dir`, one
-    traced call of each (`trace_call`)."""
+    their parts and the yardsticks at one shape in `dtype`; with
+    `trace_dir`, one traced call of each (`trace_call`)."""
     from calm_vit_dte_tpu_torch.kernels.axial_attention import attention_core
 
-    args, g = inputs(b, s, d, dv, seed, heads=heads)
-    kw = dict(scale=d ** -0.5, dtype=torch.bfloat16)
+    args, g = inputs(b, s, d, dv, seed, dtype=dtype, heads=heads)
+    kw = dict(scale=d ** -0.5, dtype=dtype)
     q, k, v, w1, b1, w2, _ = args
     with torch.no_grad():
         o, m, lse = kh.hires_fwd_res_plain(*args, **kw)
@@ -254,11 +289,13 @@ def time_shape(b: int, s: int, d: int, dv: int, seed: int, reps: int,
                     lambda: kh.hires_dkv_plain(q, k, v, g, m, lse, delta,
                                                dssum, **kw)),
         }
-        row = {"shape": [s, d, dv], "heads": heads}
+        row = {"shape": [s, d, dv], "heads": heads,
+               "dtype": str(dtype).removeprefix("torch.")}
+        bounds = bound_ms(b, heads, s, d, dv, dtype)
         for name, (kern, ref) in calls.items():
             parts, traces = parts_ms(kern, 3)
             row[name] = {"ms": median_ms(kern, reps), "parts_ms": parts,
-                         "traces": traces}
+                         "traces": traces, "bound_ms": bounds[name]}
             if plain:
                 row[name]["plain_ms"] = median_ms(ref, max(2, reps // 2))
             if trace_dir is not None:
@@ -323,6 +360,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--heads", type=int, default=H)
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"),
+                    default="bfloat16")
+    ap.add_argument("--plain", action="store_true",
+                    help="also time each pass's plain PyTorch version")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--step", action="store_true")
     ap.add_argument("--no-yardsticks", action="store_true")
@@ -331,6 +372,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("time_hires needs a CUDA card")
+    dtype = getattr(torch, args.dtype)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -339,20 +381,27 @@ def main(argv=None) -> int:
         get_config("hires-cls-1024").model, heads=args.heads))
     widest = max(shapes, key=lambda k: (k[1], k[2]))
     sums = {k: 0.0 for k in ("fwd_res", "fwd_only", "dq", "dkv")}
+    bound_sums, plain_sums = dict.fromkeys(sums, 0.0), dict.fromkeys(sums, 0.0)
     for i, ((s, d, dv), n) in enumerate(sorted(shapes.items(),
                                                reverse=True)):
         row = time_shape(args.batch, s, d, dv, seed=900 + i, reps=args.reps,
+                         plain=args.plain,
                          with_yardsticks=not args.no_yardsticks,
-                         heads=args.heads,
+                         heads=args.heads, dtype=dtype,
                          trace_dir=(args.trace_dir if (s, d, dv) == widest
                                     else None))
         row["launches"] = n
         for k in sums:
             sums[k] += n * row[k]["ms"]
+            bound_sums[k] += n * row[k]["bound_ms"]
+            plain_sums[k] += n * row[k].get("plain_ms", 0.0)
         print(json.dumps(row), flush=True)
         torch.cuda.empty_cache()
-    out = {"batch": args.batch, "heads": args.heads,
-           "per_hires_step_or_forward_ms": sums, "card": smi}
+    out = {"batch": args.batch, "heads": args.heads, "dtype": args.dtype,
+           "per_hires_step_or_forward_ms": sums,
+           "bound_per_hires_step_or_forward_ms": bound_sums, "card": smi}
+    if args.plain:
+        out["plain_per_hires_step_or_forward_ms"] = plain_sums
     if args.step:
         out["train_step"] = trace_step(args.batch, args.heads)
     print(json.dumps(out), flush=True)

@@ -13,8 +13,9 @@ Phases, each fatal on failure (any exception exits non-zero):
              links, or why not;
   2. build   the CUDA kernels with nvcc for sm_90a, one nvcc per source in
              parallel, printing each source's register and spill figures
-             from ptxas (the full log stays in build/torch_kernels/); a
-             spill in a hires tensor-core kernel fails the run; every conv
+             from ptxas (the full log stays in build/torch_kernels/) and
+             each hires tensor-core and CUDA-core kernel's; a spill in a
+             hires tensor-core kernel fails the run; every conv
              kernel instantiation's registers, spills, shared memory a CTA
              and CTAs per SM as the CUDA runtime reports them (the bf16
              ones must keep the CTAs an SM their launch bounds ask for,
@@ -231,7 +232,8 @@ Phases, each fatal on failure (any exception exits non-zero):
              1020 and head dims off the multiple of 8) against their plain
              versions as phase 8 holds the tensor-core ones, bf16 twice
              bit for bit, and timed at B=8 (the wide kernels in bf16, the
-             CUDA-core kernels in fp32), with the wide kernels' registers,
+             CUDA-core kernels in fp32), with the wide kernels' and the
+             fp32 CUDA-core forward, dq and dm/ssum kernels' registers,
              spills, shared memory and CTAs per SM from the runtime (a
              spill fails the run); (b) 'chunked' (chunk
              2) against 'xla' forced at B 16, H 6,
@@ -419,6 +421,10 @@ TENSOR_CORE_KERNELS = ("rope_attention_fwd_bf16_kernel", "bwd_rows_kernel",
                        "hires_attention_wide_bf16_kernel",
                        "hires_dq_wide_bf16_kernel",
                        "hires_dkv_wide_bf16_kernel")
+# The CUDA-core hires kernels of the fp32 route, whose registers and
+# spills phase 2 prints too.
+CUDA_CORE_KERNELS = ("hires_attention_kernel", "hires_dq_kernel",
+                     "hires_dm_ssum_kernel", "gemm_kernel")
 # The hires tensor-core kernels, whose ptxas reports must show no spills.
 NO_SPILL_KERNELS = ("hires_attention_bf16_kernel",
                     "hires_dm_ssum_bf16_kernel", "hires_dq_bf16_kernel",
@@ -441,10 +447,14 @@ def kernel_registers(ptxas_log):
             spill = int(m.group(1))
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            known = [k for k in TENSOR_CORE_KERNELS if k in name]
-            targs = re.search(r"I((?:L[ib]\d+E)+)E", name)
+            known = [k for k in TENSOR_CORE_KERNELS + CUDA_CORE_KERNELS
+                     if k in name]
+            targs = re.search(r"I((?:L[ib]\d+E|f|13__nv_bfloat16)+)E", name)
             short = (known[0] if known else name) + (
-                "<" + ", ".join(re.findall(r"L[ib](\d+)E", targs.group(1)))
+                "<" + ", ".join(
+                    {"f": "float", "13__nv_bfloat16": "bf16"}.get(t, t[2:-1])
+                    for t in re.findall(r"L[ib]\d+E|f|13__nv_bfloat16",
+                                        targs.group(1)))
                 + ">" if targs else "")
             rows.append((short, int(m.group(1)), spill))
             name = None
@@ -3523,7 +3533,22 @@ def routes_phase(torch, name, smi):
                 f"memory a CTA, {o['ctas_per_sm']} CTAs per SM")
             if o["spill_bytes"] or o["ctas_per_sm"] < 1:
                 raise AssertionError(f"routes: {kname} at D={d}: {o}")
+    # The fp32 CUDA-core kernels (the fp32 route's, cp.async staging) as
+    # the card makes them; one that spills fails the run.
+    cc_occupancy = kh.cuda_core_occupancy()
+    for kname, o in cc_occupancy.items():
+        log(f"[routes] {kname}: {o['registers']} registers, spill "
+            f"{o['spill_bytes']} bytes, {o['smem_bytes']} bytes of shared "
+            f"memory a CTA, {o['ctas_per_sm']} CTAs per SM")
+        if o["spill_bytes"] or o["ctas_per_sm"] < 1:
+            raise AssertionError(f"routes: {kname}: {o}")
     for k in wide_kernels:
+        if k["name"].endswith("_cuda_core"):
+            stem = {"dq": ("hires_dq_kernel", "hires_dm_ssum_kernel"),
+                    "dkv": ()}.get(k["name"].split("_")[2],
+                                   ("hires_attention_kernel",))
+            k["occupancy"] = {n: o for n, o in cc_occupancy.items()
+                              if n.startswith(stem)}
         if k["name"].endswith("_wide"):
             stem = {"dkv": "hires_dkv_wide_bf16_kernel",
                     "dq": "hires_dq_wide_bf16_kernel"}.get(
@@ -3884,7 +3909,8 @@ def main() -> int:
             f"{min(regs)}-{max(regs)} registers, largest spill "
             f"{max(spills)} bytes")
         for kname, kregs, kspill in kernel_registers(text):
-            if any(k in kname for k in TENSOR_CORE_KERNELS):
+            if any(k in kname for k in TENSOR_CORE_KERNELS
+                   + CUDA_CORE_KERNELS):
                 log(f"[build] {src}: {kname}: {kregs} registers, spill "
                     f"{kspill} bytes")
             if kspill and any(k in kname for k in NO_SPILL_KERNELS):

@@ -712,29 +712,35 @@ def test_hires_kernels_ragged_shape_match_plain(cuda_device):
     assert _norm_err(out, ref) <= 2 * _norm_err(plain, ref) + 1e-6
 
 
-# Shapes past the D, Dv <= 256 tensor-core kernels, (H, S, D, Dv): the
-# six-head hires-cls-1024 stages (D over 256: the output split over the
-# grid or the dq CTA's warp groups), a D unequal to Dv on both sides of 256
-# (a partial slice on the D side; Dv past 256 with D below it), D = Dv 16
-# past the wide dq kernel's limit (its pass on the CUDA cores), a bf16 S
-# off the multiple of 8, and bf16 head dims off the multiple with an S off
-# it.
+# Shapes of the CUDA-core kernels (every fp32 call) and past the D, Dv <=
+# 256 tensor-core kernels, (H, S, D, Dv): the six-head hires-cls-1024
+# stages (D over 256: the output split over the grid or the dq CTA's warp
+# groups), a D unequal to Dv on both sides of 256 (a partial slice on the D
+# side; Dv past 256 with D below it), D = Dv 16 past the wide dq kernel's
+# limit (its pass on the CUDA cores), a bf16 S off the multiple of 8, and
+# bf16 head dims off the multiple with an S off it; then the CUDA-core
+# kernels' tiling edges: S off the multiple of 64 (and of the 128-key
+# tile), fp32 D off the multiple of 4 (no cp.async staging), D = Dv = 520
+# (just past the 512 output columns of one CTA), D and Dv unequal on both
+# sides of 512, and a twelve-head fp32 shape at D <= 256.
 WIDE_SHAPES = [(6, 1024, 512, 512), (6, 832, 416, 416), (6, 640, 320, 320),
                (4, 256, 264, 200), (4, 256, 200, 264), (1, 128, 560, 560),
-               (4, 1020, 256, 256), (3, 192, 130, 300), (2, 132, 76, 36)]
+               (4, 1020, 256, 256), (3, 192, 130, 300), (2, 132, 76, 36),
+               (2, 200, 64, 96), (2, 130, 66, 34), (1, 192, 520, 520),
+               (1, 192, 576, 136), (1, 192, 136, 576), (12, 448, 112, 112)]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("h,s,d,dv", WIDE_SHAPES,
                          ids=lambda x: str(x))
 def test_hires_cuda_core_kernels_match_plain(cuda_device, h, s, d, dv):
-    """The four hires kernels at shapes the D, Dv <= 256 tensor-core
-    kernels do not take: in fp32 the CUDA-core kernels; in bf16 the wide
-    tensor-core kernels where S, D, Dv are multiples of 8 (the dq pass
-    past D, Dv 544 on the CUDA cores), else the CUDA-core kernels, as the
-    wrappers' counters show. fp32 forward at rtol 2e-4 / atol 2e-5 and
-    backward within 1e-4 of each output's largest value, bf16 at most twice
-    the plain bf16 error and the same bits from two launches."""
+    """The four hires kernels at WIDE_SHAPES: in fp32 the CUDA-core
+    kernels; in bf16 the tensor-core kernels where S, D, Dv are multiples of
+    8 (the wide ones past 256; the dq pass past D, Dv 544 on the CUDA
+    cores), else the CUDA-core kernels, as the wrappers' counters show.
+    fp32 forward at rtol 2e-4 / atol 2e-5 and backward within 1e-4 of each
+    output's largest value, bf16 at most twice the plain bf16 error and the
+    same bits from two launches."""
     from calm_vit_dte_tpu_torch.kernels import hires_attention as kh
 
     rng = np.random.default_rng(s + d + dv)
@@ -801,11 +807,13 @@ def test_hires_cuda_core_kernels_match_plain(cuda_device, h, s, d, dv):
                          False)
     again = _hires_bwd_all(kh, a16, g16, m16, lse16, delta16, scale, bf16,
                            False)
-    # Two launches of each forward, then of each backward pass.
-    family = (0, 2) if aligned else (2, 0)
-    dq_family = (0, 2) if dq_tc else (2, 0)
+    # Two launches of each forward, then of each backward pass, counted by
+    # the family that ran them.
+    counts = {"cuda_core": (2, 0), "wide": (0, 2), "tensor_cores": (0, 0)}
     assert [(c - c0, w - w0) for (c, w), (c0, w0) in
-            zip(families(), before)] == [family, family, dq_family, family]
+            zip(families(), before)] == [
+                counts[kh.family(s, d, dv, bf16, p_)]
+                for p_ in ("fwd", "fwd", "dq", "dkv")]
     b16 = _hires_bwd_all(kh, a16, g16, m16, lse16, delta16, scale, bf16,
                          True)
     r32 = _hires_bwd_all(kh, a32, g16.float(), m16, lse16, delta16, scale,
@@ -813,6 +821,81 @@ def test_hires_cuda_core_kernels_match_plain(cuda_device, h, s, d, dv):
     for name, x, y, r, z in zip(HIRES_BWD_NAMES, k16, b16, r32, again):
         assert _norm_err(x, r) <= 2 * _norm_err(y, r) + 1e-6, name
         assert torch.equal(x, z), f"bf16 {name} differs between two runs"
+
+
+# The strided product's stagings, (A's, B's unit-stride axis): the heads'
+# summed scores (k, k), the mask MLP (k, n), the weight grads (m, n).
+STRIDE_ORDERS = [("k", "k"), ("k", "n"), ("m", "n"), ("m", "k")]
+
+
+# (M, N, K): off every multiple (the register staging), multiples of 4
+# (fp32: cp.async staging), and, in fp32, enough 128 x 128 tiles for that
+# tiling.
+PRODUCT_DIMS = [(197, 141, 83), (196, 140, 84), (1540, 1544, 84)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dims", PRODUCT_DIMS, ids=lambda x: str(x))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("a_fast,b_fast", STRIDE_ORDERS)
+def test_hires_cuda_core_product_epilogues(cuda_device, a_fast, b_fast,
+                                           dtype, dims):
+    """The CUDA-core strided product (`gemm_kernel`) against torch at each
+    staging of its operands and each epilogue: C = A B (+ bias) in fp32,
+    rounded to the compute type, through the GELU with gelu' beside it,
+    and times a given gelu'. Two batches, two heads summed (the outer
+    contraction); each output within 1e-6 of the sum of its terms' sizes
+    (the factor the epilogue puts on it included) of fp64 products of the
+    same operands, plus one bf16 rounding where the output is bf16."""
+    from calm_vit_dte_tpu_torch.kernels import hires_attention as kh
+
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(17)
+    z, ko = 2, 2
+    m, n, k = dims
+    a = _normal(rng, cuda_device, z, ko, m, k).to(dt)
+    b = _normal(rng, cuda_device, z, ko, k, n).to(dt)
+    # Stored with the unit-stride axis each staging asks for.
+    a_st = a if a_fast == "k" else a.transpose(-1, -2).contiguous()
+    b_st = b.transpose(-1, -2).contiguous() if b_fast == "k" else b
+    sa = (ko * m * k, m * k) + ((k, 1) if a_fast == "k" else (1, m))
+    sb = (ko * k * n, k * n) + ((1, k) if b_fast == "k" else (n, 1))
+    want = (a.double() @ b.double()).sum(1)          # (z, m, n)
+    # Sums of |terms|: an fp32 sum of them errs by a small multiple of
+    # eps32 times this; 1e-6 (8.4 eps32) is well above its typical error.
+    mag = (a.double().abs() @ b.double().abs()).sum(1)
+    bias = _normal(rng, cuda_device, n, scale=0.5)
+    gp = _normal(rng, cuda_device, z, m, n)
+    h = want + bias.double()
+    gelu = torch.nn.functional.gelu(h)
+    dgelu = (0.5 * (1 + torch.erf(h / math.sqrt(2)))
+             + h * torch.exp(-0.5 * h * h) / math.sqrt(2 * math.pi))
+    # (reference, the factor the epilogue puts on the sum's error, gelu')
+    cases = {"f32": (h, 1.0, None), "t": (h, 1.0, None),
+             "gelu": (gelu, 1.2, dgelu),
+             "dgelu_mul": (want * gp.double(), gp.double().abs(), None)}
+    for epilogue, (ref, factor, ref2) in cases.items():
+        out_dt = torch.float32 if epilogue == "f32" else dt
+        c = torch.full((z, m, n), float("nan"), device=cuda_device,
+                       dtype=out_dt)
+        c2 = gp.clone() if epilogue == "dgelu_mul" else \
+            torch.full((z, m, n), float("nan"), device=cuda_device)
+        launched = kh.strided_product_cuda_cores(
+            a_st, b_st, c, dims=(m, n, k, ko, z),
+            strides=sa + sb + (m * n, n), epilogue=epilogue, dtype=dt,
+            c2=c2, bias=None if epilogue == "dgelu_mul" else bias)
+        torch.cuda.synchronize()
+        assert launched == 1
+        # One rounding to bf16 of the output, where it is bf16.
+        rounding = 2 ** -8 if out_dt == torch.bfloat16 else 0.0
+        bound = 1e-6 * mag * factor + 1e-6 + rounding * ref.abs()
+        err = (c.double() - ref).abs()
+        assert bool((err <= bound).all()), (
+            epilogue, float((err - bound).max()))
+        if ref2 is not None:
+            err2 = (c2.double() - ref2).abs()
+            assert bool((err2 <= 1e-6 * mag + 1e-6).all()), (
+                "gelu'", float((err2 - 1e-6 * mag - 1e-6).max()))
 
 
 @pytest.mark.gpu
