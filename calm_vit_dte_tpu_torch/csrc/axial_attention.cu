@@ -17,12 +17,13 @@
 // every product accumulates in fp32, and the output is stored in the
 // compute type. GELU is exact (erff).
 //
-// Two kernels compute the function:
+// Two routes compute the function:
 //   * bf16 (the training and serving route): rope_attention_fwd_bf16_kernel
 //     below, every product on the tensor cores (mma.sync.m16n8k16, bf16 in,
 //     fp32 accumulate; building blocks in mma_common.cuh and rope_mma.cuh);
-//   * fp32 (the card-vs-CPU parity checks): the CUDA-core kernel, every
-//     product an fp32 FMA.
+//   * fp32 (the card-vs-CPU parity checks, the DP/TP steps held to fp32
+//     limits, fp32 training): every product an fp32 FMA on the CUDA cores,
+//     on the hires sources' CUDA-core kernels (see "fp32 route" below).
 //
 // What bounds it on the H100: at the flagship's widest shape (B=128, H=12,
 // S=224, D=Dv=56, bf16) the function needs 2*B*H*S^2*(D+Dv) + 4*B*S^2*2S =
@@ -90,255 +91,46 @@
 // 65536). More resident warps need fewer registers per thread, which the
 // scores (S/2 fp32 per thread) rule out at S > 160.
 //
-// CUDA-core kernel design (fp32):
-//   * one CTA per (query tile of 32 rows, batch element); 8 warps, each
-//     owning 4 query rows, lanes spanning the keys (key j = lane + 32c), so
-//     row reductions (softmax max/sum) are warp shuffles;
-//   * pass 1 loops over the heads, rotating q/k while loading them into
-//     shared memory and accumulating ssum in registers; the mask MLP streams
-//     W1^T / W2^T from global memory through L1/L2; pass 2 loops over the
-//     heads again: recompute the scores, add m, fp32 softmax, p . v.
+// fp32 route design. The first design (one CTA of 8 warps per 32 query
+// rows and batch element, the heads walked in a loop, the mask MLP's
+// weights streamed from L2 by every warp for its 4 rows, q and k rotated
+// again for every head of every pass) took 13.913 ms per flagship forward
+// at B=8 on an H100 (1.44% of its 0.1997 ms fp32 bound, PERF.md §6): 56
+// CTAs at S = 224, one shared-memory load per 4 FMAs. The function is the
+// hires function (hires_attention.cu) on rotated q and k, and S <= 256,
+// D <= 64 sit inside what the hires CUDA-core kernels take, so the route's
+// C entry, rope_attention_fwd_f32, sits in hires_attention.cu beside the
+// kernels it launches (one call, no transposed weights), and launches:
+//   1. rope_prep_f32_kernel (rope_f32.cuh): q and k rotated once per call,
+//      as the plain version rounds it (x cos + rot(x) sin, each product and
+//      the sum rounded to fp32), into rows of pad4(D) floats, zero-padded,
+//      so every later tile moves by 16-byte cp.async and nothing is rotated
+//      per head or per pass (zero columns add nothing to a score);
+//   2. with the mask, three strided products over the B*S rows (gemm_kernel,
+//      hires_common.cuh; on these small grids 64 x 64 tiles of 256 threads
+//      in four groups that split each 32-deep chunk): ssum = sum_h q_h k_h^T
+//      with the heads as the outer contraction, h1 -> a through the GELU
+//      epilogue and m = a W2^T + b2, W1 and W2 read as they lie; the weights
+//      pass through shared memory once per 64-row tile, not once per 4 rows;
+//   3. the CUDA-core attention kernel (hires_attention_kernel) on a grid
+//      over (query tile of 64, head, batch element): 4 x 8 score tiles a
+//      thread, an online softmax over 128-key tiles (at S <= 256 one or
+//      two), o += p v from a three-stage cp.async ring (16-byte fp32 rows)
+//      or through registers (rows off the multiple of 4: odd Dv).
+// So a flagship forward at B = 8 runs 384 attention CTAs at S = 224
+// (first design: 56). The call launches 2 kernels without the mask, 5 with
+// it (the wrapper adds the 4 past the counted one to `.stage_launches`).
+// The attention CTA's shared memory (cc_smem, hires_common.cuh: the score
+// tile and three ring stages; the strided products' CTAs ask for less;
+// CTAs per SM by shared memory, kernels/axial_attention.py::f32_smem_bytes):
+//   f32_forward at (S, D, Dv) = (224, 56, 56): 116736 bytes, 1 CTA per SM
+//   f32_forward at (S, D, Dv) = (176, 44, 44): 116736 bytes, 1 CTA per SM
+//   f32_forward at (S, D, Dv) = (256, 64, 64): 116736 bytes, 1 CTA per SM
 
 #include "attention_common.cuh"
 #include "rope_mma.cuh"
 
 namespace {
-
-template <typename T, int NC>
-__global__ void __launch_bounds__(kThreads) rope_attention_fwd_kernel(
-    const T* __restrict__ qc, const T* __restrict__ kc,
-    const T* __restrict__ qr, const T* __restrict__ kr,
-    const T* __restrict__ v, const float* __restrict__ cos_q,
-    const float* __restrict__ sin_q, const float* __restrict__ cos_k,
-    const float* __restrict__ sin_k, const float* __restrict__ w1t,
-    const float* __restrict__ b1, const float* __restrict__ w2t,
-    const float* __restrict__ b2, T* __restrict__ out, int H, int S, int Dc,
-    int Dr, int Dv, float scale, int use_mask) {
-  extern __shared__ float smem[];
-  constexpr int SP = NC * 32;  // key count padded to whole lanes
-  const int D = Dc + Dr;
-  const int ld = D | 1;
-  const int ldkv = ld > Dv ? ld : Dv;
-  float* sQ = smem;               // kTq x ld       q tile of one head
-  float* sKV = sQ + kTq * ld;     // SP x ldkv      k_h (stride ld), then v_h
-  float* sM = sKV + SP * ldkv;    // kTq x SP       ssum, then the mask m
-  float* sP = sM + kTq * SP;      // kTq x 2SP      mask hidden a, then p
-
-  const int b = blockIdx.y;
-  const int q0 = blockIdx.x * kTq;
-  const int lane = threadIdx.x & 31;
-  const int r0 = (threadIdx.x >> 5) * kRows;
-  const size_t bh0 = (size_t)b * H;
-  auto head = [&](const T* base, int h, int dim) -> const T* {
-    return base ? base + (bh0 + h) * S * dim : nullptr;
-  };
-
-  if (use_mask) {
-    // Pass 1: head-summed scores, in registers.
-    float acc[kRows][NC];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-    for (int h = 0; h < H; ++h) {
-      load_rows<T>(sQ, ld, kTq, q0, S, head(qc, h, Dc), head(qr, h, Dr),
-                   cos_q, sin_q, Dc, Dr, D);
-      load_rows<T>(sKV, ld, SP, 0, S, head(kc, h, Dc), head(kr, h, Dr),
-                   cos_k, sin_k, Dc, Dr, D);
-      __syncthreads();
-      qk<NC>(acc, sQ, sKV, ld, D, r0, lane);
-      __syncthreads();
-    }
-    // Each warp runs the mask MLP on its own 4 rows.
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int c = 0; c < NC; ++c)
-        sM[(r0 + i) * SP + lane + 32 * c] = rnd<T>(acc[i][c]);
-    __syncwarp();
-
-    const int S2 = 2 * S;
-    float hacc[kRows][2 * NC];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int c = 0; c < 2 * NC; ++c) hacc[i][c] = 0.f;
-    for (int k = 0; k < S; ++k) {
-      float sv[kRows];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) sv[i] = sM[(r0 + i) * SP + k];
-      const float* wrow = w1t + (size_t)k * S2;
-#pragma unroll
-      for (int c = 0; c < 2 * NC; ++c) {
-        const int j = lane + 32 * c;
-        const float w = j < S2 ? rnd<T>(__ldg(wrow + j)) : 0.f;
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) hacc[i][c] = fmaf(sv[i], w, hacc[i][c]);
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < 2 * NC; ++c) {
-      const int j = lane + 32 * c;
-      if (j < S2) {
-        const float bj = __ldg(b1 + j);
-#pragma unroll
-        for (int i = 0; i < kRows; ++i)
-          sP[(r0 + i) * 2 * SP + j] = rnd<T>(gelu(hacc[i][c] + bj));
-      }
-    }
-    __syncwarp();
-
-    float macc[kRows][NC];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int c = 0; c < NC; ++c) macc[i][c] = 0.f;
-    for (int j = 0; j < S2; ++j) {
-      float av[kRows];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) av[i] = sP[(r0 + i) * 2 * SP + j];
-      const float* wrow = w2t + (size_t)j * S;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int k = lane + 32 * c;
-        const float w = k < S ? rnd<T>(__ldg(wrow + k)) : 0.f;
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) macc[i][c] = fmaf(av[i], w, macc[i][c]);
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int k = lane + 32 * c;
-      const float bk = k < S ? __ldg(b2 + k) : 0.f;
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) sM[(r0 + i) * SP + k] = macc[i][c] + bk;
-    }
-  }
-
-  // Pass 2: per head, scores + mask -> fp32 softmax -> p . v.
-  for (int h = 0; h < H; ++h) {
-    __syncthreads();  // the previous head is done with sQ, sKV and sP
-    load_rows<T>(sQ, ld, kTq, q0, S, head(qc, h, Dc), head(qr, h, Dr), cos_q,
-                 sin_q, Dc, Dr, D);
-    load_rows<T>(sKV, ld, SP, 0, S, head(kc, h, Dc), head(kr, h, Dr), cos_k,
-                 sin_k, Dc, Dr, D);
-    __syncthreads();
-    float acc[kRows][NC];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-    qk<NC>(acc, sQ, sKV, ld, D, r0, lane);
-
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int k = lane + 32 * c;
-        float x = -INFINITY;
-        if (k < S) {
-          x = acc[i][c] * scale;
-          if (use_mask) x += sM[(r0 + i) * SP + k];
-        }
-        acc[i][c] = x;
-        mx = fmaxf(mx, x);
-      }
-      mx = warp_max(mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const float e = lane + 32 * c < S ? expf(acc[i][c] - mx) : 0.f;
-        acc[i][c] = e;
-        sum += e;
-      }
-      sum = warp_sum(sum);
-#pragma unroll
-      for (int c = 0; c < NC; ++c)
-        sP[(r0 + i) * SP + lane + 32 * c] = rnd<T>(acc[i][c] / sum);
-    }
-    __syncthreads();  // every warp is done reading k_h
-
-    const T* vh = v + (bh0 + h) * S * Dv;
-    for (int idx = threadIdx.x; idx < S * Dv; idx += kThreads)
-      sKV[idx] = to_f(vh[idx]);
-    __syncthreads();
-
-    float o[kRows][2];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) o[i][0] = o[i][1] = 0.f;
-    const bool has0 = lane < Dv;
-    const bool has1 = lane + 32 < Dv;
-    for (int k = 0; k < S; ++k) {
-      const float v0 = has0 ? sKV[k * Dv + lane] : 0.f;
-      const float v1 = has1 ? sKV[k * Dv + lane + 32] : 0.f;
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const float pv = sP[(r0 + i) * SP + k];
-        o[i][0] = fmaf(pv, v0, o[i][0]);
-        o[i][1] = fmaf(pv, v1, o[i][1]);
-      }
-    }
-    T* oh = out + (bh0 + h) * S * Dv;
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int q = q0 + r0 + i;
-      if (q < S) {
-        if (has0) oh[(size_t)q * Dv + lane] = from_f<T>(o[i][0]);
-        if (has1) oh[(size_t)q * Dv + lane + 32] = from_f<T>(o[i][1]);
-      }
-    }
-  }
-}
-
-template <typename T, int NC>
-cudaError_t launch(const void* qc, const void* kc, const void* qr,
-                   const void* kr, const void* v, const float* cos_q,
-                   const float* sin_q, const float* cos_k,
-                   const float* sin_k, const float* w1t, const float* b1,
-                   const float* w2t, const float* b2, void* out, int B, int H,
-                   int S, int Dc, int Dr, int Dv, float scale, int use_mask,
-                   cudaStream_t stream) {
-  constexpr int SP = NC * 32;
-  const int ld = (Dc + Dr) | 1;
-  const int ldkv = ld > Dv ? ld : Dv;
-  const size_t smem =
-      sizeof(float) * ((size_t)kTq * ld + (size_t)SP * ldkv +
-                       (size_t)kTq * SP + (size_t)kTq * 2 * SP);
-  auto kern = rope_attention_fwd_kernel<T, NC>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((S + kTq - 1) / kTq, B);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(qc), static_cast<const T*>(kc),
-      static_cast<const T*>(qr), static_cast<const T*>(kr),
-      static_cast<const T*>(v), cos_q, sin_q, cos_k, sin_k, w1t, b1, w2t, b2,
-      static_cast<T*>(out), H, S, Dc, Dr, Dv, scale, use_mask);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch(int nc, const void* qc, const void* kc, const void* qr,
-                     const void* kr, const void* v, const float* cos_q,
-                     const float* sin_q, const float* cos_k,
-                     const float* sin_k, const float* w1t, const float* b1,
-                     const float* w2t, const float* b2, void* out, int B,
-                     int H, int S, int Dc, int Dr, int Dv, float scale,
-                     int use_mask, cudaStream_t st) {
-#define CASE(N)                                                              \
-  case N:                                                                    \
-    return launch<T, N>(qc, kc, qr, kr, v, cos_q, sin_q, cos_k, sin_k, w1t,  \
-                        b1, w2t, b2, out, B, H, S, Dc, Dr, Dv, scale,        \
-                        use_mask, st);
-  switch (nc) {
-    CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
-    default:
-      return cudaErrorInvalidValue;
-  }
-#undef CASE
-}
-
 
 // ---------------------------------------------------------------------------
 // bf16 on the tensor cores: every product is mma.sync.m16n8k16 (bf16 in,
@@ -562,26 +354,6 @@ cudaError_t launch_bf16(const tcore::bf16* qp, const tcore::bf16* kp,
 }
 
 }  // namespace
-
-// The fp32 path on the CUDA cores. Returns a cudaError_t (0 on success).
-// Shapes: qc/kc (B,H,S,Dc) or null when Dc == 0; qr/kr (B,H,S,Dr) or null
-// when Dr == 0; v/out (B,H,S,Dv); tables (S,Dr) fp32; w1t (S,2S), b1 (2S),
-// w2t (2S,S), b2 (S) fp32, unused when use_mask == 0. All contiguous.
-extern "C" int rope_attention_fwd_f32(
-    const void* qc, const void* kc, const void* qr, const void* kr,
-    const void* v, const float* cos_q, const float* sin_q, const float* cos_k,
-    const float* sin_k, const float* w1t, const float* b1, const float* w2t,
-    const float* b2, void* out, int B, int H, int S, int Dc, int Dr, int Dv,
-    float scale, int use_mask, void* stream) {
-  const int nc = (S + 31) / 32;
-  if (B < 1 || H < 1 || S < 1 || nc > 8 || Dc < 0 || Dr < 0 || Dr % 2 ||
-      Dc + Dr < 1 || Dv < 1 || Dv > kMaxDv)
-    return (int)cudaErrorInvalidValue;
-  return (int)dispatch<float>(nc, qc, kc, qr, kr, v, cos_q, sin_q, cos_k,
-                              sin_k, w1t, b1, w2t, b2, out, B, H, S, Dc, Dr,
-                              Dv, scale, use_mask,
-                              static_cast<cudaStream_t>(stream));
-}
 
 // The bf16 path on the tensor cores: S <= 256, D <= 64, Dv <= 64, Dc, Dr
 // and Dv even. w1 (pad16(2S), pad16(S)) and w2 (pad16(S), pad16(2S)) are

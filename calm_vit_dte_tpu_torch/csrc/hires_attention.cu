@@ -106,6 +106,7 @@
 // shape.
 
 #include "hires_mma.cuh"
+#include "rope_f32.cuh"
 
 namespace {
 
@@ -791,11 +792,12 @@ extern "C" int hires_attention_wide_occupancy(int D, int* out) {
 }
 
 // What the card makes of the fp32 CUDA-core attention kernel with cp.async
-// staging (the fp32 route's), NV = 2-8: kernel k (NV = k + 2) fills
+// staging (the fp32 route's), NV = 1-8: kernel k (NV = k + 1) fills
 // out[4k..4k+3] as occupancy() does (hires_common.cuh). Returns a
 // cudaError_t.
 extern "C" int hires_attention_cc_occupancy(int* out) {
-  const void* fns[7] = {
+  const void* fns[8] = {
+      reinterpret_cast<const void*>(hires_attention_kernel<float, 1, true>),
       reinterpret_cast<const void*>(hires_attention_kernel<float, 2, true>),
       reinterpret_cast<const void*>(hires_attention_kernel<float, 3, true>),
       reinterpret_cast<const void*>(hires_attention_kernel<float, 4, true>),
@@ -803,10 +805,101 @@ extern "C" int hires_attention_cc_occupancy(int* out) {
       reinterpret_cast<const void*>(hires_attention_kernel<float, 6, true>),
       reinterpret_cast<const void*>(hires_attention_kernel<float, 7, true>),
       reinterpret_cast<const void*>(hires_attention_kernel<float, 8, true>)};
-  for (int k = 0; k < 7; ++k) {
+  for (int k = 0; k < 8; ++k) {
     const cudaError_t err =
-        occupancy(fns[k], kThreads, cc_smem(k + 2), out + 4 * k);
+        occupancy(fns[k], kThreads, cc_smem(k + 1), out + 4 * k);
     if (err != cudaSuccess) return (int)err;
   }
   return 0;
+}
+
+// ---------------------------------------------------------------------------
+// The fp32 rope attention route (kernels/axial_attention.py::_launch_f32;
+// the function of csrc/axial_attention.cu in fp32, design notes there),
+// built on this file's CUDA-core kernels. Pointers in the order of enum
+// RopeF32Slot (rope_f32.cuh): the inputs, out, the scratch qp and kp, with
+// the mask ssum, a and m (and gp: gelu'(h1), if not null), and for the
+// backward lse, g and delta (delta = rowsum(g * o) is written when its
+// slot is not null, o being `out`). Launches, on one stream: the prologue
+// (q and k rotated once into rows of DP = pad4(D) floats; zero columns add
+// nothing to a score), with the mask the strided products ssum = sum_h q_h
+// k_h^T (the heads the outer contraction), a = gelu(ssum W1^T + b1) (and
+// gelu'(h1)) and m = a W2^T + b2 over the B*S rows (W1 and W2 read as they
+// lie, no transposed copy), then the attention kernel on the (query tile,
+// head, batch) grid, with lse where its slot is not null, and delta.
+// Returns a cudaError_t; sets *launched and *smem as hires_attention_fwd
+// does.
+extern "C" int rope_attention_fwd_f32(void* const* p, int B, int H, int S,
+                                      int Dc, int Dr, int Dv, float scale,
+                                      int use_mask, void* stream,
+                                      int* launched, long long* smem) {
+  *launched = 0;
+  *smem = 0;
+  auto f = [&](int slot) { return static_cast<float*>(p[slot]); };
+  const int D = Dc + Dr, DP = pad4(D);
+  if (B < 1 || H < 1 || S < 1 || Dc < 0 || Dr < 0 || Dr % 2 || D < 1 ||
+      Dv < 1 || !p[rV] || !p[rOut] || !p[rQp] || !p[rKp] ||
+      (Dc > 0) != (p[rQc] && p[rKc]) ||
+      (Dr > 0) != (p[rQr] && p[rKr] && p[rCosQ] && p[rSinQ] && p[rCosK] &&
+                   p[rSinK]) ||
+      (use_mask && !(p[rW1] && p[rB1] && p[rW2] && p[rB2] && p[rSsum] &&
+                     p[rA] && p[rM])) ||
+      (p[rDelta] && !(p[rG] && p[rLse])))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  Report rep;
+  const size_t rows = (size_t)B * H * S;
+  rope_prep_f32_kernel<<<dim3((unsigned)((rows * DP + 255) / 256), 2), 256,
+                         0, st>>>(
+      PrepF32{f(rQc), f(rQr), f(rCosQ), f(rSinQ), f(rQp)},
+      PrepF32{f(rKc), f(rKr), f(rCosK), f(rSinK), f(rKp)}, rows, S, Dc, Dr,
+      DP);
+  cudaError_t err = rep.done(0);
+  if (err == cudaSuccess && use_mask) {
+    const long long S2 = 2LL * S, R = (long long)B * S;
+    Gemm g = {};
+    // ssum[b] = sum_h q_h k_h^T.
+    g.A = f(rQp); g.B = f(rKp); g.C = f(rSsum); g.epilogue = kStoreT;
+    g.M = S; g.N = S; g.K = DP; g.KO = H;
+    g.sAz = (long long)H * S * DP; g.sAo = (long long)S * DP; g.sAm = DP;
+    g.sAk = 1;
+    g.sBz = g.sAz; g.sBo = g.sAo; g.sBk = 1; g.sBn = DP;
+    g.sCz = (long long)S * S; g.ldc = S;
+    err = gemm<float>(g, B, false, st, rep);
+    if (err == cudaSuccess) {
+      // a = gelu(h1), gp = gelu'(h1), h1 = ssum W1^T + b1; W1 (2S, S).
+      g = Gemm{};
+      g.A = f(rSsum); g.B = f(rW1); g.C = f(rA); g.C2 = f(rGp);
+      g.bias = f(rB1); g.epilogue = kGelu;
+      g.M = (int)R; g.N = (int)S2; g.K = S; g.KO = 1;
+      g.sAm = S; g.sAk = 1; g.sBk = 1; g.sBn = S; g.ldc = S2;
+      err = gemm<float>(g, 1, false, st, rep);
+    }
+    if (err == cudaSuccess) {
+      // m = a W2^T + b2; W2 (S, 2S).
+      g = Gemm{};
+      g.A = f(rA); g.B = f(rW2); g.C = f(rM); g.bias = f(rB2);
+      g.epilogue = kStoreF32;
+      g.M = (int)R; g.N = S; g.K = (int)S2; g.KO = 1;
+      g.sAm = S2; g.sAk = 1; g.sBk = 1; g.sBn = S2; g.ldc = S;
+      err = gemm<float>(g, 1, false, st, rep);
+    }
+  }
+  if (err == cudaSuccess) {
+    const float* m = use_mask ? f(rM) : nullptr;
+    err = p[rLse] ? attention<float, true>(f(rQp), f(rKp), f(rV), m,
+                                           f(rOut), f(rLse), B, H, S, DP, Dv,
+                                           scale, false, st, rep)
+                  : attention<float, false>(f(rQp), f(rKp), f(rV), m,
+                                            f(rOut), nullptr, B, H, S, DP,
+                                            Dv, scale, false, st, rep);
+  }
+  if (err == cudaSuccess && p[rDelta]) {
+    rope_delta_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, st>>>(
+        f(rG), f(rOut), f(rDelta), rows, Dv);
+    err = rep.done(0);
+  }
+  *launched = rep.launched;
+  *smem = (long long)rep.smem;
+  return (int)err;
 }

@@ -49,9 +49,9 @@
 //     and dW2 = dm^T a with the same product. bf16: the rows are split into
 //     kWgSplits fixed ranges (grid z), each range's partial product goes to
 //     scratch, and sum_partials_kernel adds the partials in order (the 2S x
-//     S output at S = 448 has 28 tiles of 128 x 128: 224 CTAs split). fp32:
-//     one CTA per 128 x 128 (or 64 x 64) output tile of gemm_kernel runs
-//     the whole contraction in order.
+//     S output at S = 448 has 28 tiles of 128 x 128: 224 CTAs split). fp32
+//     splits the same way on gemm_kernel; bf16 off the multiple of 8 runs
+//     one CTA per output tile over the whole contraction.
 //     The bias grads are two-stage ordered column sums on both routes.
 //   * dq, bf16 (hires_dq_bf16_kernel): one CTA of 4 warps per (64 query
 //     rows, head, batch element), grid (H, ceil(S/64), B) with the heads
@@ -149,6 +149,7 @@
 // every width; the C entries take any shape.
 
 #include "hires_mma.cuh"
+#include "rope_f32.cuh"
 
 namespace {
 
@@ -1509,6 +1510,29 @@ cudaError_t launch_dkv(const T* q, const T* k, const T* v, const T* g,
   return rep.done(smem);
 }
 
+// The mask MLP's backward over the rows = B*S rows, from dm (rows, S) and
+// gp = gelu'(h1) (rows, 2S): dh1 = round((dm W2) * gp) (rows, 2S) and
+// dssum = dh1 W1 (rows, S, fp32), W2 (S, 2S) and W1 (2S, S) read as they
+// lie.
+template <typename T>
+cudaError_t mask_bwd_products(const void* dm, const void* w2, float* gp,
+                              const void* w1, void* dh1,
+                              float* dssum, long long rows, int S,
+                              bool aligned, cudaStream_t st, Report& rep) {
+  const long long S2 = 2LL * S;
+  Gemm gm = {};
+  gm.A = dm; gm.B = w2; gm.C = dh1; gm.C2 = gp;
+  gm.epilogue = kDgeluMul; gm.M = (int)rows; gm.N = (int)S2; gm.K = S;
+  gm.KO = 1; gm.sAm = S; gm.sAk = 1; gm.sBk = S2; gm.sBn = 1; gm.ldc = S2;
+  cudaError_t err = gemm<T>(gm, 1, aligned, st, rep);
+  if (err != cudaSuccess) return err;
+  gm = Gemm{};
+  gm.A = dh1; gm.B = w1; gm.C = dssum; gm.epilogue = kStoreF32;
+  gm.M = (int)rows; gm.N = S; gm.K = (int)S2; gm.KO = 1;
+  gm.sAm = S2; gm.sAk = 1; gm.sBk = S; gm.sBn = 1; gm.ldc = S;
+  return gemm<T>(gm, 1, aligned, st, rep);
+}
+
 template <typename T>
 cudaError_t run_dq(const void* q, const void* k, const void* v,
                    const void* g, const Residuals& R, const void* w1t,
@@ -1531,18 +1555,9 @@ cudaError_t run_dq(const void* q, const void* k, const void* v,
   gm.epilogue = kGelu; gm.M = (int)rows; gm.N = (int)S2; gm.K = S; gm.KO = 1;
   gm.sAm = S; gm.sAk = 1; gm.sBk = S2; gm.sBn = 1; gm.ldc = S2;
   if ((err = gemm<T>(gm, 1, fam.aligned, st, rep)) != cudaSuccess) return err;
-  // dh1 = round((dm W2) * gp); W2 is (S, 2S) row-major.
-  gm = Gemm{};
-  gm.A = dm; gm.B = w2; gm.C = dh1; gm.C2 = gp; gm.epilogue = kDgeluMul;
-  gm.M = (int)rows; gm.N = (int)S2; gm.K = S; gm.KO = 1;
-  gm.sAm = S; gm.sAk = 1; gm.sBk = S2; gm.sBn = 1; gm.ldc = S2;
-  if ((err = gemm<T>(gm, 1, fam.aligned, st, rep)) != cudaSuccess) return err;
-  // dssum = dh1 W1, fp32; W1 is (2S, S) row-major.
-  gm = Gemm{};
-  gm.A = dh1; gm.B = w1; gm.C = dssum; gm.epilogue = kStoreF32;
-  gm.M = (int)rows; gm.N = S; gm.K = (int)S2; gm.KO = 1;
-  gm.sAm = S2; gm.sAk = 1; gm.sBk = S; gm.sBn = 1; gm.ldc = S;
-  if ((err = gemm<T>(gm, 1, fam.aligned, st, rep)) != cudaSuccess) return err;
+  if ((err = mask_bwd_products<T>(dm, w2, gp, w1, dh1, dssum, rows, S,
+                                  fam.aligned, st, rep)) != cudaSuccess)
+    return err;
   return dq_pass<T>(qt, kt, vt, gt, R, dssum, B, D, Dv, static_cast<T*>(dq),
                     fam, st, rep);
 }
@@ -1590,10 +1605,12 @@ cudaError_t run_dkv(const void* q, const void* k, const void* v,
   }
 }
 
-// Whether the weight grads' products run on the tensor cores, split over
-// the rows: bf16 with S a multiple of 8 (the products' operands are S or 2S
-// wide, whatever D and Dv are).
-bool split_weight_grads(int is_bf16, int S) { return is_bf16 && S % 8 == 0; }
+// Whether the weight grads' products split over the rows: fp32 always (on
+// the CUDA cores), bf16 with S a multiple of 8 (on the tensor cores; the
+// products' operands are S or 2S wide, whatever D and Dv are).
+bool split_weight_grads(int is_bf16, int S) {
+  return !is_bf16 || S % 8 == 0;
+}
 
 // Floats of the weight grads' scratch: split, kWgSplits partials of dW1 and
 // of dW2 (2S^2 each); always, kColSplits partial column sums of dh1 and dm.
@@ -1633,8 +1650,8 @@ cudaError_t run_weight_grads(const void* ssum, const void* dm, const void* a,
   }
   if ((err = gemm<T>(gm, Z, kSplit, st, rep)) != cudaSuccess) return err;
   if (kSplit) {
-    sum_partials_kernel<<<dim3((unsigned)((n / 4 + 255) / 256), 2), 256, 0,
-                          st>>>(part, dw1, part + kWgSplits * n, dw2, n,
+    sum_partials_kernel<<<dim3((unsigned)(((n + 3) / 4 + 255) / 256), 2),
+                          256, 0, st>>>(part, dw1, part + kWgSplits * n, dw2, n,
                                 kWgSplits);
     if ((err = rep.done(0)) != cudaSuccess) return err;
     part += 2 * kWgSplits * n;
@@ -1779,11 +1796,12 @@ extern "C" int hires_dq_wide_occupancy(int D, int Dv, int* out) {
 }
 
 // What the card makes of the fp32 CUDA-core dq kernel with cp.async staging
-// (NQ = 2-8: kernel k, NQ = k + 2) and of the fp32 dm/ssum kernel (kernel
-// 7): out[4k..4k+3] as occupancy() fills them (hires_common.cuh). Returns a
+// (NQ = 1-8: kernel k, NQ = k + 1) and of the fp32 dm/ssum kernel (kernel
+// 8): out[4k..4k+3] as occupancy() fills them (hires_common.cuh). Returns a
 // cudaError_t.
 extern "C" int hires_dq_cc_occupancy(int* out) {
-  const void* fns[8] = {
+  const void* fns[9] = {
+      reinterpret_cast<const void*>(hires_dq_kernel<float, 1, true>),
       reinterpret_cast<const void*>(hires_dq_kernel<float, 2, true>),
       reinterpret_cast<const void*>(hires_dq_kernel<float, 3, true>),
       reinterpret_cast<const void*>(hires_dq_kernel<float, 4, true>),
@@ -1792,10 +1810,136 @@ extern "C" int hires_dq_cc_occupancy(int* out) {
       reinterpret_cast<const void*>(hires_dq_kernel<float, 7, true>),
       reinterpret_cast<const void*>(hires_dq_kernel<float, 8, true>),
       reinterpret_cast<const void*>(hires_dm_ssum_kernel<float, true>)};
-  for (int k = 0; k < 8; ++k) {
+  for (int k = 0; k < 9; ++k) {
     const cudaError_t err = occupancy(
-        fns[k], kThreads, k < 7 ? cc_smem(k + 2) : kDmSsumCcSmem, out + 4 * k);
+        fns[k], kThreads, k < 8 ? cc_smem(k + 1) : kDmSsumCcSmem, out + 4 * k);
     if (err != cudaSuccess) return (int)err;
   }
   return 0;
+}
+
+// The fp32 rope attention route's backward (kernels/axial_attention.py::
+// _launch_bwd_f32; design notes in csrc/axial_attention_bwd.cu), built on
+// this file's CUDA-core stages, after rope_attention_fwd_f32
+// (hires_attention.cu) has written the rotated rows, with the mask ssum, a,
+// gelu'(h1) and m, and lse and delta. Pointers in the order of enum
+// RopeF32Slot (rope_f32.cuh). Launches, on one stream: with the mask the
+// dm/ssum kernel and the mask MLP's backward products (mask_bwd_products);
+// the dq kernel; with the mask the weight grads (run_weight_grads: the
+// products split over fixed row ranges, the ranges summed in order, the
+// bias grads' column sums) into the flat dW1 | db1 | dW2 | db2; the dk/dv
+// kernel; the un-rotation of dq and dk with the table gradients. Without
+// the mask the m and dssum slots are set to zero (cudaMemsetAsync) for the
+// dq and dk/dv kernels, which read both. Returns a cudaError_t; sets
+// *launched and *smem as hires_attention_dq does.
+extern "C" int rope_attention_bwd_f32(void* const* p, int B, int H, int S,
+                                      int Dc, int Dr, int Dv, float scale,
+                                      int use_mask, void* stream,
+                                      int* launched, long long* smem) {
+  *launched = 0;
+  *smem = 0;
+  auto f = [&](int slot) { return static_cast<float*>(p[slot]); };
+  const int D = Dc + Dr, DP = pad4(D);
+  const long long rows = (long long)B * S;
+  if (B < 1 || H < 1 || S < 1 || Dc < 0 || Dr < 0 || Dr % 2 || D < 1 ||
+      Dv < 1 ||
+      !(p[rQp] && p[rKp] && p[rV] && p[rG] && p[rLse] && p[rDelta] &&
+        p[rM] && p[rDssum] && p[rDq] && p[rDk] && p[rDv]) ||
+      (Dc > 0) != (p[rDqc] && p[rDkc]) ||
+      (Dr > 0) != (p[rQr] && p[rKr] && p[rCosQ] && p[rSinQ] && p[rCosK] &&
+                   p[rSinK] && p[rDqr] && p[rDkr] && p[rTab]) ||
+      (use_mask &&
+       !(p[rW1] && p[rW2] && p[rSsum] && p[rA] && p[rGp] && p[rDm] &&
+         p[rDh1] && p[rWPart] && p[rWGrad])))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  Report rep;
+  const Residuals R{f(rM), f(rLse), f(rDelta), H, S, scale};
+  const Family fam = family_of(0, S, DP, Dv);
+  const float *qp = f(rQp), *kp = f(rKp), *v = f(rV), *g = f(rG);
+  const float* dssum = f(rDssum);
+  cudaError_t err = cudaSuccess;
+  if (!use_mask) {  // m = 0 and dssum = 0: no mask
+    const size_t bytes = sizeof(float) * (size_t)rows * S;
+    err = cudaMemsetAsync(f(rM), 0, bytes, st);
+    if (err == cudaSuccess) err = cudaMemsetAsync(f(rDssum), 0, bytes, st);
+  }
+  if (err == cudaSuccess && use_mask) {
+    err = dm_ssum<float>(qp, kp, v, g, R, B, DP, Dv, f(rDm), f(rSsum), fam,
+                         st, rep);
+    if (err == cudaSuccess)
+      err = mask_bwd_products<float>(f(rDm), f(rW2), f(rGp), f(rW1),
+                                     f(rDh1), f(rDssum), rows, S, false, st,
+                                     rep);
+  }
+  if (err == cudaSuccess)
+    err = dq_pass<float>(qp, kp, v, g, R, dssum, B, DP, Dv, f(rDq), fam, st,
+                         rep);
+  if (err == cudaSuccess && use_mask) {
+    // The flat weight grads: dW1 (2S, S) | db1 (2S) | dW2 (S, 2S) | db2 (S).
+    float* wg = f(rWGrad);
+    const long long sq2 = 2LL * S * S;
+    err = run_weight_grads<float>(f(rSsum), f(rDm), f(rA), f(rDh1), wg,
+                                  wg + sq2, wg + sq2 + 2 * S,
+                                  wg + 2 * sq2 + 2 * S, f(rWPart), rows, S,
+                                  split_weight_grads(0, S), st, rep);
+  }
+  if (err == cudaSuccess)
+    err = run_dkv<float>(qp, kp, v, g, R, dssum, f(rDk), f(rDv), B, DP, Dv,
+                         fam, st, rep);
+  if (err == cudaSuccess) {
+    const float* no = nullptr;
+    rope_unrotate_f32_kernel<<<dim3((unsigned)((S * D + 255) / 256), 2), 256,
+                               0, st>>>(
+        UnrotF32{f(rDq), Dr ? f(rQr) : no, f(rCosQ), f(rSinQ), f(rDqc),
+                 f(rDqr), f(rTab)},
+        UnrotF32{f(rDk), Dr ? f(rKr) : no, f(rCosK), f(rSinK), f(rDkc),
+                 f(rDkr), Dr ? f(rTab) + (size_t)2 * S * Dr : nullptr},
+        B * H, S, Dc, Dr, DP);
+    err = rep.done(0);
+  }
+  *launched = rep.launched;
+  *smem = (long long)rep.smem;
+  return (int)err;
+}
+
+// What the card makes of the fp32 routes' other kernels, out[4k..4k+3] as
+// occupancy() fills them: k = 0-2 the rope route's own (rope_f32.cuh: the
+// prologue, delta, the un-rotation); k = 3-14 the strided product with
+// cp.async staging, each staging (kAK, kBK) = (0, 0), (0, 1), (1, 0), (1,
+// 1) at 128 x 128 tiles, then at 64 x 64 tiles, then at 64 x 64 tiles with
+// four groups (gemm_cc_staged; hires_attention.cu compiles the same
+// template with the same flags); k = 15-17 the dk/dv kernel at CJ = 4, 8,
+// 16 with the shared memory of its widest slice (64, 128, 256 columns).
+// Returns a cudaError_t.
+extern "C" int rope_f32_occupancy(int* out) {
+  cudaError_t err = f32_route_occupancy(out);
+  out += 4 * kF32RouteKernels;
+  auto gemm_at = [&](auto kern, int bm, int ks, size_t dyn) {
+    if (err == cudaSuccess)
+      err = occupancy(reinterpret_cast<const void*>(kern), ks * bm * bm / 64,
+                      dyn, out);
+    out += 4;
+  };
+  constexpr size_t big = gemm_smem<128, 1>(), mid = gemm_smem<64, 1>(),
+                   small = gemm_smem<64, 4>();
+  gemm_at(gemm_kernel<float, false, false, true, 128, 1>, 128, 1, big);
+  gemm_at(gemm_kernel<float, false, true, true, 128, 1>, 128, 1, big);
+  gemm_at(gemm_kernel<float, true, false, true, 128, 1>, 128, 1, big);
+  gemm_at(gemm_kernel<float, true, true, true, 128, 1>, 128, 1, big);
+  gemm_at(gemm_kernel<float, false, false, true, 64, 1>, 64, 1, mid);
+  gemm_at(gemm_kernel<float, false, true, true, 64, 1>, 64, 1, mid);
+  gemm_at(gemm_kernel<float, true, false, true, 64, 1>, 64, 1, mid);
+  gemm_at(gemm_kernel<float, true, true, true, 64, 1>, 64, 1, mid);
+  gemm_at(gemm_kernel<float, false, false, true, 64, 4>, 64, 4, small);
+  gemm_at(gemm_kernel<float, false, true, true, 64, 4>, 64, 4, small);
+  gemm_at(gemm_kernel<float, true, false, true, 64, 4>, 64, 4, small);
+  gemm_at(gemm_kernel<float, true, true, true, 64, 4>, 64, 4, small);
+  const void* dkv[3] = {
+      reinterpret_cast<const void*>(hires_dkv_kernel<float, 4>),
+      reinterpret_cast<const void*>(hires_dkv_kernel<float, 8>),
+      reinterpret_cast<const void*>(hires_dkv_kernel<float, 16>)};
+  for (int k = 0; k < 3 && err == cudaSuccess; ++k)
+    err = occupancy(dkv[k], kThreads, tiled_smem(64 << k, 2), out + 4 * k);
+  return (int)err;
 }

@@ -57,9 +57,9 @@ struct Gemm {
   const float* bias;  // may be null
   int M, N, K, KO, epilogue;
   long long sAz, sAo, sAm, sAk, sBz, sBo, sBk, sBn, sCz, ldc;
-  // 0, or (bf16 only) the whole contraction length: blockIdx.z then splits
-  // it into ranges of K (sAz, sBz the offsets of one range, sCz of its
-  // partial output).
+  // 0, or the whole contraction length: blockIdx.z then splits it into
+  // ranges of K (sAz, sBz the offsets of one range, sCz of its partial
+  // output; the last ranges may be shorter, or empty).
   int Ktot;
 };
 
@@ -77,28 +77,6 @@ struct Report {
     return err;
   }
 };
-
-// What the card makes of one kernel launched with `threads` a CTA and
-// `dyn` bytes of dynamic shared memory: out[0..3] = registers a thread,
-// local (spill) bytes a thread, static + dynamic shared memory a CTA, CTAs
-// resident per SM.
-inline cudaError_t occupancy(const void* fn, int threads, size_t dyn,
-                             int* out) {
-  cudaError_t err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
-  if (err != cudaSuccess) return err;
-  cudaFuncAttributes attr;
-  if ((err = cudaFuncGetAttributes(&attr, fn)) != cudaSuccess) return err;
-  int ctas = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, fn, threads,
-                                                      dyn);
-  if (err != cudaSuccess) return err;
-  out[0] = attr.numRegs;
-  out[1] = (int)attr.localSizeBytes;
-  out[2] = (int)(attr.sharedSizeBytes + dyn);
-  out[3] = ctas;
-  return cudaSuccess;
-}
 
 // One output element through the epilogue (bounds-checked).
 template <typename T>
@@ -277,9 +255,14 @@ __device__ __forceinline__ float lane_of(const float4& x, int e) {
 }
 
 // CUDA-core FMAs (the fp32 route, and bf16 off the multiple of 8). One CTA
-// of BM * BM / 64 threads owns a BM x BM tile of C (BM = 128, or 64; see
-// gemm_cc_staged) and runs the whole contraction in
-// order, BK = BM / 8 deep a chunk; each thread owns 8 x 8 outputs: rows
+// of KS * BM * BM / 64 threads owns a BM x BM tile of C (BM = 128, or 64;
+// see gemm_cc_staged) and runs the whole contraction in order, BK = KS * BM
+// / 8 deep a chunk. The threads form KS groups of BM * BM / 64 (KS = 1, or
+// 4 where even 64 x 64 tiles leave SMs short of two CTAs: more warps to
+// hide the ring's latency and a quarter of the chunks); group q takes
+// columns [q BM / 8, (q + 1) BM / 8) of each chunk, and at the end groups
+// 1..KS-1 hand their sums to group 0 through shared memory, which adds
+// them in order (a fixed order: the same bits on every run). In each group a thread owns 8 x 8 outputs: rows
 // ty * 4 + (i % 4) + (i / 4) BM / 2, columns tx * 4 + (j % 4) + (j / 4) BM / 2
 // or, where B's contraction axis is unit-stride (kBK), tx + (BM / 8) j. An
 // operand whose contraction axis is unit-stride (kAK, kBK) is staged as it
@@ -287,27 +270,38 @@ __device__ __forceinline__ float lane_of(const float4& x, int e) {
 // and read as float4 along k; the other is staged [k][row] (row stride BM +
 // 4) and read as float4 along its rows. So no staging transposes, and with
 // kVec every copy is a 16-byte cp.async.
-template <int BM>
+template <int BM, int KS = 1>
 __host__ __device__ constexpr int gemm_op_floats() {
-  return (BM / 8) * (BM + 4) > BM * (BM / 8 + 4) ? (BM / 8) * (BM + 4)
-                                                 : BM * (BM / 8 + 4);
+  return (KS * BM / 8) * (BM + 4) > BM * (KS * BM / 8 + 4)
+             ? (KS * BM / 8) * (BM + 4)
+             : BM * (KS * BM / 8 + 4);
 }
-template <int BM>
+template <int BM, int KS = 1>
 constexpr size_t gemm_smem() {
-  return sizeof(float) * kRing * 2 * gemm_op_floats<BM>();
+  // The ring, which the groups' hand-over of their sums reuses.
+  return sizeof(float) * (kRing * 2 * gemm_op_floats<BM, KS>() >
+                                  (KS - 1) * BM * BM
+                              ? kRing * 2 * gemm_op_floats<BM, KS>()
+                              : (KS - 1) * BM * BM);
 }
 
-template <typename T, bool kAK, bool kBK, bool kVec, int BM>
-__global__ void __launch_bounds__(BM * BM / 64) gemm_kernel(const Gemm g) {
-  constexpr int kNT = BM * BM / 64, BK = BM / 8, kHalf = BM / 2;
+template <typename T, bool kAK, bool kBK, bool kVec, int BM, int KS>
+__global__ void __launch_bounds__(KS * BM * BM / 64)
+    gemm_kernel(const Gemm g) {
+  constexpr int kGT = BM * BM / 64, kNT = KS * kGT, kGK = BM / 8;
+  constexpr int BK = KS * kGK, kHalf = BM / 2;
   constexpr int ldk = BK + 4, ldr = BM + 4;
-  constexpr int kOp = gemm_op_floats<BM>();
+  constexpr int kOp = gemm_op_floats<BM, KS>();
   extern __shared__ __align__(16) float smem[];
   const T* A = static_cast<const T*>(g.A) + blockIdx.z * g.sAz;
   const T* Bm = static_cast<const T*>(g.B) + blockIdx.z * g.sBz;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BM;
-  const int tx = threadIdx.x % (BM / 8), ty = threadIdx.x / (BM / 8);
-  const int nk = (g.K + BK - 1) / BK;
+  const int grp = threadIdx.x / kGT, lt = threadIdx.x - grp * kGT;
+  const int tx = lt % (BM / 8), ty = lt / (BM / 8);
+  // With Ktot, blockIdx.z is a split of the contraction: rows [z K, z K + K).
+  const int K =
+      g.Ktot ? max(0, min(g.K, g.Ktot - (int)blockIdx.z * g.K)) : g.K;
+  const int nk = (K + BK - 1) / BK;
 
   // Chunk c: head o = c / nk, contraction columns [k0, k0 + BK).
   auto plan = [&](int c, float* st, Block<T>& a, Block<T>& b) {
@@ -315,14 +309,14 @@ __global__ void __launch_bounds__(BM * BM / 64) gemm_kernel(const Gemm g) {
     const T* Ao = A + o * g.sAo;
     const T* Bo = Bm + o * g.sBo;
     if (kAK)
-      a = {Ao + m0 * g.sAm + k0, g.sAm, BM, BK, g.M - m0, g.K - k0, st, ldk};
+      a = {Ao + m0 * g.sAm + k0, g.sAm, BM, BK, g.M - m0, K - k0, st, ldk};
     else
-      a = {Ao + k0 * g.sAk + m0, g.sAk, BK, BM, g.K - k0, g.M - m0, st, ldr};
+      a = {Ao + k0 * g.sAk + m0, g.sAk, BK, BM, K - k0, g.M - m0, st, ldr};
     if (kBK)
-      b = {Bo + n0 * g.sBn + k0, g.sBn, BM, BK, g.N - n0, g.K - k0, st + kOp,
+      b = {Bo + n0 * g.sBn + k0, g.sBn, BM, BK, g.N - n0, K - k0, st + kOp,
            ldk};
     else
-      b = {Bo + k0 * g.sBk + n0, g.sBk, BK, BM, g.K - k0, g.N - n0, st + kOp,
+      b = {Bo + k0 * g.sBk + n0, g.sBk, BK, BM, K - k0, g.N - n0, st + kOp,
            ldr};
   };
   Ring<T, kVec, kNT, 2 * BM * BK / kNT, decltype(plan)> ring(
@@ -337,7 +331,8 @@ __global__ void __launch_bounds__(BM * BM / 64) gemm_kernel(const Gemm g) {
     const float* sA = ring.next();
     const float* sB = sA + kOp;
 #pragma unroll
-    for (int k = 0; k < BK; k += 4) {
+    for (int kq = 0; kq < kGK; kq += 4) {
+      const int k = grp * kGK + kq;
       float a[8][4], b[4][8];
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
@@ -382,6 +377,28 @@ __global__ void __launch_bounds__(BM * BM / 64) gemm_kernel(const Gemm g) {
     }
   }
   ring.finish();
+  if constexpr (KS > 1) {
+    // Groups 1..KS-1 hand their sums over (element e of thread lt at
+    // [(q - 1) 64 + e][lt]); group 0 adds them in order.
+    __syncthreads();  // every group is done with the ring
+    if (grp > 0) {
+      float* out = smem + (size_t)(grp - 1) * 64 * kGT + lt;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) out[(i * 8 + j) * kGT] = acc[i][j];
+    }
+    __syncthreads();
+    if (grp > 0) return;
+#pragma unroll
+    for (int q = 1; q < KS; ++q) {
+      const float* in = smem + (size_t)(q - 1) * 64 * kGT + lt;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] += in[(i * 8 + j) * kGT];
+    }
+  }
 
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
@@ -395,35 +412,39 @@ __global__ void __launch_bounds__(BM * BM / 64) gemm_kernel(const Gemm g) {
   }
 }
 
-template <typename T, bool kAK, bool kBK, bool kVec, int BM>
+template <typename T, bool kAK, bool kBK, bool kVec, int BM, int KS>
 cudaError_t launch_gemm_cc(const Gemm& g, int Z, cudaStream_t st,
                            Report& rep) {
-  auto kern = gemm_kernel<T, kAK, kBK, kVec, BM>;
-  constexpr size_t smem = gemm_smem<BM>();
+  auto kern = gemm_kernel<T, kAK, kBK, kVec, BM, KS>;
+  constexpr size_t smem = gemm_smem<BM, KS>();
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((g.N + BM - 1) / BM, (g.M + BM - 1) / BM, Z);
-  kern<<<grid, BM * BM / 64, smem, st>>>(g);
+  kern<<<grid, KS * BM * BM / 64, smem, st>>>(g);
   return rep.done(smem);
 }
 
 template <typename T, bool kAK, bool kBK>
 cudaError_t gemm_cc_staged(const Gemm& g, int Z, bool vec, cudaStream_t st,
                            Report& rep) {
-  // With cp.async staging (the fp32 route), 128 x 128 tiles where they give
-  // every SM two CTAs, else 64 x 64; on the register path (bf16 off the
-  // multiple of 8, fp32 off the multiple of 4) 64 x 64, which keeps the
-  // library's build short.
+  // With cp.async staging (the fp32 route), the largest tile that still
+  // gives every SM two CTAs: 128 x 128, else 64 x 64; where even 64 x 64
+  // tiles do not (the rope route's products at S <= 256), 64 x 64 tiles
+  // with four groups of threads splitting each chunk. On the register path
+  // (bf16 off the multiple of 8, fp32 off the multiple of 4) 64 x 64 with
+  // one group, which keeps the library's build short.
   if constexpr (std::is_same<T, float>::value) {
-    const long long big = (long long)((g.N + 127) / 128) *
-                          ((g.M + 127) / 128) * Z;
-    if (vec)
-      return big >= 2 * kSMs
-                 ? launch_gemm_cc<T, kAK, kBK, true, 128>(g, Z, st, rep)
-                 : launch_gemm_cc<T, kAK, kBK, true, 64>(g, Z, st, rep);
+    auto tiles = [&](int bm) {
+      return (long long)((g.N + bm - 1) / bm) * ((g.M + bm - 1) / bm) * Z;
+    };
+    if (vec && tiles(128) >= 2 * kSMs)
+      return launch_gemm_cc<T, kAK, kBK, true, 128, 1>(g, Z, st, rep);
+    if (vec && tiles(64) >= 2 * kSMs)
+      return launch_gemm_cc<T, kAK, kBK, true, 64, 1>(g, Z, st, rep);
+    if (vec) return launch_gemm_cc<T, kAK, kBK, true, 64, 4>(g, Z, st, rep);
   }
-  return launch_gemm_cc<T, kAK, kBK, false, 64>(g, Z, st, rep);
+  return launch_gemm_cc<T, kAK, kBK, false, 64, 1>(g, Z, st, rep);
 }
 
 // The strided product on the CUDA cores (gemm_kernel), staged as each
@@ -434,9 +455,12 @@ cudaError_t gemm_cuda_cores(const Gemm& g, int Z, cudaStream_t st,
   const bool ak = g.sAk == 1, bk = g.sBk == 1;
   if ((!ak && g.sAm != 1) || (!bk && g.sBn != 1))
     return cudaErrorInvalidValue;
+  // The contraction's extents (K and, split, Ktot - z K) are multiples of 4
+  // where K and Ktot are.
+  const int kext = g.Ktot % 4 ? g.Ktot : g.K;
   const bool vec =
-      rows16<T>(g.A, g.sAz, g.sAo, ak ? g.sAm : g.sAk, ak ? g.K : g.M) &&
-      rows16<T>(g.B, g.sBz, g.sBo, bk ? g.sBn : g.sBk, bk ? g.K : g.N);
+      rows16<T>(g.A, g.sAz, g.sAo, ak ? g.sAm : g.sAk, ak ? kext : g.M) &&
+      rows16<T>(g.B, g.sBz, g.sBo, bk ? g.sBn : g.sBk, bk ? kext : g.N);
   if (ak && bk) return gemm_cc_staged<T, true, true>(g, Z, vec, st, rep);
   if (ak) return gemm_cc_staged<T, true, false>(g, Z, vec, st, rep);
   if (bk) return gemm_cc_staged<T, false, true>(g, Z, vec, st, rep);
@@ -679,23 +703,25 @@ __host__ __device__ constexpr size_t cc_smem(int nv) {
 static_assert(cc_smem(kMaxNV) <= kMaxCtaSmem, "the CTA fits");
 // NV of an output `width` columns wide (at most kOutSlice a CTA).
 inline int nv_of(int width) {
-  const int nv = ((width < kOutSlice ? width : kOutSlice) + 63) / 64;
-  return nv < 2 ? 2 : nv;
+  return ((width < kOutSlice ? width : kOutSlice) + 63) / 64;
 }
 inline int out_slices(int width) {
   return (width + kOutSlice - 1) / kOutSlice;
 }
 
 // f(std::integral_constant<int, NV>{}) for the NV that serves nv_of's nv:
-// each of 2-8 with cp.async staging (the fp32 route), 2, 4 or 8 on the
-// register path (bf16 off the multiple of 8, fp32 rows off the multiple of
-// 4), which keeps the libraries' build short.
+// each of 1-8 with cp.async staging (the fp32 route; NV 1, up to 64
+// columns, is the fp32 rope route's, whose D and Dv are at most 64: a
+// wider NV would form dead columns), 2, 4 or 8 on the register path (bf16
+// off the multiple of 8, fp32 rows off the multiple of 4), which keeps the
+// libraries' build short.
 template <bool kAsync, typename F>
 cudaError_t with_nv(int nv, F&& f) {
   static_assert(kMaxNV == 8, "one case per NV");
   using std::integral_constant;
   if constexpr (kAsync) {
     switch (nv) {
+      case 1: return f(integral_constant<int, 1>{});
       case 2: return f(integral_constant<int, 2>{});
       case 3: return f(integral_constant<int, 3>{});
       case 4: return f(integral_constant<int, 4>{});

@@ -43,7 +43,8 @@ constexpr size_t kGemmSmem = (size_t)kGemmStages * 2 * kGemmOpElems * 2;
 // The weight grads contract over all B*S rows: each output tile's rows are
 // split into kWgSplits fixed ranges whose partial products are summed in
 // order by sum_partials_kernel (at S = 448 the 2S x S output has only 28
-// tiles of 128 x 128; split, 224 CTAs per product).
+// tiles of 128 x 128; split, 224 CTAs per product). Both routes split, on
+// the tensor cores (bf16) or on the CUDA cores (gemm_kernel, fp32).
 constexpr int kWgSplits = 8;
 
 // Two adjacent outputs (columns n, n + 1 of row m) through the epilogue;
@@ -211,8 +212,7 @@ cudaError_t launch_gemm_tc(const Gemm& g, int Z, cudaStream_t st,
 // The strided product in the compute type: bf16 on the tensor cores where
 // the call's operands are `aligned` (Family; the staging of each operand
 // picked by which of its strides is 1), every other call on the CUDA cores
-// (gemm_kernel, hires_common.cuh, which takes no split of the contraction:
-// Ktot 0).
+// (gemm_kernel, hires_common.cuh).
 template <typename T>
 cudaError_t gemm(const Gemm& g, int Z, bool aligned, cudaStream_t st,
                  Report& rep) {
@@ -229,7 +229,8 @@ cudaError_t gemm(const Gemm& g, int Z, bool aligned, cudaStream_t st,
 }
 
 // out_j[i] = sum_{z < splits} part_j[z * n + i] in order of z, for the two
-// jobs j = blockIdx.y (n a multiple of 4).
+// jobs j = blockIdx.y; a thread takes four consecutive i, as a float4 where
+// n is a multiple of 4 (every partial row on 16 bytes), else one by one.
 __global__ void sum_partials_kernel(const float* __restrict__ part0,
                                     float* __restrict__ out0,
                                     const float* __restrict__ part1,
@@ -239,6 +240,14 @@ __global__ void sum_partials_kernel(const float* __restrict__ part0,
   float* out = blockIdx.y ? out1 : out0;
   const long long i = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * 4;
   if (i >= n) return;
+  if (n % 4) {
+    for (long long e = i; e < i + 4 && e < n; ++e) {
+      float s = part[e];
+      for (int z = 1; z < splits; ++z) s += part[z * n + e];
+      out[e] = s;
+    }
+    return;
+  }
   float4 s = *reinterpret_cast<const float4*>(part + i);
   for (int z = 1; z < splits; ++z) {
     const float4 x = *reinterpret_cast<const float4*>(part + z * n + i);

@@ -18,13 +18,21 @@ On a CPU tensor the wrappers run the plain versions; on a CUDA tensor they
 launch a kernel or raise. bf16 runs on the tensor cores (mma.sync, bf16 in,
 fp32 accumulate): the forward is one kernel; the backward is a rows kernel
 (dq, the mask MLP backward, per-row softmax statistics), a keys kernel (dk,
-dv) and the weight-grad products, launched by one call. fp32 runs on the
-CUDA-core kernels of the same sources (the card-vs-CPU parity checks). Both
-round like `_fwd_body` in bf16: ssum, the mask weights, the GELU output and
-p are rounded to the compute dtype before their products, and every product
+dv) and the weight-grad products, launched by one call. Both round like
+`_fwd_body` in bf16: ssum, the mask weights, the GELU output and p are
+rounded to the compute dtype before their products, and every product
 accumulates in fp32. The backward recomputes the forward and rounds like
 `_bwd_core` (p, dm, a, dh1 and the score gradient); it returns the gradients
 of all 13 tensor inputs, the four RoPE tables and the mask MLP included.
+
+fp32 (the card-vs-CPU parity checks, the DP/TP steps held to fp32 limits,
+fp32 training) runs on the CUDA cores: a prologue rotates q and k once into
+rows padded to 16 bytes, and the hires sources' CUDA-core kernels do the
+rest (the head-summed scores and the mask MLP as strided products over the
+B*S rows, the attention passes on a (query or key tile, head, batch) grid),
+with the rope half's pull-back and the table gradients in an epilogue
+(csrc/axial_attention{,_bwd}.cu, "fp32 route"). Each call's launches past
+the counted one go to `.stage_launches` on both routes.
 """
 
 from __future__ import annotations
@@ -100,8 +108,6 @@ def _fn(lib: str, name: str, argtypes: list):
     return fn
 
 
-_FWD_ARGS = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 6
-             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 _FWD_ARGS_BF16 = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 6
                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
                      ctypes.POINTER(ctypes.c_int)])
@@ -154,13 +160,6 @@ def fwd_kv_stages(s: int, d: int, dv: int, use_mask: bool = True) -> int:
     return _fwd_layout(s, d, dv, use_mask)[1]
 
 
-def smem_bytes_f32(s: int, d: int, dv: int) -> int:
-    """Dynamic shared memory of one fp32 (CUDA-core) forward CTA."""
-    sp = 32 * ((s + 31) // 32)
-    ld = d | 1
-    return 4 * (32 * ld + sp * max(ld, dv) + 32 * sp + 32 * 2 * sp)
-
-
 def grid(s: int, b: int) -> tuple[int, int]:
     """CTAs of each bf16 kernel (forward, backward rows and keys): one per
     64 query (keys: key) rows of one batch element."""
@@ -198,11 +197,11 @@ def _mask_weights_bf16(w1, b1, w2, s: int):
     return w1b.contiguous(), F.pad(b1, (0, h2p - 2 * s)), w2b.contiguous()
 
 
-def _launch(qc, qr, kc, kr, v, cos_q, sin_q, cos_k, sin_k, w1, b1, w2, b2,
-            *, scale, dtype, use_mask) -> torch.Tensor:
-    """Launch on the card: bf16 on the tensor-core kernel, fp32 on the
-    CUDA-core one."""
-    bf16 = dtype == torch.bfloat16
+def _dims(qc, qr, kc, kr, v, cos_q, sin_q, cos_k, sin_k, w1, b1, w2, b2,
+          *, dtype, use_mask) -> tuple:
+    """(B, H, S, Dc, Dr, Dv) after checking a launch's inputs: `refusal`
+    passes, and every tensor present has its shape, dtype and device and is
+    contiguous."""
     dev = v.device
     b, h, s, dv = v.shape
     dc = 0 if qc is None else qc.shape[-1]
@@ -219,43 +218,293 @@ def _launch(qc, qr, kc, kr, v, cos_q, sin_q, cos_k, sin_k, w1, b1, w2, b2,
         for name, t in (("cos_q", cos_q), ("sin_q", sin_q),
                         ("cos_k", cos_k), ("sin_k", sin_k)):
             _check(t, name, (s, dr), torch.float32, dev)
-    wa = wb = w1p = b1p = None
     if use_mask:
         for name, t, shape in (("w1", w1, (2 * s, s)), ("b1", b1, (2 * s,)),
                                ("w2", w2, (s, 2 * s)), ("b2", b2, (s,))):
             _check(t, name, shape, torch.float32, dev)
-        if bf16:
-            wa, b1p, wb = _mask_weights_bf16(w1, b1, w2, s)
-        else:
-            wa, b1p, wb = w1.t().contiguous(), b1, w2.t().contiguous()
+    return b, h, s, dc, dr, dv
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _raise_on(err: int, name: str, dims: tuple, dtype) -> None:
+    if err != 0:
+        b, h, s, dc, dr, dv = dims
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} (B={b}, "
+                           f"H={h}, S={s}, Dc={dc}, Dr={dr}, Dv={dv}, "
+                           f"{dtype})")
+
+
+def _launch(qc, qr, kc, kr, v, cos_q, sin_q, cos_k, sin_k, w1, b1, w2, b2,
+            *, scale, dtype, use_mask) -> torch.Tensor:
+    """Launch on the card: bf16 on the tensor-core kernel, fp32 on the
+    CUDA-core route (`_launch_f32`)."""
+    dims = _dims(qc, qr, kc, kr, v, cos_q, sin_q, cos_k, sin_k, w1, b1, w2,
+                 b2, dtype=dtype, use_mask=use_mask)
+    if dtype == torch.float32:
+        out, launched = _launch_f32(
+            dims, qc, qr, kc, kr, v, cos_q, sin_q, cos_k, sin_k, w1, b1, w2,
+            b2, scale=scale, use_mask=use_mask)
+        fused_rope_attention.stage_launches += launched - 1
+        fused_rope_attention.launches += 1
+        return out
+    b, h, s, dc, dr, dv = dims
+    dev = v.device
+    wa = wb = b1p = None
+    if use_mask:
+        wa, b1p, wb = _mask_weights_bf16(w1, b1, w2, s)
     out = torch.empty((b, h, s, dv), dtype=dtype, device=dev)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    prep = tail = ()
+    # the prologue's padded q, k (rotated) and v rows
+    prep = torch.empty(b * h * s * (2 * _pad16(dc + dr) + _pad16(dv)),
+                       dtype=dtype, device=dev)
     launched = ctypes.c_int(0)
-    if bf16:   # the prologue's padded q, k (rotated) and v rows
-        prep = (ptr(torch.empty(b * h * s * (2 * _pad16(dc + dr)
-                                             + _pad16(dv)),
-                                dtype=dtype, device=dev)),)
-        tail = (ctypes.byref(launched),)
-    name = "rope_attention_fwd_bf16" if bf16 else "rope_attention_fwd_f32"
-    err = _fn("axial_attention", name, _FWD_ARGS_BF16 if bf16 else _FWD_ARGS)(
-        ptr(qc), ptr(kc), ptr(qr), ptr(kr),
-        ptr(v), ptr(cos_q if dr else None), ptr(sin_q if dr else None),
-        ptr(cos_k if dr else None), ptr(sin_k if dr else None), ptr(wa),
-        ptr(b1p), ptr(wb), ptr(b2 if use_mask else None), ptr(out), *prep,
-        b, h, s, dc, dr, dv, float(scale), int(use_mask),
-        torch.cuda.current_stream(dev).cuda_stream, *tail)
-    # The bf16 call launches the prologue before the kernel: the kernels it
+    name = "rope_attention_fwd_bf16"
+    err = _fn("axial_attention", name, _FWD_ARGS_BF16)(
+        _ptr(qc), _ptr(kc), _ptr(qr), _ptr(kr), _ptr(v),
+        _ptr(cos_q if dr else None), _ptr(sin_q if dr else None),
+        _ptr(cos_k if dr else None), _ptr(sin_k if dr else None), _ptr(wa),
+        _ptr(b1p), _ptr(wb), _ptr(b2 if use_mask else None), _ptr(out),
+        _ptr(prep), b, h, s, dc, dr, dv, float(scale), int(use_mask),
+        _stream(dev), ctypes.byref(launched))
+    # The call launches the prologue before the kernel: the kernels it
     # launched past the one counted in `.launches`.
     fused_rope_attention.stage_launches += max(launched.value - 1, 0)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error "
-                           f"{err} (B={b}, H={h}, S={s}, Dc={dc}, Dr={dr}, "
-                           f"Dv={dv}, {dtype})")
+    _raise_on(err, name, dims, dtype)
     fused_rope_attention.launches += 1
+    return out
+
+
+# ------------------------------------------------------------ fp32 route
+#
+# The fp32 route's C entries sit in the hires sources beside the CUDA-core
+# kernels they launch (csrc/hires_attention{,_bwd}.cu,
+# rope_attention_{fwd,bwd}_f32; design notes in csrc/axial_attention{,
+# _bwd}.cu, "fp32 route"), with its own kernels in csrc/rope_f32.cuh.
+
+F32_SOURCES = ("calm_vit_dte_tpu_torch/csrc/hires_attention.cu",
+               "calm_vit_dte_tpu_torch/csrc/hires_attention_bwd.cu",
+               "calm_vit_dte_tpu_torch/csrc/rope_f32.cuh")
+# Slots of the fp32 entries' pointer array, in the order of the source's
+# enum RopeF32Slot (csrc/rope_f32.cuh).
+_F32_SLOTS = ("qc", "kc", "qr", "kr", "v", "g", "cos_q", "sin_q", "cos_k",
+              "sin_k", "w1", "b1", "w2", "b2", "out", "qp", "kp", "ssum", "a",
+              "gp", "m", "lse", "delta", "dm", "dssum", "dh1", "dq", "dk",
+              "wpart", "dqc", "dqr", "dkc", "dkr", "dv", "tab", "wgrad")
+_F32_REPORT = [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_longlong)]
+# Both entries: pointers, B, H, S, Dc, Dr, Dv, scale, use_mask, stream and
+# the report.
+_F32_ARGS = ([ctypes.c_void_p] + [ctypes.c_int] * 6
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p] + _F32_REPORT)
+
+
+def _pad4(x: int) -> int:
+    return -(-x // 4) * 4
+
+
+def f32_stage_launches(use_mask: bool = True) -> dict:
+    """The kernels one fp32 call launches past its counted one
+    (`.stage_launches`): {"forward": ..., "backward": ...}. Forward: the
+    prologue, with the mask the three strided products of ssum, a and m,
+    and the attention kernel. Backward: the forward's (with lse) and delta;
+    with the mask the dm/ssum kernel and the dh1 and dssum products; the dq
+    kernel; with the mask the hires weight grads (2 products split over
+    fixed row ranges, the ordered sum of the ranges, two two-stage column
+    sums); the dk/dv kernel; the un-rotation."""
+    return ({"forward": 4, "backward": 18} if use_mask
+            else {"forward": 1, "backward": 5})
+
+
+def _cc_smem(nv: int) -> int:
+    """Dynamic shared memory of a hires CUDA-core attention or dq CTA
+    (`cc_smem` in csrc/hires_common.cuh): the [64][132] score tile and three
+    ring stages, each a (64 + 128) x 36 score chunk or a 16-key output chunk
+    of NV 64-column groups."""
+    stage = max((64 + 128) * 36, 16 * (64 * nv + 4))
+    return 4 * (64 * 132 + 3 * stage)
+
+
+def _nv_of(width: int) -> int:
+    """`nv_of` in csrc/hires_common.cuh: the 64-column groups of an output
+    slice (at most 512 columns)."""
+    return (min(width, 512) + 63) // 64
+
+
+def f32_smem_bytes(s: int, d: int, dv: int) -> dict:
+    """The largest dynamic shared memory a CTA asks for in each fp32 C entry
+    call, as the entries report it: "forward" (the attention kernel's
+    `cc_smem`; the strided products' 64 x 64 or 128 x 128 tiles ask for
+    55,296 or 61,440 bytes) and "backward" (the dq kernel's `cc_smem`, above
+    the dm/ssum kernel's three score-chunk stages, 82,944 bytes, and the
+    dk/dv kernel's two [64][65] chunks, [64][pad4(D) | 1] row tile and two
+    [64][65] score tiles, `tiled_smem` in csrc/hires_attention_bwd.cu).
+    Heads are padded to pad4(D); none of these depends on S."""
+    dp = _pad4(d)
+    dkv = 4 * 64 * (2 * 65 + (min(max(dp, dv), 256) | 1) + 2 * 65)
+    return {"forward": _cc_smem(_nv_of(dv)),
+            "backward": max(_cc_smem(_nv_of(dp)), dkv, 4 * 3 * 192 * 36)}
+
+
+_F32_INDEX = {name: i for i, name in enumerate(_F32_SLOTS)}
+
+
+def _scratch(dev, shapes: dict, ptrs) -> torch.Tensor:
+    """One fp32 allocation holding every scratch buffer of `shapes`
+    ({slot: shape}), each starting on 16 bytes; writes their addresses into
+    the pointer array `ptrs` and returns the allocation (kept alive by the
+    caller until the call has been enqueued)."""
+    sizes = [_pad4(math.prod(shape)) for shape in shapes.values()]
+    flat = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+    at = flat.data_ptr()
+    for name, n in zip(shapes, sizes):
+        ptrs[_F32_INDEX[name]] = at
+        at += 4 * n
+    return flat
+
+
+def _f32_ptrs(tensors: dict):
+    """The entries' pointer array with the given {slot: tensor or None}."""
+    ptrs = (ctypes.c_void_p * len(_F32_SLOTS))()
+    for name, t in tensors.items():
+        if t is not None:
+            ptrs[_F32_INDEX[name]] = t.data_ptr()
+    return ptrs
+
+
+def _f32_call(name: str, ptrs, dims: tuple, dev, *flags) -> tuple:
+    """Call an fp32 entry; returns (kernels launched, the largest dynamic
+    shared memory a CTA of them asked for)."""
+    launched, smem = ctypes.c_int(0), ctypes.c_longlong(0)
+    lib = "hires_attention" if "fwd" in name else "hires_attention_bwd"
+    err = _fn(lib, name, _F32_ARGS)(
+        ptrs, *dims, *flags, _stream(dev), ctypes.byref(launched),
+        ctypes.byref(smem))
+    _raise_on(err, name, dims, torch.float32)
+    return launched.value, smem.value
+
+
+def _f32_inputs(dims, qc, qr, kc, kr, v, cos_q, sin_q, cos_k, sin_k, w1, b1,
+                w2, b2, use_mask) -> dict:
+    t = {"qc": qc, "kc": kc, "qr": qr, "kr": kr, "v": v}
+    if dims[4]:
+        t.update(cos_q=cos_q, sin_q=sin_q, cos_k=cos_k, sin_k=sin_k)
+    if use_mask:
+        t.update(w1=w1, b1=b1, w2=w2, b2=b2)
+    return t
+
+
+def _launch_f32(dims, qc, qr, kc, kr, v, cos_q, sin_q, cos_k, sin_k, w1, b1,
+                w2, b2, *, scale, use_mask) -> tuple:
+    """The fp32 forward on the CUDA cores, one C call
+    (rope_attention_fwd_f32): (out, kernels launched)."""
+    b, h, s, dc, dr, dv = dims
+    dev = v.device
+    t = _f32_inputs(dims, qc, qr, kc, kr, v, cos_q, sin_q, cos_k, sin_k, w1,
+                    b1, w2, b2, use_mask)
+    out = t["out"] = torch.empty((b, h, s, dv), dtype=torch.float32,
+                                 device=dev)
+    ptrs = _f32_ptrs(t)
+    dp = _pad4(dc + dr)
+    keep = _scratch(dev, {"qp": (b, h, s, dp), "kp": (b, h, s, dp),
+                          **({"ssum": (b, s, s), "a": (b, s, 2 * s),
+                              "m": (b, s, s)} if use_mask else {})}, ptrs)
+    launched, smem = _f32_call("rope_attention_fwd_f32", ptrs, dims, dev,
+                               float(scale), int(use_mask))
+    del keep   # freed in stream order, after the call's kernels
+    fused_rope_attention.f32_smem_bytes = {"forward": smem}
+    return out, launched
+
+
+def _launch_bwd_f32(dims, g, qc, qr, kc, kr, v, cos_q, sin_q, cos_k, sin_k,
+                    w1, b1, w2, b2, *, scale, use_mask) -> tuple:
+    """The fp32 backward on the CUDA cores: the forward's entry with
+    residuals and delta, then rope_attention_bwd_f32 (csrc/axial_attention_
+    bwd.cu, "fp32 route"). Returns (the 13 gradients, kernels launched)."""
+    from calm_vit_dte_tpu_torch.kernels import hires_attention as kh
+
+    b, h, s, dc, dr, dv = dims
+    dev = v.device
+    f32 = torch.float32
+    dp = _pad4(dc + dr)
+    t = _f32_inputs(dims, qc, qr, kc, kr, v, cos_q, sin_q, cos_k, sin_k, w1,
+                    b1, w2, b2, use_mask)
+    t["g"] = g
+
+    def new(*shape):
+        return torch.empty(shape, dtype=f32, device=dev)
+
+    t["dv"] = new(b, h, s, dv)
+    if dc:
+        t.update(dqc=new(b, h, s, dc), dkc=new(b, h, s, dc))
+    if dr:
+        t.update(dqr=new(b, h, s, dr), dkr=new(b, h, s, dr),
+                 tab=new(4, s, dr))
+    if use_mask:
+        t["wgrad"] = new(4 * s * s + 3 * s)
+    ptrs = _f32_ptrs(t)
+    keep = _scratch(dev, {
+        "qp": (b, h, s, dp), "kp": (b, h, s, dp), "out": (b, h, s, dv),
+        "dq": (b, h, s, dp), "dk": (b, h, s, dp), "lse": (b, h, s),
+        "delta": (b, h, s), "m": (b, s, s), "dssum": (b, s, s),
+        **({"ssum": (b, s, s), "dm": (b, s, s), "a": (b, s, 2 * s),
+            "gp": (b, s, 2 * s), "dh1": (b, s, 2 * s),
+            "wpart": (kh.weight_grads_scratch(f32, s),)} if use_mask
+           else {})}, ptrs)
+    flags = (float(scale), int(use_mask))
+    n_fwd, smem_fwd = _f32_call("rope_attention_fwd_f32", ptrs, dims, dev,
+                                *flags)
+    n_bwd, smem_bwd = _f32_call("rope_attention_bwd_f32", ptrs, dims, dev,
+                                *flags)
+    del keep   # freed in stream order, after the calls' kernels
+    fused_rope_attention_bwd.f32_smem_bytes = {"forward": smem_fwd,
+                                               "backward": smem_bwd}
+    tabs = tuple(t["tab"]) if dr else (None,) * 4
+    dw1 = db1 = dw2 = db2 = None
+    if use_mask:
+        dw1, db1, dw2, db2 = torch.split(t["wgrad"], [2 * s * s, 2 * s,
+                                                      2 * s * s, s])
+        dw1, dw2 = dw1.view(2 * s, s), dw2.view(s, 2 * s)
+    return ((t.get("dqc"), t.get("dqr"), t.get("dkc"), t.get("dkr"), t["dv"],
+             *tabs, dw1, db1, dw2, db2), n_fwd + n_bwd)
+
+
+# The kernels `rope_f32_occupancy` (csrc/hires_attention_bwd.cu) reports,
+# in its order: the route's own (csrc/rope_f32.cuh), the strided product
+# with cp.async staging at each staging (A, B: "k" where the contraction
+# axis is unit-stride, else "r") at 128 x 128, 64 x 64 and 64 x 64 (four
+# groups) tiles, and the dk/dv kernel at its three column counts a thread.
+F32_OCCUPANCY_KERNELS = (
+    ("rope_prep_f32_kernel", "rope_delta_kernel", "rope_unrotate_f32_kernel")
+    + tuple(f"gemm_kernel<float, {a}{b}, {bm}x{bm}{groups}>"
+            for bm, groups in ((128, ""), (64, ""), (64, ", 4 groups"))
+            for a in "rk" for b in "rk")
+    + tuple(f"hires_dkv_kernel<float, {cj}>" for cj in (4, 8, 16)))
+
+
+def f32_occupancy() -> dict:
+    """What the card makes of the fp32 route's kernels: its own, the strided
+    product and the dk/dv kernel (`F32_OCCUPANCY_KERNELS`), and the hires
+    CUDA-core attention, dq and dm/ssum kernels it runs with cp.async
+    staging (`hires_attention.cuda_core_occupancy`): {name: {"registers",
+    "spill_bytes", "smem_bytes" (static + dynamic, a CTA),
+    "ctas_per_sm"}}."""
+    from calm_vit_dte_tpu_torch.kernels import hires_attention as kh
+
+    keys = ("registers", "spill_bytes", "smem_bytes", "ctas_per_sm")
+    names = F32_OCCUPANCY_KERNELS
+    buf = (ctypes.c_int * (4 * len(names)))()
+    err = _fn("hires_attention_bwd", "rope_f32_occupancy",
+              [ctypes.c_void_p])(buf)
+    if err != 0:
+        raise RuntimeError(f"rope_f32_occupancy: CUDA error {err}")
+    out = {name: dict(zip(keys, buf[4 * k:4 * k + 4]))
+           for k, name in enumerate(names)}
+    out.update(kh.cuda_core_occupancy())
     return out
 
 
@@ -422,6 +671,42 @@ def fused_rope_attention_bwd_stages_plain(g, qc, qr, kc, kr, v, cos_q, sin_q,
     return (dqc, dqr, dkc, dkr, dv, dcq, dsq, dck, dsk, dw1, db1, dw2, db2)
 
 
+def fused_rope_attention_bwd_f32_stages_plain(g, qc, qr, kc, kr, v, cos_q,
+                                              sin_q, cos_k, sin_k, w1, b1,
+                                              w2, b2, *, scale: float,
+                                              use_mask: bool = True) -> tuple:
+    """`fused_rope_attention_bwd_plain` in fp32 composed as the fp32 route
+    stages it (csrc/axial_attention_bwd.cu, "fp32 route"): the rotation,
+    the hires forward with residuals, delta = rowsum(g * o), the hires dq
+    and dk/dv passes (kernels/hires_attention.py's plain versions; zero mask
+    weights without the mask) and the un-rotation; same returns."""
+    from calm_vit_dte_tpu_torch.kernels import hires_attention as kh
+
+    f32 = torch.float32
+    q = _assemble(qc, qr, cos_q, sin_q, f32)
+    k = _assemble(kc, kr, cos_k, sin_k, f32)
+    s = v.shape[2]
+    if not use_mask:
+        w1, b1 = torch.zeros(2 * s, s), torch.zeros(2 * s)
+        w2, b2 = torch.zeros(s, 2 * s), torch.zeros(s)
+    kw = dict(scale=scale, dtype=f32)
+    o, m, lse = kh.hires_fwd_res_plain(q, k, v, w1, b1, w2, b2, **kw)
+    delta = (g.float() * o).sum(dim=-1)
+    dq, dssum, dw1, db1, dw2, db2 = kh.hires_dq_plain(
+        q, k, v, g, m, lse, delta, w1, b1, w2, **kw)
+    dk, dv = kh.hires_dkv_plain(q, k, v, g, m, lse, delta, dssum, **kw)
+    if not use_mask:
+        dw1 = db1 = dw2 = db2 = None
+    dc = 0 if qc is None else qc.shape[-1]
+    dqc = dkc = dqr = dkr = dcq = dsq = dck = dsk = None
+    if dc:
+        dqc, dkc = dq[..., :dc], dk[..., :dc]
+    if qr is not None:
+        dqr, dcq, dsq = _unrotate(dq[..., dc:], qr, cos_q, sin_q, f32, f32)
+        dkr, dck, dsk = _unrotate(dk[..., dc:], kr, cos_k, sin_k, f32, f32)
+    return (dqc, dqr, dkc, dkr, dv, dcq, dsq, dck, dsk, dw1, db1, dw2, db2)
+
+
 WEIGHT_TILE = 64   # output tile of the weight-grad kernels
 
 
@@ -477,14 +762,6 @@ def card_layout(s: int, d: int, dv: int, use_mask: bool = True) -> dict:
             "keys": keys.value}
 
 
-def bwd_smem_bytes_f32(s: int, d: int, dv: int) -> int:
-    """Dynamic shared memory of one fp32 (CUDA-core) backward CTA."""
-    sp = 32 * ((s + 31) // 32)
-    ld = d | 1
-    ldq = max(ld, dv | 1)
-    return 4 * (32 * ldq + sp * ldq + 32 * sp + 32 * 2 * sp + 32 * ld)
-
-
 def refusal(s: int, dc: int, dr: int, dv: int, dtype,
             use_mask: bool = True) -> str | None:
     """Why the rope kernels (forward and backward) refuse a shape, or None
@@ -502,56 +779,49 @@ def refusal(s: int, dc: int, dr: int, dv: int, dtype,
             or dr % 2 or d == 0):
         return (f"unsupported shape: S={s} (<= {MAX_S}), Dv={dv} "
                 f"(<= {MAX_DV}), Dc={dc}, Dr={dr} (even)")
-    bf16 = dtype == torch.bfloat16
-    if bf16 and (d > 64 or dc % 2 or dv % 2):
-        return (f"the bf16 kernel takes D <= 64 and even Dc, Dv; got "
-                f"Dc={dc}, Dr={dr}, Dv={dv}")
-    smem = (smem_bytes(s, d, dv, use_mask) if bf16
-            else smem_bytes_f32(s, d, dv))
-    if smem > _SMEM_LIMIT:
-        return (f"S={s}, D={d}, Dv={dv} needs more shared memory than a "
-                "CTA has")
+    if dtype == torch.bfloat16:
+        if d > 64 or dc % 2 or dv % 2:
+            return (f"the bf16 kernel takes D <= 64 and even Dc, Dv; got "
+                    f"Dc={dc}, Dr={dr}, Dv={dv}")
+        if max(smem_bytes(s, d, dv, use_mask),
+               bwd_rows_smem_bytes(s, d, dv, use_mask),
+               bwd_keys_smem_bytes(s, d, dv, use_mask)) > _SMEM_LIMIT:
+            return (f"S={s}, D={d}, Dv={dv} needs more shared memory than "
+                    "a CTA has")
     if d > 64:
         return f"the backward kernel takes D <= 64, got {d}"
-    smem = (max(bwd_rows_smem_bytes(s, d, dv, use_mask),
-                bwd_keys_smem_bytes(s, d, dv, use_mask)) if bf16
-            else bwd_smem_bytes_f32(s, d, dv))
-    if smem > _SMEM_LIMIT:
-        return (f"S={s}, D={d}, Dv={dv} needs more shared memory than a "
-                "CTA has")
     return None
 
 
-# Slots of the backward's pointer arrays, in the order of the source's
-# enums (Slot for fp32, SlotBf16 for bf16).
-_BWD_SLOTS = ("qc", "kc", "qr", "kr", "v", "g", "cos_q", "sin_q", "cos_k",
-              "sin_k", "w1", "w1t", "b1", "w2", "w2t", "b2", "dqc", "dqr",
-              "dkc", "dkr", "dv", "tab_out", "wgrad", "tab_part", "dk_full",
-              "dlog", "gprime", "ssum", "a", "dm", "dh1", "wpart")
+# Slots of the bf16 backward's pointer array, in the order of the source's
+# enum SlotBf16.
 _BWD_SLOTS_BF16 = ("qc", "kc", "qr", "kr", "v", "g", "cos_q", "sin_q",
                    "cos_k", "sin_k", "w1", "b1", "w2", "b2", "dqc", "dqr",
                    "dkc", "dkr", "dv", "tab_out", "wgrad", "tab_part",
                    "ssum", "a", "dm", "dh1", "m", "dssum", "stats", "wpart",
                    "prep")
-_BWD_ARGS = ([ctypes.c_void_p] + [ctypes.c_int] * 6
-             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-_BWD_ARGS_BF16 = _BWD_ARGS + [ctypes.POINTER(ctypes.c_int)]
+_BWD_ARGS_BF16 = ([ctypes.c_void_p] + [ctypes.c_int] * 6
+                  + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                     ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
 
 
 def _launch_bwd(g, qc, qr, kc, kr, v, cos_q, sin_q, cos_k, sin_k, w1, b1,
                 w2, b2, *, scale, dtype, use_mask) -> tuple:
     """Launch the backward on the card; same returns as the plain version.
-    Inputs were checked by the forward launch; g must match v."""
-    bf16 = dtype == torch.bfloat16
-    dev = v.device
-    b, h, s, dv = v.shape
-    dc = 0 if qc is None else qc.shape[-1]
-    dr = 0 if qr is None else qr.shape[-1]
+    g must match v."""
+    dims = _dims(qc, qr, kc, kr, v, cos_q, sin_q, cos_k, sin_k, w1, b1, w2,
+                 b2, dtype=dtype, use_mask=use_mask)
+    b, h, s, dc, dr, dv = dims
     d = dc + dr
-    why = refusal(s, dc, dr, dv, dtype, use_mask)
-    if why is not None:
-        raise ValueError(why)
+    dev = v.device
     _check(g, "g", (b, h, s, dv), dtype, dev)
+    if dtype == torch.float32:
+        grads, launched = _launch_bwd_f32(
+            dims, g, qc, qr, kc, kr, v, cos_q, sin_q, cos_k, sin_k, w1, b1,
+            w2, b2, scale=scale, use_mask=use_mask)
+        fused_rope_attention_bwd.stage_launches += launched - 1
+        fused_rope_attention_bwd.launches += 1
+        return grads
 
     def new(shape, dt=torch.float32):
         return torch.empty(shape, dtype=dt, device=dev)
@@ -560,62 +830,40 @@ def _launch_bwd(g, qc, qr, kc, kr, v, cos_q, sin_q, cos_k, sin_k, w1, b1,
          "dv": new((b, h, s, dv))}
     if dc:
         t["dqc"] = new((b, h, s, dc), dtype)
+        t["dkc"] = new((b, h, s, dc))
     if dr:
         t.update(cos_q=cos_q, sin_q=sin_q, cos_k=cos_k, sin_k=sin_k,
                  dqr=new((b, h, s, dr), dtype), dkr=new((b, h, s, dr)),
                  tab_out=new((4, s, dr)), tab_part=new((b, 4, s, dr)))
-    if not bf16:
-        t.update(dk_full=new((b, h, s, d)), dlog=new((b, h, s, s)))
-        if dr and dc:
-            t["dkc"] = new((b, h, s, dc))
-        elif not dr:
-            t["dkc"] = t["dk_full"]
-    elif dc:
-        t["dkc"] = new((b, h, s, dc))
     splits = 1
     n_w = 2 * s * s
     if use_mask:
         splits = weight_grad_splits(b, s)
         total = 2 * n_w + 3 * s
-        t.update(b2=b2, wgrad=new((total,)), wpart=new((splits, total)))
         sp, h2p = _pad16(s), _pad16(2 * s)
-        if bf16:
-            w1b, b1p, w2b = _mask_weights_bf16(w1, b1, w2, s)
-            t.update(w1=w1b, b1=b1p, w2=w2b,
-                     ssum=new((b * s, sp), dtype), a=new((b * s, h2p), dtype),
-                     dm=new((b * s, sp), dtype), dh1=new((b * s, h2p), dtype),
-                     m=new((b * s, sp)), dssum=new((b * s, sp)))
-        else:
-            t.update(w1=w1, w1t=w1.t().contiguous(), b1=b1, w2=w2,
-                     w2t=w2.t().contiguous(), gprime=new((b, s, 2 * s)),
-                     ssum=new((b, s, s), dtype), a=new((b, s, 2 * s), dtype),
-                     dm=new((b, s, s), dtype), dh1=new((b, s, 2 * s), dtype))
-    if bf16:
-        t["stats"] = new((b, h, s, 3))
-        t["prep"] = new((b * h * s * 2 * (_pad16(d) + _pad16(dv)),), dtype)
-    slots = _BWD_SLOTS_BF16 if bf16 else _BWD_SLOTS
-    ptrs = (ctypes.c_void_p * len(slots))(
-        *(None if t.get(name) is None else t[name].data_ptr()
-          for name in slots))
-    name = "rope_attention_bwd_bf16" if bf16 else "rope_attention_bwd_f32"
+        w1b, b1p, w2b = _mask_weights_bf16(w1, b1, w2, s)
+        t.update(b2=b2, wgrad=new((total,)), wpart=new((splits, total)),
+                 w1=w1b, b1=b1p, w2=w2b,
+                 ssum=new((b * s, sp), dtype), a=new((b * s, h2p), dtype),
+                 dm=new((b * s, sp), dtype), dh1=new((b * s, h2p), dtype),
+                 m=new((b * s, sp)), dssum=new((b * s, sp)))
+    t["stats"] = new((b, h, s, 3))
+    t["prep"] = new((b * h * s * 2 * (_pad16(d) + _pad16(dv)),), dtype)
+    ptrs = (ctypes.c_void_p * len(_BWD_SLOTS_BF16))(
+        *(_ptr(t.get(name)) for name in _BWD_SLOTS_BF16))
+    name = "rope_attention_bwd_bf16"
     launched = ctypes.c_int(0)
-    err = _fn("axial_attention_bwd", name,
-              _BWD_ARGS_BF16 if bf16 else _BWD_ARGS)(
+    err = _fn("axial_attention_bwd", name, _BWD_ARGS_BF16)(
         ptrs, b, h, s, dc, dr, dv, float(scale), int(use_mask), splits,
-        torch.cuda.current_stream(dev).cuda_stream,
-        *((ctypes.byref(launched),) if bf16 else ()))
-    # The bf16 call's kernels past the one counted in `.launches`.
+        _stream(dev), ctypes.byref(launched))
+    # The call's kernels past the one counted in `.launches`.
     fused_rope_attention_bwd.stage_launches += max(launched.value - 1, 0)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error "
-                           f"{err} (B={b}, H={h}, S={s}, Dc={dc}, Dr={dr}, "
-                           f"Dv={dv}, {dtype})")
+    _raise_on(err, name, dims, dtype)
     fused_rope_attention_bwd.launches += 1
     tabs = t["tab_out"] if dr else (None,) * 4
     dw1 = db1 = dw2 = db2 = None
     if use_mask:
-        wg = t["wgrad"]
-        dw1, db1, dw2, db2 = torch.split(wg, [n_w, 2 * s, n_w, s])
+        dw1, db1, dw2, db2 = torch.split(t["wgrad"], [n_w, 2 * s, n_w, s])
         dw1, dw2 = dw1.view(2 * s, s), dw2.view(s, 2 * s)
     return (t.get("dqc"), t.get("dqr"), t.get("dkc"), t.get("dkr"), t["dv"],
             *tabs, dw1, db1, dw2, db2)
@@ -637,9 +885,13 @@ def fused_rope_attention_bwd(g, qc, qr, kc, kr, v, cos_q, sin_q, cos_k,
 
 
 fused_rope_attention_bwd.launches = 0
-# The bf16 route's further launches per call, as the C entry reports them:
-# the prologue, the keys kernel, the table and weight-grad reductions.
+# The further launches per call, as the C entries report them: bf16, the
+# prologue, the keys kernel, the table and weight-grad reductions; fp32,
+# `f32_stage_launches`.
 fused_rope_attention_bwd.stage_launches = 0
+# The largest dynamic shared memory a CTA asked for in each hires call of
+# the last fp32 card call, as the C entries report it (`f32_smem_bytes`).
+fused_rope_attention_bwd.f32_smem_bytes = {}
 
 
 def _forward(args, scale, dtype, use_mask) -> torch.Tensor:
@@ -698,6 +950,7 @@ def fused_rope_attention(qc, qr, kc, kr, v, cos_q, sin_q, cos_k, sin_k,
 
 
 fused_rope_attention.launches = 0
-# The bf16 route's further launches per call, as the C entry reports them
-# (its prologue).
+# The further launches per call, as the C entries report them: bf16, its
+# prologue; fp32, `f32_stage_launches`.
 fused_rope_attention.stage_launches = 0
+fused_rope_attention.f32_smem_bytes = {}

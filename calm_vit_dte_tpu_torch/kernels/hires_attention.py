@@ -349,12 +349,24 @@ def hires_weight_grads_plain(ssum, dm, a, dh1) -> tuple:
             torch.einsum("bqk,bqj->kj", dm, a), dm.sum(dim=(0, 1)))
 
 
+def weight_grads_scratch(dtype, s: int) -> int:
+    """Floats of the scratch `hires_weight_grads` hands its C entry at S
+    (`hires_weight_grads_scratch` in csrc/hires_attention_bwd.cu): the
+    split products' partials and the bias grads' partial column sums."""
+    fn = library("hires_attention_bwd").hires_weight_grads_scratch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 2
+        fn.restype = ctypes.c_longlong
+    return fn(int(dtype == torch.bfloat16), s)
+
+
 def hires_weight_grads(ssum, dm, a, dh1) -> tuple:
     """The weight-grad reduction that `hires_dq` runs on the card after its
     pass: X^T Y products and column sums over the B*S rows, every sum in a
-    fixed order (bf16: the products split over fixed row ranges whose
-    partials are added in order; no atomics, the same bits from run to
-    run). Same returns as `hires_weight_grads_plain`."""
+    fixed order (the products split over fixed row ranges whose partials
+    are added in order, fp32 at every S and bf16 where S is a multiple of
+    8; no atomics, the same bits from run to run). Same returns as
+    `hires_weight_grads_plain`."""
     if _on(dm) == "cpu":
         return hires_weight_grads_plain(ssum, dm, a, dh1)
     b, s, _ = dm.shape
@@ -366,11 +378,8 @@ def hires_weight_grads(ssum, dm, a, dh1) -> tuple:
     outs = [torch.empty(shape, dtype=torch.float32, device=dev)
             for shape in ((2 * s, s), (2 * s,), (s, 2 * s), (s,))]
     bf16 = int(dtype == torch.bfloat16)
-    scratch = library("hires_attention_bwd").hires_weight_grads_scratch
-    if scratch.argtypes is None:
-        scratch.argtypes = [ctypes.c_int] * 2
-        scratch.restype = ctypes.c_longlong
-    part = torch.empty(scratch(bf16, s), dtype=torch.float32, device=dev)
+    part = torch.empty(weight_grads_scratch(dtype, s), dtype=torch.float32,
+                       device=dev)
     err = _call(
         _fn("hires_attention_bwd", "hires_weight_grads", 9, dims=2,
             scale=False), hires_weight_grads,
@@ -439,15 +448,15 @@ def wide_occupancy(d: int) -> dict:
 def cuda_core_occupancy() -> dict:
     """What the card makes of the fp32 CUDA-core kernels with cp.async
     staging, the fp32 route's: the attention kernel and the dq kernel at NV
-    (or NQ) = 2-8 64-column groups of their output slice, and the dm/ssum
+    (or NQ) = 1-8 64-column groups of their output slice, and the dm/ssum
     kernel, as `wide_occupancy` reports them."""
     keys = ("registers", "spill_bytes", "smem_bytes", "ctas_per_sm")
     out = {}
     for lib, entry, names in (
             ("hires_attention", "hires_attention_cc_occupancy",
-             [f"hires_attention_kernel<float, {nv}>" for nv in range(2, 9)]),
+             [f"hires_attention_kernel<float, {nv}>" for nv in range(1, 9)]),
             ("hires_attention_bwd", "hires_dq_cc_occupancy",
-             [f"hires_dq_kernel<float, {nq}>" for nq in range(2, 9)]
+             [f"hires_dq_kernel<float, {nq}>" for nq in range(1, 9)]
              + ["hires_dm_ssum_kernel<float>"])):
         fn = getattr(library(lib), entry)
         if fn.argtypes is None:

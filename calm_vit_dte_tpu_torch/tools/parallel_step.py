@@ -32,11 +32,12 @@ names (or their ends), whose gradients after its last step (the mean over
 the ranks, as the optimizer takes it) and, on a mesh, each rank's own
 gradient before that mean go into the output (`tools/dp_grad_drift.py`).
 
-Each output holds the step's metrics, host ms and kernel launches per
-step, the full final state gathered from the ranks (state_dict, moments,
-counters), the preprocessed rows of each step when the run preprocesses,
-the shapes of the injected noise, and the bytes of parameters and moments
-the rank stores.
+Each output holds the step's metrics, host ms, kernel launches and stage
+launches (the kernels past each counted call,
+`utils.profiling.stage_counts`) per step, the full final state gathered
+from the ranks (state_dict, moments, counters), the preprocessed rows of
+each step when the run preprocesses, the shapes of the injected noise, and
+the bytes of parameters and moments the rank stores.
 """
 
 from __future__ import annotations
@@ -76,7 +77,10 @@ from calm_vit_dte_tpu_torch.train.state import (
 )
 from calm_vit_dte_tpu_torch.train.step import make_train_step
 from calm_vit_dte_tpu_torch.utils.configs import get_config
-from calm_vit_dte_tpu_torch.utils.profiling import launch_counts
+from calm_vit_dte_tpu_torch.utils.profiling import (
+    launch_counts,
+    stage_counts,
+)
 
 ROOT = Path(__file__).resolve().parents[2]
 # The JAX parity tests' optimizer (tests/_train_step_jax.py).
@@ -239,7 +243,8 @@ def run_one(run: dict, mesh, device: torch.device,
     step = make_train_step(cfg.model, tx, cfg.task, dtype=torch.float32,
                            remat=False, preprocess=pre,
                            microbatches=run.get("microbatches", 1))
-    rec = {"metrics": [], "ms": [], "launches": [], "noise_shapes": []}
+    rec = {"metrics": [], "ms": [], "launches": [], "stages": [],
+           "noise_shapes": []}
     named = [(name, p) for name, p in model.named_parameters()
              if any(name.endswith(w) for w in run.get("grads", ()))]
     local: dict = {}
@@ -250,7 +255,7 @@ def run_one(run: dict, mesh, device: torch.device,
     for _ in range(run["steps"]):
         noise = (NoiseSeq(run["noise_seed"])
                  if run.get("noise_seed") is not None else None)
-        before = launch_counts()
+        before, before_stages = launch_counts(), stage_counts()
         _sync(device)
         t0 = time.perf_counter()
         with noise_override(noise), spy():
@@ -260,6 +265,9 @@ def run_one(run: dict, mesh, device: torch.device,
         after = launch_counts()
         rec["launches"].append({k: n - before[k] for k, n in after.items()
                                 if n > before[k]})
+        rec["stages"].append({k: n - before_stages[k]
+                              for k, n in stage_counts().items()
+                              if n > before_stages[k]})
         rec["metrics"].append({k: float(v) for k, v in metrics.items()})
         rec["noise_shapes"].append(noise.shapes if noise else [])
     if run.get("time_noise") and rec["noise_shapes"][-1]:

@@ -28,7 +28,11 @@ with the card's name and power limit.
 
     python -m calm_vit_dte_tpu_torch.tools.time_hires [--batch 8] \\
         [--heads 12] [--dtype bfloat16|float32] [--plain] [--reps 5] \\
-        [--step] [--no-yardsticks] [--trace-dir DIR]
+        [--step] [--no-yardsticks] [--trace-dir DIR] [--config NAME]
+
+--config times the hires kernels at another config's attention shapes
+(D = Dc + Dr, q and k as if rotated), e.g. imagenet-cls-224's, where the
+rope kernels run them on the model's path.
 
 With --dtype float32 every pass runs the CUDA-core kernels (the card-vs-CPU
 checks' route), and the yardsticks run in fp32 too; --step always traces the
@@ -369,6 +373,8 @@ def main(argv=None) -> int:
     ap.add_argument("--no-yardsticks", action="store_true")
     ap.add_argument("--trace-dir", type=pathlib.Path, default=None,
                     help="trace each call at the widest shape into DIR")
+    ap.add_argument("--config", default="hires-cls-1024",
+                    help="the config whose attention shapes to time")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("time_hires needs a CUDA card")
@@ -378,7 +384,7 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     shapes = kernel_shapes(dataclasses.replace(
-        get_config("hires-cls-1024").model, heads=args.heads))
+        get_config(args.config).model, heads=args.heads))
     widest = max(shapes, key=lambda k: (k[1], k[2]))
     sums = {k: 0.0 for k in ("fwd_res", "fwd_only", "dq", "dkv")}
     bound_sums, plain_sums = dict.fromkeys(sums, 0.0), dict.fromkeys(sums, 0.0)
@@ -397,7 +403,8 @@ def main(argv=None) -> int:
             plain_sums[k] += n * row[k].get("plain_ms", 0.0)
         print(json.dumps(row), flush=True)
         torch.cuda.empty_cache()
-    out = {"batch": args.batch, "heads": args.heads, "dtype": args.dtype,
+    out = {"config": args.config, "batch": args.batch, "heads": args.heads,
+           "dtype": args.dtype,
            "per_hires_step_or_forward_ms": sums,
            "bound_per_hires_step_or_forward_ms": bound_sums, "card": smi}
     if args.plain:

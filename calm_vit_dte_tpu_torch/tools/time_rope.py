@@ -9,10 +9,17 @@ bytes over the HBM rate and its operations over the compute type's peak,
 as chip_smoke.py counts them), and prints one JSON line per shape, then
 one per config with the sums weighted by the launches per forward (per
 training step for the backward), the card's name and its power limit.
+With --plain it also times the plain versions on the card
+(`fused_rope_attention_plain`, `fused_rope_attention_bwd_plain`: torch
+ops, cuBLAS products in `dtype`) beside each kernel. With --parts it traces
+3 calls of each under torch.profiler and splits each call's device time by
+kernel family (`PARTS`: the fp32 route's prologue, strided products,
+attention, dm/ssum, dq, dk/dv passes and its own kernels; the bf16 route's
+kernels under "other"), beside `device_ms`, the call's whole device time.
 
     python -m calm_vit_dte_tpu_torch.tools.time_rope \\
         [--config imagenet-cls-224 ...] [--batch 128] [--reps 20] \\
-        [--dtype bfloat16|float32]
+        [--dtype bfloat16|float32] [--plain] [--parts]
 
 It times the package found first on `sys.path`. To compare two versions of
 the kernels on one card in one run, start it from each checkout's root in
@@ -89,6 +96,46 @@ def _inputs(b, h, s, dc, dr, dv, seed, dt=torch.bfloat16):
     return args, n(b, h, s, dv)
 
 
+# The fp32 route's kernel families, by (demangled) kernel name
+# (csrc/rope_f32.cuh and the hires CUDA-core kernels it launches).
+PARTS = {
+    "prologue": ("rope_prep_f32_kernel",),
+    "strided product": ("gemm_kernel",),
+    "attention forward": ("hires_attention_kernel",),
+    "delta": ("rope_delta_kernel",),
+    "dm/ssum": ("hires_dm_ssum_kernel",),
+    "dq": ("hires_dq_kernel",),
+    "dk/dv": ("hires_dkv_kernel",),
+    "weight-grad sums": ("colsum_kernel", "sum_splits_kernel",
+                         "sum_partials_kernel"),
+    "un-rotation": ("rope_unrotate_f32_kernel",),
+}
+
+
+def parts_ms(fn, calls: int = 3) -> dict[str, float]:
+    """Device ms per call of each part (PARTS, the rest under "other")
+    and in all ("device_ms"), from a torch.profiler trace of `calls`
+    calls after a warm one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys([*PARTS, "other"], 0.0)
+    for e in prof.key_averages():
+        if e.device_type.name != "CUDA":
+            continue
+        part = next((p for p, names in PARTS.items()
+                     if any(n in e.key for n in names)), "other")
+        out[part] += e.self_device_time_total / 1e3 / calls
+    out = {k: v for k, v in out.items() if v > 0}
+    out["device_ms"] = sum(out.values())
+    return out
+
+
 def _median_ms(fn, reps: int) -> float:
     fn()
     fn()
@@ -111,6 +158,10 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--dtype", choices=("bfloat16", "float32"),
                     default="bfloat16")
+    ap.add_argument("--plain", action="store_true",
+                    help="also time the plain versions on the card")
+    ap.add_argument("--parts", action="store_true",
+                    help="split each call's device time by kernel family")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("time_rope needs a CUDA card")
@@ -122,7 +173,9 @@ def main(argv=None) -> int:
     for name in args.config:
         mcfg = get_config(name).model
         sums = {"forward_ms": 0.0, "backward_ms": 0.0,
-                "forward_bound_ms": 0.0, "backward_bound_ms": 0.0}
+                "forward_bound_ms": 0.0, "backward_bound_ms": 0.0,
+                "forward_plain_ms": 0.0, "backward_plain_ms": 0.0,
+                "forward_device_ms": 0.0, "backward_device_ms": 0.0}
         for i, ((s, dc, dr, dv), launches) in enumerate(
                 sorted(attention_shapes(mcfg).items(), reverse=True)):
             x, g = _inputs(args.batch, mcfg.heads, s, dc, dr, dv, seed=i,
@@ -135,15 +188,31 @@ def main(argv=None) -> int:
                 bwd = _median_ms(
                     lambda: ka.fused_rope_attention_bwd(g, *x, **kw),
                     args.reps)
-            for key, x_ in (("forward_ms", fwd), ("backward_ms", bwd),
-                            ("forward_bound_ms", fb),
-                            ("backward_bound_ms", bb)):
-                sums[key] += launches * x_
-            print(json.dumps({"config": name, "shape": [s, dc, dr, dv],
-                              "dtype": args.dtype, "launches": launches,
-                              "forward_ms": fwd, "backward_ms": bwd,
-                              "forward_bound_ms": fb,
-                              "backward_bound_ms": bb}), flush=True)
+                row = {"config": name, "shape": [s, dc, dr, dv],
+                       "dtype": args.dtype, "launches": launches,
+                       "forward_ms": fwd, "backward_ms": bwd,
+                       "forward_bound_ms": fb, "backward_bound_ms": bb}
+                if args.plain:
+                    reps = max(2, args.reps // 4)
+                    row["forward_plain_ms"] = _median_ms(
+                        lambda: ka.fused_rope_attention_plain(*x, **kw),
+                        reps)
+                    row["backward_plain_ms"] = _median_ms(
+                        lambda: ka.fused_rope_attention_bwd_plain(g, *x,
+                                                                  **kw),
+                        reps)
+                if args.parts:
+                    for key, fn in (
+                            ("forward", lambda: ka.fused_rope_attention(
+                                *x, **kw)),
+                            ("backward", lambda: ka.fused_rope_attention_bwd(
+                                g, *x, **kw))):
+                        row[f"{key}_parts_ms"] = parts_ms(fn)
+                        row[f"{key}_device_ms"] = \
+                            row[f"{key}_parts_ms"]["device_ms"]
+            for key in sums:
+                sums[key] += launches * row.get(key, 0.0)
+            print(json.dumps(row), flush=True)
             del x, g
         print(json.dumps({"config": name, "batch": args.batch,
                           "dtype": args.dtype,
@@ -152,6 +221,15 @@ def main(argv=None) -> int:
                           "bound_per_forward": sums["forward_bound_ms"],
                           "bound_per_step_backward":
                               sums["backward_bound_ms"],
+                          **({"plain_per_forward": sums["forward_plain_ms"],
+                              "plain_per_step_backward":
+                                  sums["backward_plain_ms"]}
+                             if args.plain else {}),
+                          **({"device_per_forward":
+                                  sums["forward_device_ms"],
+                              "device_per_step_backward":
+                                  sums["backward_device_ms"]}
+                             if args.parts else {}),
                           "card": smi}), flush=True)
     return 0
 

@@ -104,3 +104,15 @@ def launch_counts() -> dict[str, int]:
         kc.conv_residual_bwd, kc.conv_weight_grad_sum,
         kh.fused_hires_attention, kh.hires_dq, kh.hires_weight_grads,
         kh.hires_dkv, kh.fused_attention_forward, kr.swap_seq_heads)}
+
+
+def stage_counts() -> dict[str, int]:
+    """The rope and hires wrappers' stage launches (the kernels each call
+    launches past its counted one, as the C entries report them), by
+    name."""
+    from calm_vit_dte_tpu_torch.kernels import axial_attention as ka
+    from calm_vit_dte_tpu_torch.kernels import hires_attention as kh
+
+    return {fn.__name__: fn.stage_launches for fn in (
+        ka.fused_rope_attention, ka.fused_rope_attention_bwd,
+        kh.fused_hires_attention, kh.hires_dq, kh.fused_attention_forward)}

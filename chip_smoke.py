@@ -15,7 +15,10 @@ Phases, each fatal on failure (any exception exits non-zero):
              parallel, printing each source's register and spill figures
              from ptxas (the full log stays in build/torch_kernels/) and
              each hires tensor-core and CUDA-core kernel's; a spill in a
-             hires tensor-core kernel fails the run; every conv
+             hires tensor-core kernel or in the fp32 rope route's own
+             kernels fails the run; the fp32 rope route's kernels (its own
+             and the CUDA-core hires kernels it runs) as the runtime
+             reports them, a spill failing the run; every conv
              kernel instantiation's registers, spills, shared memory a CTA
              and CTAs per SM as the CUDA runtime reports them (the bf16
              ones must keep the CTAs an SM their launch bounds ask for,
@@ -40,8 +43,15 @@ Phases, each fatal on failure (any exception exits non-zero):
              check; nothing in the kernel is atomic), bf16 by the same
              twice-the-plain rule, at every flagship shape and at Dr = 0,
              with and without the mask, the bf16 route bit-identical across
-             two launches; and the autograd Function against torch autograd
-             of the plain forward;
+             two launches; the autograd Function against torch autograd
+             of the plain forward; and the fp32 route (CUDA cores) at B =
+             1, 2 and 8 at every flagship and imagenet-cls-256 shape, Dr =
+             0 and one shape with odd Dc and Dv, mask on and off: forward
+             rtol 2e-4 / atol 2e-5, every gradient within 1e-4 of its
+             largest value, each call's stage launches exactly
+             `ka.f32_stage_launches`, its hires calls' shared memory a CTA
+             `ka.f32_smem_bytes`, and at B = 8 two backward launches bit
+             for bit;
   4. serve   the flagship through the user's entry points:
              Predictor.fresh("imagenet-cls-224").classify on 128 uint8
              256x256 images in bf16, with exactly 24 attention and 8 conv
@@ -49,7 +59,8 @@ Phases, each fatal on failure (any exception exits non-zero):
              the CPU (plain versions) for 2 images, logits at rtol 2e-3 /
              atol 2e-4 and KL at rtol 1e-3 (tests/test_parity_full224.py's
              limits); one imagenet-reg-224 reconstruct (24 + 9 launches,
-             outputs in [0, 1]); Predictor.fresh("imagenet-cls-256")
+             outputs in [0, 1]; the fp32 predict's 24 rope launches and
+             their stage launches checked); Predictor.fresh("imagenet-cls-256")
              .classify at B=128 (24 + 8 launches) and its images/s;
   5. train   imagenet-cls-224 at full width and depth through
              make_train_step: bf16, B=128, remat, fresh weights from seed 0,
@@ -61,15 +72,19 @@ Phases, each fatal on failure (any exception exits non-zero):
              with 24 + 8; one fp32 step on 2 images card vs CPU under the
              same injected noise (loss rtol 2e-4; gradients per leaf rtol
              5e-3, atol 2e-4 of the leaf's largest value, the limits of
-             tests/test_parity_grad.py); one bf16 imagenet-cls-256 step
-             at B=128 (finite loss and gradients, 24 + 24 launches);
+             tests/test_parity_grad.py; 24 + 24 rope launches on the fp32
+             route, their stage launches checked); one bf16
+             imagenet-cls-256 step at B=128 (finite loss and gradients, 24
+             + 24 launches);
   6. time    each kernel and its plain version at every flagship shape
              (the rope attention kernels also at imagenet-cls-256's) at
              B=128 bf16 with CUDA events, plain, kernel, kernel, plain,
              beside its roofline bound (the conv forward also beside its
              CUDA-core floor), and the per-forward and per-step
              sums of the rope attention kernels against their plain
-             versions';
+             versions'; the fp32 rope route at B=8 at every flagship shape,
+             forward and backward, plain, kernel, kernel, plain, beside its
+             fp32 bound, summed per forward and per step;
              classify images/s and peak memory at B=128 bf16; ms per
              training step, images/s and peak memory;
   7. trace   one classify forward and one training step under
@@ -156,7 +171,8 @@ Phases, each fatal on failure (any exception exits non-zero):
              forward at B=8 with exactly 24 attention + 8 conv and 18 + 6
              launches (one prologue each, no hires kernel), finite outputs,
              the fp32 forward card vs CPU on 2 inputs at rtol 2e-3 / atol
-             2e-4 (and CALMLatentDiffusion's KL at rtol 1e-3); (c) 100
+             2e-4 (and CALMLatentDiffusion's KL at rtol 1e-3), its rope
+             launches and the fp32 route's stage launches checked; (c) 100
              overfit steps through tools/train_proof on the flagship (128
              memorize images, B=128, bf16, remat off, evals at 50 and
              100): every loss finite, the last 10 steps' mean below the
@@ -168,7 +184,9 @@ Phases, each fatal on failure (any exception exits non-zero):
              version printed); (b) a bf16 reconstruct at B=8 from them, u/v
              converged as Predictor.fresh does (exactly 24 attention + 9
              conv launches), the fp32 forward card vs CPU on 2 images at
-             rtol 2e-3 / atol 2e-4, KL rtol 1e-3; (c) three train_reg.main
+             rtol 2e-3 / atol 2e-4, KL rtol 1e-3 (24 rope launches on the
+             fp32 route, their stage launches checked); (c) three
+             train_reg.main
              steps at B=128 warm-started from a reference-format .pth of
              them (the first step's weights the table's bit for bit,
              exactly 24 + 24 rope launches a step and 24 + 9 for the epoch
@@ -269,9 +287,13 @@ launches each bf16 call makes beside its kernel, as the C entry reports
 them (the forward's prologue; the backward's prologue, keys kernel, table
 and weight-grad reductions), read per main path after the counters were set
 to 0 before it, and checked against the path's launches (one prologue per
-forward, six per flagship backward); so do the hires kernels' (their
+forward, six per flagship backward; on the fp32 paths
+`ka.f32_stage_launches`); so do the hires kernels' (their
 strided products and sums), whose per-shape rows also carry the parts'
 device times, the parts' library times and the shared memory per CTA.
+The rope entries also carry `fp32_b8` (the fp32 route's times at B=8, per
+flagship forward and per step's backward, beside its plain version and
+fp32 bound) and `fp32_checks` (phase 3's fp32 errors by shape).
 """
 
 from __future__ import annotations
@@ -382,16 +404,19 @@ def cast(torch, args, dtype):
                  else a.to(dtype) for a in args)
 
 
-def attn_bound(b, s, dc, dr, dv, itemsize):
+def attn_bound(b, s, dc, dr, dv, itemsize, peak=PEAK_BF16_FLOPS):
+    """(bytes ms, operations ms) of one forward: reads q, k, v, the tables
+    and the mask weights, writes out; operations at `peak` (the compute
+    type's rate: bf16 tensor cores, or fp32 outside them)."""
     d = dc + dr
     nbytes = (b * H * s * (2 * d + 2 * dv) * itemsize   # q, k, v, out
               + 4 * s * dr * 4                           # cos/sin tables
               + (2 * s * 2 * s + 3 * s) * 4)             # mask weights
     flops = 2 * b * H * s * s * (d + dv) + 4 * b * s * s * 2 * s
-    return nbytes / PEAK_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+    return nbytes / PEAK_BYTES * 1e3, flops / peak * 1e3
 
 
-def attn_bwd_bound(b, s, dc, dr, dv, itemsize):
+def attn_bwd_bound(b, s, dc, dr, dv, itemsize, peak=PEAK_BF16_FLOPS):
     """Reads q, k, v, g, the tables and the mask weights; writes dq in the
     compute type, dk and dv in fp32, and the table and weight gradients;
     three times the forward's operations (recompute, and two products per
@@ -403,7 +428,7 @@ def attn_bwd_bound(b, s, dc, dr, dv, itemsize):
               + b * H * s * (d + dv) * 4                 # dk, dv
               + 2 * small)                               # read and written
     flops = 3 * (2 * b * H * s * s * (d + dv) + 4 * b * s * s * 2 * s)
-    return nbytes / PEAK_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+    return nbytes / PEAK_BYTES * 1e3, flops / peak * 1e3
 
 
 def conv_bound(b, s, itemsize):
@@ -421,17 +446,23 @@ TENSOR_CORE_KERNELS = ("rope_attention_fwd_bf16_kernel", "bwd_rows_kernel",
                        "hires_attention_wide_bf16_kernel",
                        "hires_dq_wide_bf16_kernel",
                        "hires_dkv_wide_bf16_kernel")
-# The CUDA-core hires kernels of the fp32 route, whose registers and
-# spills phase 2 prints too.
+# The fp32 rope route's own kernels (csrc/axial_attention{,_bwd}.cu, "fp32
+# route"); the rest of the route is the CUDA-core hires kernels.
+F32_ROPE_KERNELS = ("rope_prep_f32_kernel", "rope_delta_kernel",
+                    "rope_unrotate_f32_kernel")
+# The CUDA-core kernels of the fp32 routes (hires and rope), whose
+# registers and spills phase 2 prints too.
 CUDA_CORE_KERNELS = ("hires_attention_kernel", "hires_dq_kernel",
-                     "hires_dm_ssum_kernel", "gemm_kernel")
-# The hires tensor-core kernels, whose ptxas reports must show no spills.
+                     "hires_dm_ssum_kernel", "hires_dkv_kernel",
+                     "gemm_kernel") + F32_ROPE_KERNELS
+# The hires tensor-core kernels and the fp32 rope route's own, whose ptxas
+# reports must show no spills.
 NO_SPILL_KERNELS = ("hires_attention_bf16_kernel",
                     "hires_dm_ssum_bf16_kernel", "hires_dq_bf16_kernel",
                     "hires_dkv_bf16_kernel", "gemm_tc_kernel",
                     "hires_attention_wide_bf16_kernel",
                     "hires_dq_wide_bf16_kernel",
-                    "hires_dkv_wide_bf16_kernel")
+                    "hires_dkv_wide_bf16_kernel") + F32_ROPE_KERNELS
 
 
 def kernel_registers(ptxas_log):
@@ -487,6 +518,37 @@ def norm_err(a, b) -> float:
 GRAD_NAMES = ("dqc", "dqr", "dkc", "dkr", "dv", "dcos_q", "dsin_q", "dcos_k",
               "dsin_k", "dw1", "db1", "dw2", "db2")
 BWD_FP32_LIMIT = 1e-4   # of each gradient's largest value
+# Phase 3's checks of the fp32 rope route: its batches, and a shape with odd
+# Dc and Dv that only the fp32 route takes.
+F32_CHECK_BATCHES = (1, 2, 8)
+F32_ODD_SHAPE = (80, 9, 10, 19)
+
+
+def rope_counts(ka, path, fp32, use_mask=True):
+    """The rope wrappers' launches and stage launches since they were set to
+    0 before `path`, the stage launches checked to be exactly what each call
+    launches past its counted one: in bf16 the prologue a forward and six
+    kernels a flagship backward (prologue, keys kernel, table-grad
+    reduction, two weight-grad products and their reduction); in fp32
+    `ka.f32_stage_launches(use_mask)`. Returns {"attention_fwd",
+    "attention_bwd", "stages": {"attention_fwd", "attention_bwd"}}."""
+    fwd = ka.fused_rope_attention.launches
+    bwd = ka.fused_rope_attention_bwd.launches
+    per = (ka.f32_stage_launches(use_mask) if fp32
+           else {"forward": 1, "backward": 6})
+    stages = {"attention_fwd": ka.fused_rope_attention.stage_launches,
+              "attention_bwd": ka.fused_rope_attention_bwd.stage_launches}
+    if stages != {"attention_fwd": per["forward"] * fwd,
+                  "attention_bwd": per["backward"] * bwd}:
+        raise AssertionError(
+            f"{path}: stage launches {stages} for {fwd} forwards and {bwd} "
+            f"backwards ({'fp32' if fp32 else 'bf16'}, {per} a call)")
+    return {"attention_fwd": fwd, "attention_bwd": bwd, "stages": stages}
+
+
+def zero_rope_counts(ka):
+    for w in (ka.fused_rope_attention, ka.fused_rope_attention_bwd):
+        w.launches = w.stage_launches = 0
 
 
 def check_attention_bwd(torch, ka, args, g, scale, use_mask):
@@ -2068,16 +2130,14 @@ def proof_phase(torch, name, smi):
                   kc.conv_residual_fwd_resid, kc.conv_residual_bwd):
             w.launches = 0
 
-    def read_counts(path, want):
+    def read_counts(path, want, fp32=False):
         """The path's launches against `want` (attention forward, backward,
-        conv forward); the bf16 rope calls' stage launches (one prologue a
-        forward, six a flagship backward); no hires or conv training
-        kernel."""
+        conv forward); the rope calls' stage launches (`rope_counts`: in
+        bf16 one prologue a forward, six a flagship backward); no hires or
+        conv training kernel."""
         got = {"attention_fwd": ka.fused_rope_attention.launches,
                "attention_bwd": ka.fused_rope_attention_bwd.launches,
                "conv": kc.fused_conv_residual.launches}
-        stages = {"attention_fwd": ka.fused_rope_attention.stage_launches,
-                  "attention_bwd": ka.fused_rope_attention_bwd.stage_launches}
         others = {w.__name__: w.launches for w in (
             kh.fused_hires_attention, kh.hires_dq, kh.hires_dkv,
             kh.hires_weight_grads, kh.fused_attention_forward,
@@ -2085,10 +2145,7 @@ def proof_phase(torch, name, smi):
         if got != want or any(others.values()):
             raise AssertionError(f"{path}: launches {got} (want {want}), "
                                  f"other kernels {others}")
-        if stages != {"attention_fwd": got["attention_fwd"],
-                      "attention_bwd": 6 * got["attention_bwd"]}:
-            raise AssertionError(f"{path}: stage launches {stages} for "
-                                 f"{got}")
+        stages = rope_counts(ka, path, fp32)["stages"]
         by_path[path] = dict(got, stages=stages)
         log(f"[proof] {path}: {got['attention_fwd']} attention forward + "
             f"{got['attention_bwd']} backward + {got['conv']} conv forward "
@@ -2163,8 +2220,14 @@ def proof_phase(torch, name, smi):
             y = out[0] if isinstance(out, tuple) else out
             if not torch.isfinite(y).all():
                 raise AssertionError(f"{path}: bf16 outputs not finite")
+            zero_counts()
             with torch.no_grad():
                 card = model(x[:2].to(dev), dtype=f32)
+            torch.cuda.synchronize()
+            read_counts(f"{path}_fp32", {"attention_fwd": n_attn,
+                                         "attention_bwd": 0,
+                                         "conv": n_conv}, fp32=True)
+            with torch.no_grad():
                 host = cpu_model(x[:2], dtype=f32)
             card = card if isinstance(card, tuple) else (card,)
             host = host if isinstance(host, tuple) else (host,)
@@ -2305,16 +2368,20 @@ def jax_weights_phase(torch, name, smi):
         for w in (kc.fused_conv_residual, *others):
             w.launches = 0
 
-    def read_counts(path, want):
+    def read_counts(path, want, fp32=False):
         got = {"attention_fwd": ka.fused_rope_attention.launches,
                "attention_bwd": ka.fused_rope_attention_bwd.launches,
                "conv": kc.fused_conv_residual.launches}
-        stages = {"attention_fwd": ka.fused_rope_attention.stage_launches,
-                  "attention_bwd": ka.fused_rope_attention_bwd.stage_launches}
         other = {w.__name__: w.launches for w in others}
         if got != want or any(other.values()):
             raise AssertionError(f"{path}: launches {got} (want {want}), "
                                  f"other kernels {other}")
+        # The fp32 route's stage launches checked (`rope_counts`), the bf16
+        # paths' recorded.
+        stages = (rope_counts(ka, path, True)["stages"] if fp32 else
+                  {"attention_fwd": ka.fused_rope_attention.stage_launches,
+                   "attention_bwd":
+                       ka.fused_rope_attention_bwd.stage_launches})
         by_path[path] = dict(got, stages=stages)
         log(f"[jaxinit] {path}: {got['attention_fwd']} attention forward + "
             f"{got['attention_bwd']} backward + {got['conv']} conv forward "
@@ -2365,7 +2432,11 @@ def jax_weights_phase(torch, name, smi):
             raise AssertionError("jaxinit reconstruct: bad shape or values "
                                  "outside [0, 1]")
         p32 = Predictor(pred.model, crop=cfg.crop, dtype=f32)
+        zero_counts()
         card, kl_card = p32.predict(images[:2])
+        read_counts("jaxinit_predict_fp32", {
+            "attention_fwd": 24, "attention_bwd": 0,
+            "conv": kc.fused_conv_residual.launches}, fp32=True)
         host = Predictor(copy.deepcopy(pred.model).cpu(), crop=cfg.crop,
                          dtype=f32)
         want, kl_host = host.predict(images[:2])
@@ -2551,7 +2622,8 @@ def parallel_phase(torch, name, smi):
     around the in-process runs here: the carried state and the
     one-process step), and the one-process step run twice,
     the second held against the first with the DP limits; the ranks'
-    states bit for bit equal; 24 + 24 rope launches a step on every rank.
+    states bit for bit equal; 24 + 24 rope launches a step on every rank,
+    with the fp32 route's stage launches (24 x 4 + 24 x 15) a step.
     Prints each rank's
     stored bytes of parameters and moments under TP against DP, the host
     ms a step at world 1 and 2, and the ms the global noise draw adds.
@@ -2560,6 +2632,7 @@ def parallel_phase(torch, name, smi):
     import shutil
     import tempfile
 
+    from calm_vit_dte_tpu_torch.kernels import axial_attention as ka
     from calm_vit_dte_tpu_torch.models.factory import create_vit
     from calm_vit_dte_tpu_torch.tools import parallel_step as ps
     from calm_vit_dte_tpu_torch.train.checkpoint import restore_checkpoint
@@ -2578,14 +2651,30 @@ def parallel_phase(torch, name, smi):
     saved_env = {k: os.environ.pop(k) for k in list(os.environ)
                  if k.startswith("CALM_CONV_")}
 
-    def record(path, per_step, steps):
+    f32_per_call = ka.f32_stage_launches(True)
+    f32_stages = {"fused_rope_attention": 24 * f32_per_call["forward"],
+                  "fused_rope_attention_bwd": 24 * f32_per_call["backward"]}
+
+    def record(path, per_step, steps, stages_per_step=None):
+        """Each step's rope launches, and for the fp32 steps (b) each step's
+        stage launches (the fp32 route's, `ka.f32_stage_launches`)."""
         for step, got in enumerate(per_step):
             if got != ROPE_PER_STEP:
                 raise AssertionError(f"parallel {path}: step {step + 1} "
                                      f"launched {got}, want {ROPE_PER_STEP}")
+        for step, got in enumerate(stages_per_step or []):
+            if got != f32_stages:
+                raise AssertionError(f"parallel {path}: step {step + 1} "
+                                     f"stage launches {got}, want "
+                                     f"{f32_stages}")
+        n = len(stages_per_step or [])
         by_path[path] = {"attention_fwd": 24 * steps,
                          "attention_bwd": 24 * steps, "conv": 0,
-                         "stages": {"attention_fwd": 0, "attention_bwd": 0}}
+                         "stages": {"attention_fwd":
+                                        n * f32_stages["fused_rope_attention"],
+                                    "attention_bwd":
+                                        n * f32_stages[
+                                            "fused_rope_attention_bwd"]}}
 
     try:
         # (a) torchrun at world 1 (NCCL) and the same steps in a plain
@@ -2691,7 +2780,8 @@ def parallel_phase(torch, name, smi):
                        for k, n in launch_counts().items()
                        if k in ROPE_PER_STEP):
                     raise AssertionError(f"parallel: {path} launches")
-                record(path, singles[-1]["launches"], PARALLEL_STEPS)
+                record(path, singles[-1]["launches"], PARALLEL_STEPS,
+                       singles[-1]["stages"])
                 torch.cuda.empty_cache()
         single = singles[0]
         rerun = ps.excess(singles[1], single, 3e-3, 3e-5)
@@ -2726,7 +2816,7 @@ def parallel_phase(torch, name, smi):
             rec = recs[layout]
             for r, one in enumerate(rec):
                 record(f"parallel_{layout}_rank{r}", one["launches"],
-                       PARALLEL_STEPS)
+                       PARALLEL_STEPS, one["stages"])
                 apart = {k: float((one["state"][k] - v).abs().max())
                          for k, v in rec[0]["state"].items()
                          if not torch.equal(one["state"][k], v)}
@@ -2773,7 +2863,8 @@ def parallel_phase(torch, name, smi):
             f"on one card against one process: DP 2x1 loss rel "
             f"{dp['loss_max_rel']:.3g}, TP 1x2 (59 weights sharded at 512) "
             f"{summary['1x2']['loss_max_rel']:.3g}; ranks bit-identical; "
-            "24 + 24 rope launches a step on every rank")
+            "24 + 24 rope launches a step on every rank, each with the "
+            f"fp32 route's stage launches {f32_stages}")
         log(f"[parallel] stored params + moments per rank: DP "
             f"{dp['stored_bytes'][0] / 1e6:.1f} MB, TP "
             f"{summary['1x2']['stored_bytes'][0] / 1e6:.1f} MB "
@@ -2819,16 +2910,6 @@ TOOLS_KERNEL_NAMES = {
 }
 
 
-def _stage_counts():
-    """The stage launches of the rope and hires wrappers, by wrapper."""
-    from calm_vit_dte_tpu_torch.kernels import axial_attention as ka
-    from calm_vit_dte_tpu_torch.kernels import hires_attention as kh
-
-    return {fn.__name__: fn.stage_launches for fn in (
-        ka.fused_rope_attention, ka.fused_rope_attention_bwd,
-        kh.fused_hires_attention, kh.hires_dq, kh.fused_attention_forward)}
-
-
 def tools_phase(torch, name, smi):
     """Phase 14: the ported scripts (calm_vit_dte_tpu_torch/tools/), each at
     a reduced size, checked for what it is for, with the kernels each path
@@ -2871,7 +2952,10 @@ def tools_phase(torch, name, smi):
         soak,
         stage_dataset,
     )
-    from calm_vit_dte_tpu_torch.utils.profiling import launch_counts
+    from calm_vit_dte_tpu_torch.utils.profiling import (
+        launch_counts,
+        stage_counts,
+    )
 
     t_phase = time.time()
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_tools_"))
@@ -2890,7 +2974,7 @@ def tools_phase(torch, name, smi):
         whether the soak's trainer shared the card meanwhile."""
         gc.collect()
         torch.cuda.empty_cache()
-        counts, stages = launch_counts(), _stage_counts()
+        counts, stages = launch_counts(), stage_counts()
         shared = soaking()
         t0 = time.time()
         result = fn()
@@ -2899,7 +2983,7 @@ def tools_phase(torch, name, smi):
         by_path[path] = {
             "launches": {k: n - counts[k] for k, n in launch_counts().items()
                          if n != counts[k]},
-            "stages": {k: n - stages[k] for k, n in _stage_counts().items()
+            "stages": {k: n - stages[k] for k, n in stage_counts().items()
                        if n != stages[k]}}
         metrics[path] = {"seconds": time.time() - t0,
                          "beside_soak_trainer": shared}
@@ -3248,7 +3332,10 @@ def routes_phase(torch, name, smi):
     from calm_vit_dte_tpu_torch.train.state import create_train_state
     from calm_vit_dte_tpu_torch.train.step import make_train_step
     from calm_vit_dte_tpu_torch.utils.configs import get_config
-    from calm_vit_dte_tpu_torch.utils.profiling import launch_counts
+    from calm_vit_dte_tpu_torch.utils.profiling import (
+        launch_counts,
+        stage_counts,
+    )
 
     t_phase = time.time()
     bf16, f32 = torch.bfloat16, torch.float32
@@ -3313,7 +3400,7 @@ def routes_phase(torch, name, smi):
         return {k: n for k, n in launches.items() if n}
 
     def stages():
-        return {k: n for k, n in _stage_counts().items() if n}
+        return {k: n for k, n in stage_counts().items() if n}
 
     route_counter = {"rope": "fused_rope_attention",
                      "hires": "fused_hires_attention",
@@ -3915,6 +4002,17 @@ def main() -> int:
                     f"{kspill} bytes")
             if kspill and any(k in kname for k in NO_SPILL_KERNELS):
                 raise AssertionError(f"{src}: {kname} spills {kspill} bytes")
+    # The fp32 rope route's kernels as the card reports them: its own, the
+    # strided product, and the CUDA-core hires kernels it runs; a spill, or
+    # no CTA an SM, fails the run.
+    for kname, o in ka.f32_occupancy().items():
+        log(f"[build] fp32 rope route: {kname}: {o['registers']} registers, "
+            f"spill {o['spill_bytes']} bytes, {o['smem_bytes']} bytes of "
+            f"shared memory a CTA, {o['ctas_per_sm']} CTAs per SM")
+        if o["spill_bytes"] or o["ctas_per_sm"] < 1:
+            raise AssertionError(f"fp32 rope route: {kname} spills "
+                                 f"{o['spill_bytes']} bytes, "
+                                 f"{o['ctas_per_sm']} CTAs per SM")
     # Every conv kernel instantiation as the card reports it; the bf16 ones
     # must keep the CTAs an SM their launch bounds ask for, with no spill
     # (csrc/conv_residual{,_bwd}.cu notes).
@@ -4121,6 +4219,82 @@ def main() -> int:
         f"(S={s}, Dc={dc}, Dr={dr}): worst gradient error {worst:.3e} of its "
         "largest value")
 
+    # The fp32 route (CUDA cores) against its plain versions at B = 1, 2
+    # and 8: every flagship and imagenet-cls-256 shape, Dr = 0 and a shape
+    # with odd Dc and Dv that only fp32 takes, mask on and off; each call's
+    # stage launches exact and its hires calls' shared memory a CTA the
+    # helpers' (`ka.f32_smem_bytes`); at B = 8 the backward launched twice,
+    # bit for bit.
+    f32_shapes = check_shapes + no_rope_shapes + [F32_ODD_SHAPE]
+    per_f32: dict[tuple, dict] = {}
+    for bi, b in enumerate(F32_CHECK_BATCHES):
+        worst_f = worst_b = 0.0
+        for i, (s, dc, dr, dv) in enumerate(f32_shapes):
+            args = attn_inputs(torch, b, s, dc, dr, dv, dev, f32,
+                               seed=800 + 50 * bi + i)
+            g = grad_like(torch, b, s, dv, dev, f32, seed=900 + 50 * bi + i)
+            for use_mask in (True, False):
+                what = (f"fp32 route B={b} S={s} Dc={dc} Dr={dr} Dv={dv} "
+                        f"mask={use_mask}")
+                kw = dict(scale=1.0 / (dc + dr) ** 0.5, dtype=f32,
+                          use_mask=use_mask)
+                zero_rope_counts(ka)
+                out = ka.fused_rope_attention(*args, **kw)
+                got = ka.fused_rope_attention_bwd(g, *args, **kw)
+                torch.cuda.synchronize()
+                rope_counts(ka, what, True, use_mask)
+                want_smem = ka.f32_smem_bytes(s, dc + dr, dv)
+                got_smem = dict(ka.fused_rope_attention_bwd.f32_smem_bytes)
+                if (got_smem != want_smem or ka.fused_rope_attention
+                        .f32_smem_bytes["forward"] != want_smem["forward"]):
+                    raise AssertionError(f"{what}: shared memory a CTA "
+                                         f"{got_smem}, the helpers "
+                                         f"{want_smem}")
+                ref = ka.fused_rope_attention_plain(*args, **kw)
+                torch.testing.assert_close(out, ref, rtol=2e-4, atol=2e-5)
+                refs = ka.fused_rope_attention_bwd_plain(g, *args, **kw)
+                worst = 0.0
+                for gname, x, y in zip(GRAD_NAMES, got, refs):
+                    if (x is None) != (y is None):
+                        raise AssertionError(f"{what}: {gname} present on "
+                                             "one side only")
+                    if x is None:
+                        continue
+                    if x.shape != y.shape or x.dtype != y.dtype:
+                        raise AssertionError(f"{what}: {gname} shape or "
+                                             "dtype differs")
+                    e = norm_err(x, y)
+                    if not e <= BWD_FP32_LIMIT:
+                        raise AssertionError(f"{what}: {gname} error {e:.3e} "
+                                             f"of its largest value > "
+                                             f"{BWD_FP32_LIMIT}")
+                    worst = max(worst, e)
+                if b == CHECK_BATCH:
+                    again = ka.fused_rope_attention_bwd(g, *args, **kw)
+                    for gname, x, y in zip(GRAD_NAMES, got, again):
+                        if x is not None and not torch.equal(x, y):
+                            raise AssertionError(f"{what}: {gname} differs "
+                                                 "between two launches")
+                row = per_f32.setdefault((s, dc, dr, dv), {
+                    "fp32_fwd_err": 0.0, "fp32_bwd_norm_err": 0.0})
+                row["fp32_fwd_err"] = max(row["fp32_fwd_err"],
+                                          max_err(out, ref))
+                row["fp32_bwd_norm_err"] = max(row["fp32_bwd_norm_err"],
+                                               worst)
+                worst_f = max(worst_f, max_err(out, ref))
+                worst_b = max(worst_b, worst)
+            del args, g, out, got, refs
+        log(f"[check] fp32 rope route B={b}, {len(f32_shapes)} shapes (the "
+            f"flagship's, imagenet-cls-256's, Dr = 0, odd Dc and Dv "
+            f"{F32_ODD_SHAPE}), mask on and off: forward max err "
+            f"{worst_f:.3e} (rtol 2e-4 / atol 2e-5), worst gradient "
+            f"{worst_b:.3e} of its largest value (limit {BWD_FP32_LIMIT}); "
+            f"stage launches {ka.f32_stage_launches(True)} a call with the "
+            f"mask, {ka.f32_stage_launches(False)} without; shared memory "
+            "a CTA the helpers'"
+            + ("; the backward twice bit-identical" if b == CHECK_BATCH
+               else ""))
+
     # 4. the main path through the user's entry points
     rng = np.random.default_rng(0)
     images = rng.integers(0, 256, (TIME_BATCH, cfg.image_size,
@@ -4152,7 +4326,13 @@ def main() -> int:
         raise AssertionError("classify: non-finite bf16 logits or KL")
 
     p32 = Predictor(pred.model, crop=cfg.crop, dtype=f32)
+    zero_rope_counts(ka)
     l_gpu, kl_gpu = p32.predict(images[:2])
+    got32 = rope_counts(ka, "fp32 predict", True)
+    if (got32["attention_fwd"], got32["attention_bwd"]) != (24, 0):
+        raise AssertionError(f"fp32 predict: rope launches {got32}")
+    # The fp32 paths' rope launches (the CUDA-core route), by path.
+    f32_paths = {"predict_fp32_card_vs_cpu": got32}
     p_cpu = Predictor(copy.deepcopy(pred.model).cpu(), crop=cfg.crop,
                       dtype=f32)
     l_cpu, kl_cpu = p_cpu.predict(images[:2])
@@ -4244,21 +4424,6 @@ def main() -> int:
         ka.fused_rope_attention_bwd.stage_launches = 0
         kc.fused_conv_residual.launches = 0
 
-    def stage_counts(path, launches):
-        """Read the stage counters after the path `path`: one prologue per
-        bf16 forward, and per flagship backward (rope half and mask) the
-        prologue, the keys kernel, the table-grad reduction and the two
-        weight-grad products with their reduction."""
-        fwd = ka.fused_rope_attention.stage_launches
-        bwd = ka.fused_rope_attention_bwd.stage_launches
-        if (fwd != launches["attention_fwd"]
-                or bwd != 6 * launches["attention_bwd"]):
-            raise AssertionError(
-                f"{path}: stage launches forward {fwd}, backward {bwd} for "
-                f"{launches['attention_fwd']} forwards and "
-                f"{launches['attention_bwd']} backwards")
-        return fwd, bwd
-
     _, model = create_vit("imagenet-cls-224", seed=cfg.init_seed,
                           device="cuda")
     with torch.no_grad():   # converge u/v as Predictor.fresh does
@@ -4309,8 +4474,8 @@ def main() -> int:
                 "finite nonzero gradient, inv_freq of both RoPEs and the "
                 "mask MLP included")
     train_launches = counts()
-    train_stages = stage_counts("train", train_launches)
-    stage_by_path[f"train_{TRAIN_STEPS}_steps"] = train_stages[0]
+    train_stages = rope_counts(ka, "train", False)["stages"]
+    stage_by_path[f"train_{TRAIN_STEPS}_steps"] = train_stages["attention_fwd"]
     train_peak_gib = torch.cuda.max_memory_allocated() / 2**30
     if not train_losses[-1] < train_losses[0]:
         raise AssertionError(f"loss did not fall on a repeated batch: "
@@ -4334,7 +4499,8 @@ def main() -> int:
             torch.from_numpy(images).to(dev), crop=cfg.crop),
             "label": train_batch["label"].argmax(-1)})
     eval_launches = counts()
-    stage_by_path["eval_step"] = stage_counts("eval step", eval_launches)[0]
+    stage_by_path["eval_step"] = rope_counts(
+        ka, "eval step", False)["stages"]["attention_fwd"]
     log(f"[train] eval step on the trained state: {int(ev['correct'])} of "
         f"{int(ev['total'])} correct, kl {float(ev['kl']):.6f}, launches "
         f"{eval_launches}")
@@ -4348,6 +4514,7 @@ def main() -> int:
     # noise.
     small = {k: v[:2] for k, v in train_batch.items()}
     sides = {}
+    zero_rope_counts(ka)
     for side, remat in (("cuda", True), ("cpu", False)):
         m_side = copy.deepcopy(start_model).to(side)
         tx_side = optimizer()
@@ -4363,6 +4530,10 @@ def main() -> int:
         log(f"[train] fp32 step on 2 images on {side} (remat={remat}): "
             f"{sides[side][0]}, {time.perf_counter() - t0:.1f} s")
         del m_side
+    f32_paths["train_step_fp32_card_vs_cpu"] = got32 = rope_counts(
+        ka, "fp32 step", True)
+    if (got32["attention_fwd"], got32["attention_bwd"]) != (24, 24):
+        raise AssertionError(f"fp32 step: rope launches {got32}")
     (m_gpu, g_gpu), (m_cpu, g_cpu) = sides["cuda"], sides["cpu"]
     np.testing.assert_allclose(m_gpu["loss"], m_cpu["loss"], rtol=2e-4)
     np.testing.assert_allclose(m_gpu["grad_norm"], m_cpu["grad_norm"],
@@ -4490,6 +4661,60 @@ def main() -> int:
         if not k_sum < p_sum:
             log(f"[time] NOTE: the rope attention {name_} kernel is slower "
                 f"than its plain version in this call")
+    # The fp32 route (CUDA cores) at B = 8, where the card-vs-CPU and DP/TP
+    # paths run it: each flagship shape's forward and backward against the
+    # plain version (plain, kernel, kernel, plain) beside the fp32 bound
+    # (fp32 at PEAK_FP32_FLOPS).
+    f32_time = {"forward": [], "backward": []}
+    for i, (s, dc, dr, dv) in enumerate(sorted(attn_shapes, reverse=True)):
+        args = attn_inputs(torch, CHECK_BATCH, s, dc, dr, dv, dev, f32,
+                           seed=1000 + i)
+        g = grad_like(torch, CHECK_BATCH, s, dv, dev, f32, seed=1050 + i)
+        kw = dict(scale=1.0 / (dc + dr) ** 0.5, dtype=f32)
+        for name_, kern, plain_fn, bound_fn in (
+                ("forward", lambda: ka.fused_rope_attention(*args, **kw),
+                 lambda: ka.fused_rope_attention_plain(*args, **kw),
+                 attn_bound),
+                ("backward", lambda: ka.fused_rope_attention_bwd(g, *args,
+                                                                 **kw),
+                 lambda: ka.fused_rope_attention_bwd_plain(g, *args, **kw),
+                 attn_bwd_bound)):
+            plain_a = cuda_ms(torch, plain_fn, 5, warmup=1)
+            ms_a = cuda_ms(torch, kern, 10)
+            ms_b = cuda_ms(torch, kern, 10)
+            plain_b = cuda_ms(torch, plain_fn, 5, warmup=0)
+            t_bytes, t_ops = bound_fn(CHECK_BATCH, s, dc, dr, dv, 4,
+                                      PEAK_FP32_FLOPS)
+            row = dict(S=s, Dc=dc, Dr=dr, Dv=dv,
+                       launches=attn_shapes[(s, dc, dr, dv)],
+                       ms=min(ms_a, ms_b), plain_ms=min(plain_a, plain_b),
+                       bound_ms=max(t_bytes, t_ops),
+                       bound_by="bytes" if t_bytes >= t_ops
+                       else "operations",
+                       ms_reads=[ms_a, ms_b],
+                       plain_ms_reads=[plain_a, plain_b])
+            f32_time[name_].append(row)
+            log(f"[time] fp32 rope {name_} B={CHECK_BATCH} S={s} Dc={dc} "
+                f"Dr={dr} Dv={dv}: kernel {row['ms']:.4f} ms ({ms_a:.4f}, "
+                f"{ms_b:.4f}), plain {row['plain_ms']:.4f} ms, bound "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
+                f"{row['bound_ms'] / row['ms']:.1%} of bound")
+        del args, g
+    f32_sums = {}
+    for name_, rows_ in f32_time.items():
+        f32_sums[name_] = {
+            "batch": CHECK_BATCH, "dtype": "float32",
+            "sources": list(ka.F32_SOURCES),
+            "ms": sum(r["launches"] * r["ms"] for r in rows_),
+            "plain_ms": sum(r["launches"] * r["plain_ms"] for r in rows_),
+            "bound_ms": sum(r["launches"] * r["bound_ms"] for r in rows_),
+            "per_shape": rows_}
+        x = f32_sums[name_]
+        log(f"[time] fp32 rope attention {name_} B={CHECK_BATCH}, flagship "
+            f"sum over one {'forward' if name_ == 'forward' else 'step'}: "
+            f"kernel {x['ms']:.3f} ms, plain {x['plain_ms']:.3f} ms, bound "
+            f"{x['bound_ms']:.4f} ms ({x['bound_ms'] / x['ms']:.2%} of "
+            f"bound); on {name} ({smi})")
     for s in sorted(conv_sizes, reverse=True):
         args = conv_inputs(torch, TIME_BATCH, s, dev, bf16, seed=300 + s)
         ms = cuda_ms(torch, lambda: kc.fused_conv_residual(*args,
@@ -4674,6 +4899,13 @@ def main() -> int:
     kernels[1]["launches_by_path"] = {
         f"train_{TRAIN_STEPS}_steps": train_launches["attention_bwd"]}
     kernels[1]["no_rope_case_replaces"] = ka.BWD_REPLACES_NO_ROPE
+    # The fp32 route: its times at B = 8 (per flagship forward, per step's
+    # backward) and its phase 3 errors by shape.
+    kernels[0]["fp32_b8"] = f32_sums["forward"]
+    kernels[1]["fp32_b8"] = f32_sums["backward"]
+    for k in kernels[:2]:
+        k["fp32_checks"] = [dict(zip(("S", "Dc", "Dr", "Dv"), shape), **e)
+                            for shape, e in per_f32.items()]
     # The launches each call makes beside its kernel, per main path, read
     # after that path with the counters set to 0 before it: the forward's
     # prologue; the backward's prologue, keys kernel, table and weight-grad
@@ -4682,7 +4914,7 @@ def main() -> int:
         serve_launches["attention_prologues"]
     kernels[0]["stage_launches_by_path"] = stage_by_path
     kernels[1]["stage_launches_by_path"] = {
-        f"train_{TRAIN_STEPS}_steps": train_stages[1]}
+        f"train_{TRAIN_STEPS}_steps": train_stages["attention_bwd"]}
     kernels[2]["launches_by_path"] = {
         "classify": main_launches["conv"],
         f"train_{TRAIN_STEPS}_steps": train_launches["conv"],
@@ -4700,11 +4932,11 @@ def main() -> int:
         k["launches_by_path"]["serve_evaluate_int8_phase10"] = \
             serve_launches[key]
         k["launches"] += serve_launches[key]
-    for path, got in {**proof_launches, **jaxinit_launches,
+    for path, got in {**f32_paths, **proof_launches, **jaxinit_launches,
                       **parallel_launches}.items():
         for k, key in ((kernels[0], "attention_fwd"),
                        (kernels[1], "attention_bwd"), (kernels[2], "conv")):
-            if got[key]:
+            if got.get(key):
                 k["launches_by_path"][path] = got[key]
                 k["launches"] += got[key]
         for k, key in ((kernels[0], "attention_fwd"),

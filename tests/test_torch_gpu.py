@@ -170,6 +170,67 @@ def test_rope_attention_bwd_kernel_matches_plain(cuda_device, s, dc, dr,
         assert all(x is None for x in got[9:])
 
 
+# The fp32 route (CUDA cores) at B = 1 and 2: shapes whose Dc and Dv are
+# odd (the fp32 route alone takes them; D off the multiple of 4 is padded),
+# a flagship shape and Dr = 0.
+F32_SHAPES = [(80, 9, 10, 19), (44, 3, 4, 5), (224, 28, 28, 56),
+              (80, 20, 0, 20)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("s,dc,dr,dv", F32_SHAPES)
+@pytest.mark.parametrize("use_mask", [True, False])
+def test_rope_attention_f32_route_matches_plain(cuda_device, b, s, dc, dr,
+                                                dv, use_mask):
+    """fp32: the forward at rtol 2e-4 / atol 2e-5 and all 13 gradients
+    within 1e-4 of each one's largest value against the plain versions; the
+    backward twice bit for bit; each call's stage launches
+    `f32_stage_launches` and its hires calls' shared memory a CTA
+    `f32_smem_bytes`."""
+    rng = np.random.default_rng(100 * b + s + dc + dv)
+    args, _ = _attention_inputs(rng, cuda_device, b, s, dc, dr,
+                                torch.float32)
+    args[4] = _normal(rng, cuda_device, b, H, s, dv, scale=0.3)
+    g = _normal(rng, cuda_device, b, H, s, dv, scale=0.3)
+    kw = dict(scale=1.0 / math.sqrt(dc + dr), dtype=torch.float32,
+              use_mask=use_mask)
+    counters = (ka.fused_rope_attention, ka.fused_rope_attention_bwd)
+    before = [(w.launches, w.stage_launches) for w in counters]
+    out = ka.fused_rope_attention(*args, **kw)
+    got = ka.fused_rope_attention_bwd(g, *args, **kw)
+    again = ka.fused_rope_attention_bwd(g, *args, **kw)
+    torch.cuda.synchronize()
+    per = ka.f32_stage_launches(use_mask)
+    assert [(w.launches - n, w.stage_launches - m)
+            for w, (n, m) in zip(counters, before)] == [
+        (1, per["forward"]), (2, 2 * per["backward"])]
+    assert ka.fused_rope_attention_bwd.f32_smem_bytes == \
+        ka.f32_smem_bytes(s, dc + dr, dv)
+    torch.testing.assert_close(
+        out, ka.fused_rope_attention_plain(*args, **kw), rtol=2e-4,
+        atol=2e-5)
+    want = ka.fused_rope_attention_bwd_plain(g, *args, **kw)
+    for name, x, y, z in zip(GRAD_NAMES, got, want, again):
+        assert (x is None) == (y is None), name
+        if x is None:
+            continue
+        assert x.shape == y.shape and x.dtype == y.dtype, name
+        assert _norm_err(x, y) <= 1e-4, name
+        assert torch.equal(x, z), f"{name} differs between two runs"
+
+
+@pytest.mark.gpu
+def test_rope_attention_f32_route_kernels_do_not_spill(cuda_device):
+    """The fp32 route's own kernels, the strided product and the CUDA-core
+    hires kernels it runs, as the runtime reports them: no spill, at least
+    one CTA an SM."""
+    occ = ka.f32_occupancy()
+    assert set(ka.F32_OCCUPANCY_KERNELS) <= set(occ)
+    for name, o in occ.items():
+        assert o["spill_bytes"] == 0 and o["ctas_per_sm"] >= 1, (name, o)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("s,dc,dr", BWD_SHAPES)
 def test_rope_attention_bwd_kernel_bf16_error(cuda_device, s, dc, dr):
@@ -896,6 +957,39 @@ def test_hires_cuda_core_product_epilogues(cuda_device, a_fast, b_fast,
             err2 = (c2.double() - ref2).abs()
             assert bool((err2 <= 1e-6 * mag + 1e-6).all()), (
                 "gelu'", float((err2 - 1e-6 * mag - 1e-6).max()))
+
+
+# (B, S) of the weight grads alone: B*S rows that 8 ranges do not divide
+# (the last ranges short, at (1, 9) three of them empty), an odd S (the
+# partials' rows off 16 bytes), and S = 64 (bf16 split on the tensor cores).
+WGRAD_SHAPES = [(1, 9), (2, 37), (3, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s", WGRAD_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_hires_weight_grads_split_ranges_match_plain(cuda_device, b, s,
+                                                     dtype):
+    """`hires_weight_grads` against its plain version: fp32 (its products
+    split over 8 fixed row ranges at every S; bf16 split on the tensor
+    cores where S is a multiple of 8) within 1e-5 of each output's largest
+    value; the same bits from two launches."""
+    from calm_vit_dte_tpu_torch.kernels import hires_attention as kh
+
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(b * 100 + s)
+    ssum, dm = (_normal(rng, cuda_device, b, s, s).to(dt) for _ in "12")
+    a, dh1 = (_normal(rng, cuda_device, b, s, 2 * s).to(dt) for _ in "12")
+    got = kh.hires_weight_grads(ssum, dm, a, dh1)
+    again = kh.hires_weight_grads(ssum, dm, a, dh1)
+    want = kh.hires_weight_grads_plain(*(t.float() for t in
+                                         (ssum, dm, a, dh1)))
+    torch.cuda.synchronize()
+    for name, x, y, z in zip(("dw1", "db1", "dw2", "db2"), got, want,
+                             again):
+        assert x.shape == y.shape and x.dtype == torch.float32, name
+        assert _norm_err(x, y) <= 1e-5, name
+        assert torch.equal(x, z), f"{name} differs between two runs"
 
 
 @pytest.mark.gpu
