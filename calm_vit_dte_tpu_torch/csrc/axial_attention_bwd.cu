@@ -123,8 +123,8 @@
 //        dh1^T ssum and dW2 = dm^T a as strided products over kWgSplits = 8
 //        fixed ranges of the B*S rows (grid z = the range), one ordered sum
 //        of the ranges, and the bias grads' two-stage column sums;
-//     8. dk and dv on a (key tile, batch x head) grid, s^T and dp^T formed
-//        once per query tile;
+//     8. dk and dv on the (head, key tile, batch) grid, s^T and dp^T formed
+//        once per 128-query tile, m and dssum staged in shared memory;
 //     9. dq and dk split into their content halves and their rope halves
 //        un-rotated (R^T = -R), and the four table gradients summed over
 //        (b, h) in order by the thread that owns each (s, column)
@@ -141,10 +141,9 @@
 // 64 of the bias grads, whatever B is) 6.59 MB: 46.9 MB at B = 8 and 651.6
 // MB at B = 128. The first design's dl scratch alone
 // was 19.3 MB and 308 MB. The largest shared memory a CTA asks for in the
-// backward's call (the dq kernel's score tile and ring, above the dm/ssum
-// kernel's 82,944 bytes and the dk/dv kernel's chunks and tiles), with
-// CTAs per SM by shared memory (kernels/axial_attention.py::
-// f32_smem_bytes):
+// backward's call (the dq kernel's score tile and ring, above the dk/dv
+// kernel's 115,712 bytes and the dm/ssum kernel's 82,944), with CTAs per
+// SM by shared memory (kernels/axial_attention.py::f32_smem_bytes):
 //   f32_backward at (S, D, Dv) = (224, 56, 56): 116736 bytes, 1 CTA per SM
 //   f32_backward at (S, D, Dv) = (256, 64, 64): 116736 bytes, 1 CTA per SM
 

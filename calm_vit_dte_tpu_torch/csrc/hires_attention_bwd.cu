@@ -109,10 +109,8 @@
 //     takes 209,920 bytes of shared memory at D = 256 (173,056 at 112),
 //     so one CTA of 8 warps an SM. On an H100 (chip_smoke.py) it runs at
 //     about 120 TFLOP/s at S = 1024, D = 256, B = 8.
-//     fp32 (hires_dkv_kernel): one CTA per (64 keys, batch element and
-//     head) streams the query tiles: scores and dp transposed (key rows), dv
-//     += round(p)^T g and dk += ds^T q from shared memory; m and dssum read
-//     transposed by their indexing.
+//     The CUDA-core dk/dv kernel (hires_dkv_kernel) is this design's
+//     counterpart on the product core; see the CUDA-core kernels below.
 //   * dk, dv past 256 columns of D or Dv, bf16 (hires_dkv_wide_bf16_kernel):
 //     k and v resident would take 275,456 bytes at D = Dv = 512 and 64
 //     keys x (D + Dv) fp32 accumulators the whole register file. The wide
@@ -139,11 +137,55 @@
 //     = 512, so per 128-key tile it forms dp (parked in a [64][132] score
 //     tile) and s once, puts ds in the score tile in dp's place, and adds
 //     ds k over the tile's k chunks (16 keys), each thread 4 rows x 4 NQ
-//     columns of dq. Past 512 columns dq splits over the grid. The dk/dv
-//     kernel keeps 4 x 4 register tiles: every contraction over D or Dv streams
-//     through shared memory 64 columns at a time (scores_chunked), and dk
-//     and dv wider than 256 columns split over the grid's z axis, each CTA
-//     recomputing the scores for its slice.
+//     columns of dq. Past 512 columns dq splits over the grid.
+//   * dk, dv on the CUDA cores (hires_dkv_kernel): the dq kernel with the
+//     roles of queries and keys swapped. Bound like the forward by its fp32
+//     operations, 4 B H S^2 (D + Dv) at 67 TFLOP/s (23.641 ms per fifteen
+//     six-head layers at B=8, 0.24 ms a flagship rope step; PERF.md §6).
+//     One CTA of 8 warps per (64 keys, head and slice, batch element), grid
+//     (H * ns, ceil(S / 64), B) with the heads fastest, so the H CTAs that
+//     read the same columns of m and dssum run together. Per 128-query tile
+//     the ring carries the (k, q) chunks (s^T = k q^T, 4 x 8 a thread:
+//     keys by queries), the (v, g) chunks (dp^T), then 16-query chunks of
+//     g and q rows side by side in one stage; m and dssum come in as [128
+//     queries][64 keys] tiles (their rows run along the keys: 16-byte
+//     cp.async, one group a tile, issued after the tile's first barrier so
+//     that it lands under the score chunks), with lse and delta, and are
+//     read transposed, four keys a float4, from rows 68 floats apart (no
+//     bank conflicts). No global load strides across rows of S. p^T, then
+//     round(p)^T, replaces m in its tile and ds^T replaces dssum in its
+//     own, each thread over its own elements, and dv += round(p)^T g and
+//     dk += ds^T q read them as they lie (4 rows x 4 NV columns of each
+//     output a thread, float4 fragments: 16 NV FMAs a 1 + NV loads). So
+//     the scores of a query tile are formed once for up to kSlice = 256
+//     columns of dk and of dv (128 accumulators a thread at NV 4, the dq
+//     kernel's count at NQ 8), and the only residual copies are the
+//     staged tiles. Past 256 columns of D or Dv the grid splits dk and dv
+//     into ns = ceil(max(D, Dv) / 256) slices of equal width (a multiple
+//     of 4), each CTA recomputing s^T and, where its slice holds dk
+//     columns, dp^T: B H S^2 (ns + 1) (D + Dv) FMAs against 2 B H S^2 (D
+//     + Dv), 1.5x at D = Dv = 512 (ns 2), 2x at 520 (ns 3). Giving
+//     dv and dk CTAs of their own (a dv CTA needs no dp^T) would take 1.25x
+//     at 512, but needs 512 columns of one output a CTA, a second
+//     accumulator layout and shared memory past its ring; at the six-head
+//     shapes 15 of 24 layers are past 256, so the even split was kept and
+//     is the one measured (PERF.md §6). Shared memory does not grow with D
+//     or Dv (dkv_cc_smem), with CTAs per SM by shared memory:
+//       dkv_cc_smem at NV = 1: 115712 bytes, 2 CTAs per SM
+//       dkv_cc_smem at NV = 2: 152576 bytes, 1 CTA per SM
+//       dkv_cc_smem at NV = 3: 152576 bytes, 1 CTA per SM
+//       dkv_cc_smem at NV = 4: 169472 bytes, 1 CTA per SM
+//     At NV 1 (outputs up to 64 columns: the rope route's shapes, S
+//     80-256, 96-384 CTAs, 0.7-2.9 for each of the 132 SMs) the CTA is
+//     cut to leave room for a second on its SM: score chunks 16 columns
+//     deep, lse and delta in the row padding of m's tile, and its score
+//     steps kept in a loop (score_chunk's kRolled) under 128 registers a
+//     thread (ptxas: no spill with cp.async, 16 bytes on the register
+//     path). At NV 2-4 one CTA an SM (222-254 registers). A fourth ring
+//     stage measured no faster. On the register path (bf16, fp32 rows
+//     off 16 bytes) the ring moves four columns at a time (load_units);
+//     ptxas gives 254 registers at NV 2 and spills 36-88 bytes at NV 4
+//     there.
 // The bf16 tensor-core kernels take S, D and Dv that are multiples of 8
 // (16-byte rows): the dq kernels D, Dv <= kTcDqMaxD, the dk/dv kernels
 // every width; the C entries take any shape.
@@ -354,100 +396,268 @@ __global__ void __launch_bounds__(kThreads, 1) hires_dq_kernel(
   }
 }
 
-// dk and dv of 64 keys of one (batch element, head), columns [c0, c0 +
-// Wk) of dk and [c0, c0 + Wv) of dv (the grid's z slice; either may be
-// empty where D and Dv differ).
-template <typename T, int CJ>
-__global__ void __launch_bounds__(kThreads) hires_dkv_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ g, const Residuals R,
-    const float* __restrict__ dssum, int D, int Dv, T* __restrict__ dk,
-    T* __restrict__ dv) {
-  extern __shared__ float smem[];
-  const int H = R.H, S = R.S;
-  const int c0 = blockIdx.z * kSlice;
-  const int Wk = max(0, min(kSlice, D - c0));
-  const int Wv = max(0, min(kSlice, Dv - c0));
-  const int ldx = slice_ld(D > Dv ? D : Dv);
-  float* sA = smem;                // 64 x kLdC  k or v chunk (this CTA's keys)
-  float* sB = sA + kTile * kLdC;   // 64 x kLdC  q or g chunk
-  float* sX = sB + kTile * kLdC;   // 64 x ldx   g tile, then q tile: slices
-  float* sP = sX + kTile * ldx;    // 64 x kLdP  round(p)^T
-  float* sD = sP + kTile * kLdP;   // 64 x kLdP  ds^T
-  const int t0 = blockIdx.x * kTile;
-  const int bh = blockIdx.y, b = bh / H;
+// The CUDA-core dk/dv CTA: 64 keys of one (batch element, head) against
+// 128-query tiles. The residuals of a query tile, m and dssum as [128
+// queries][64 keys] fp32 tiles (their rows run along the keys), are staged
+// in shared memory (16-byte cp.async where S is a multiple of 4, plain
+// loads otherwise) and read transposed, four keys a float4, from rows
+// kDkvResLd = 68 floats apart: the eight threads of a quarter-warp read
+// eight rows on eight different bank groups. p and then round(p) replace m
+// in its tile, ds replaces dssum in its own, and the outputs' products read
+// both tiles as they lie (out_chunk_t). lse and delta of the tile's
+// queries sit in m's tile's row padding (columns 64 and 65). At NV 1
+// (outputs up to 64 columns: the rope route's) the score chunks are 16
+// columns deep, so that the CTA (115,712 bytes, at most 128 registers a
+// thread) leaves room for a second on its SM.
+constexpr int kDkvResLd = kSQ + 4;
+constexpr int kDkvRes = kSK * kDkvResLd;     // floats of one residual tile
+__host__ __device__ constexpr int dkv_kc(int nv) { return nv == 1 ? 16 : kKC; }
+// Floats of one ring stage: a score chunk, or the g and q rows of an output
+// chunk (kVK queries each, dv's columns, then dk's).
+__host__ __device__ constexpr int dkv_stage(int nv) {
+  return (kSQ + kSK) * (dkv_kc(nv) + 4) > 2 * kVK * out_ld(nv)
+             ? (kSQ + kSK) * (dkv_kc(nv) + 4)
+             : 2 * kVK * out_ld(nv);
+}
+// Dynamic shared memory of the CUDA-core dk/dv CTA: the two residual tiles
+// and the ring (115,712 bytes at NV 1, 152,576 at NV 2-3, 169,472 at 4).
+__host__ __device__ constexpr size_t dkv_cc_smem(int nv) {
+  return sizeof(float) * ((size_t)2 * kDkvRes +
+                          (size_t)kRing * dkv_stage(nv));
+}
+static_assert(2 * (dkv_cc_smem(1) + 1024) <= 233472, "two CTAs an SM at NV 1");
+constexpr int kDkvMaxNV = kSlice / 64;   // columns of dk and of dv a CTA
+static_assert(dkv_cc_smem(kDkvMaxNV) <= kMaxCtaSmem, "the CTA fits");
+
+// acc[i][4 u + e] += sum_{k < kVK} P[k0 + k][ty * 4 + i] X[k][tx * 4 + 64 u
+// + e]: P a residual tile ([queries][kDkvResLd], keys along its rows), X an
+// output chunk's rows ([kVK][out_ld(NV)]). One float4 of P (four keys)
+// and NV of X feed 16 NV FMAs.
+template <int NV>
+__device__ __forceinline__ void out_chunk_t(float (&acc)[4][4 * NV],
+                                            const float* P, int k0,
+                                            const float* X) {
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const size_t head = (size_t)bh * S;
-  const T* qh = q + head * D;
-  const T* kh = k + head * D;
-  const T* gh = g + head * Dv;
-  const T* vh = v + head * Dv;
-  float acc_k[4][CJ], acc_v[4][CJ];
-  zero(acc_k);
-  zero(acc_v);
-  for (int q0 = 0; q0 < S; q0 += kTile) {
-    // Key rows (ty + 16i) by query columns (tx + 16j). (The first barrier:
-    // the previous tile is done with sX, sP and sD.)
-    float s[4][4], dp[4][4];
-    zero(s);
-    zero(dp);
-    scores_chunked<T>(s, sA, sB, kh, t0, qh, q0, S, D);
-    scores_chunked<T>(dp, sA, sB, vh, t0, gh, q0, S, Dv);
+  const float* Pc = P + k0 * kDkvResLd + ty * 4;
+  const float* Xc = X + tx * 4;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = q0 + tx + 16 * j;
-      const float l = c < S ? R.lse[head + c] : 0.f;
-      const float de = c < S ? R.delta[head + c] : 0.f;
+  for (int k = 0; k < kVK; ++k) {
+    const float4 p = *reinterpret_cast<const float4*>(Pc + k * kDkvResLd);
+#pragma unroll
+    for (int u = 0; u < NV; ++u) {
+      const float4 x =
+          *reinterpret_cast<const float4*>(Xc + k * out_ld(NV) + 64 * u);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const int t = t0 + ty + 16 * i;
-        float p = 0.f, ds = 0.f;
-        if (c < S && t < S) {
-          const size_t at = ((size_t)b * S + c) * S + t;
-          float dl;
-          softmax_grad(s[i][j], dp[i][j], R.m[at], l, de, R.scale, p, dl);
-          ds = rnd<T>(dl * R.scale + dssum[at]);
-        }
-        sP[(ty + 16 * i) * kLdP + tx + 16 * j] = rnd<T>(p);
-        sD[(ty + 16 * i) * kLdP + tx + 16 * j] = ds;
+        const float pi = lane_of(p, i);
+        acc[i][4 * u] = fmaf(pi, x.x, acc[i][4 * u]);
+        acc[i][4 * u + 1] = fmaf(pi, x.y, acc[i][4 * u + 1]);
+        acc[i][4 * u + 2] = fmaf(pi, x.z, acc[i][4 * u + 2]);
+        acc[i][4 * u + 3] = fmaf(pi, x.w, acc[i][4 * u + 3]);
       }
     }
-    if (Wv > 0) {
-      load_cols<T>(sX, ldx, gh, Dv, q0, S, c0, Wv);
-      __syncthreads();
-      mm_nn<CJ>(acc_v, sP, kLdP, sX, ldx, Wv);   // dv += round(p)^T g
+  }
+}
+
+// Query tile q0's residuals: m and dssum rows [q0, q0 + kSK) x keys [t0,
+// t0 + 64) of batch element b into Y and Z (with `vec`, S a multiple of 4
+// and m and dssum 16-byte aligned, by cp.async, uncommitted), lse and delta
+// of its queries into Y's columns kSQ and kSQ + 1; zeros past S.
+__device__ __forceinline__ void stage_residuals(float* Y, float* Z,
+                                                const Residuals& R,
+                                                const float* dssum, int b,
+                                                size_t head, int q0, int t0,
+                                                bool vec) {
+  static_assert(kThreads == 2 * kSK, "one thread a query's lse or delta");
+  const int S = R.S, live_q = S - q0, live_k = S - t0;
+  const size_t at = ((size_t)b * S + q0) * S + t0;
+  for (int idx = threadIdx.x; idx < kSK * (kSQ / 4); idx += kThreads) {
+    const int r = idx / (kSQ / 4), c = (idx % (kSQ / 4)) * 4;
+    float* y = Y + r * kDkvResLd + c;
+    float* z = Z + r * kDkvResLd + c;
+    const size_t src = at + (size_t)r * S + c;
+    if (vec && r < live_q && c < live_k) {
+      tcore::cp_async16(y, R.m + src);
+      tcore::cp_async16(z, dssum + src);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool live = r < live_q && c + e < live_k;
+        y[e] = live ? R.m[src + e] : 0.f;
+        z[e] = live ? dssum[src + e] : 0.f;
+      }
+    }
+  }
+  const int r = threadIdx.x % kSK, w = threadIdx.x / kSK;
+  Y[r * kDkvResLd + kSQ + w] =
+      r < live_q ? (w ? R.delta : R.lse)[head + q0 + r] : 0.f;
+}
+
+// Wait for the residual group when n cp.async groups have been committed
+// after it.
+__device__ __forceinline__ void wait_all_but(int n) {
+  if (n >= 2)
+    tcore::cp_wait<2>();
+  else if (n == 1)
+    tcore::cp_wait<1>();
+  else
+    tcore::cp_wait<0>();
+}
+
+// dk and dv of 64 keys of one (batch element, head): columns [c0, c0 + Wk)
+// of dk and [c0, c0 + Wv) of dv, c0 = z cols (slice z of the grid's split
+// past kSlice; either may be empty where D and Dv differ). Per 128-query
+// tile the ring carries the (k, q) score chunks (s^T = k q^T), then, where
+// the slice has dk columns, the (v, g) ones (dp^T = v g^T), then the tile's
+// output chunks (kVK rows of g and of q). p^T = exp(scale s^T + m^T - lse)
+// goes into m's tile, then ds^T = round(scale p^T (dp^T - delta) + dssum^T)
+// into dssum's and round(p)^T into m's; dv += round(p)^T g and dk += ds^T q.
+template <typename T, int NV, bool kAsync>
+__global__ void __launch_bounds__(kThreads, NV == 1 ? 2 : 1) hires_dkv_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ g, const Residuals R,
+    const float* __restrict__ dssum, int D, int Dv, int ns, int cols,
+    bool res16, T* __restrict__ dk, T* __restrict__ dv) {
+  extern __shared__ __align__(16) float smem[];
+  float* sY = smem;                  // m, then p, then round(p)
+  float* sZ = sY + kDkvRes;          // dssum, then ds
+  constexpr int KC = dkv_kc(NV), LDK = KC + 4;
+  const int H = R.H, S = R.S;
+  const int z = blockIdx.x % ns;
+  const int b = blockIdx.z, t0 = blockIdx.y * kSQ;
+  const size_t head = ((size_t)b * H + blockIdx.x / ns) * S;
+  const int c0 = z * cols;
+  const int Wk = max(0, min(cols, D - c0)), Wv = max(0, min(cols, Dv - c0));
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const T* qh = q + head * D;
+  const T* kh = k + (head + t0) * D;
+  const T* gh = g + head * Dv;
+  const T* vh = v + (head + t0) * Dv;
+  const int nkc = (D + KC - 1) / KC;
+  const int nvc = Wk > 0 ? (Dv + KC - 1) / KC : 0;   // dp^T: dk only
+  const int nqt = (S + kSK - 1) / kSK, per = nkc + nvc + kSK / kVK;
+  auto plan = [&](int at, float* st, Block<T>& a, Block<T>& bb) {
+    int t, c;
+    tile_of(at, per, nqt, t, c);
+    const int q0 = t * kSK;
+    if (c < nkc + nvc) {
+      const bool ks = c < nkc;
+      const int w = ks ? D : Dv, d0 = (ks ? c : c - nkc) * KC;
+      a = {(ks ? kh : vh) + d0, w, kSQ, KC, S - t0, w - d0, st, LDK};
+      bb = {(ks ? qh : gh) + (size_t)q0 * w + d0, w, kSK, KC, S - q0,
+            w - d0, st + kSQ * LDK, LDK};
+    } else {
+      const int r0 = q0 + (c - nkc - nvc) * kVK;
+      const Block<T> xq = {qh + (size_t)r0 * D + c0, D, kVK, 64 * NV,
+                           S - r0, Wk, st + kVK * out_ld(NV), out_ld(NV)};
+      if (Wv > 0) {
+        a = {gh + (size_t)r0 * Dv + c0, Dv, kVK, 64 * NV, S - r0, Wv, st,
+             out_ld(NV)};
+        if (Wk > 0) bb = xq;
+      } else {
+        a = xq;
+      }
+    }
+  };
+  Ring<T, kAsync, kThreads, dkv_stage(NV) / kThreads / 4 * 4, decltype(plan),
+       true>
+      ring(plan, sZ + kDkvRes, dkv_stage(NV),
+      (nqt - 1) * per + nkc + nvc + out_chunks(S, nqt - 1));
+
+  float acc_v[4][4 * NV], acc_k[4][4 * NV];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4 * NV; ++j) acc_v[i][j] = 0.f, acc_k[i][j] = 0.f;
+  for (int t = 0; t < nqt; ++t) {
+    const int q0 = t * kSK;
+    float s[4][8];   // keys ty * 4 + i x queries tx + 16 j of the tile
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+    for (int c = 0; c < nkc; ++c) {
+      score_chunk<KC, NV == 1>(s, ring.next());
+      if (c == 0) {
+        // Every thread is done with the previous tile's residual tiles
+        // (the barrier in next()): stage this tile's, as one group.
+        stage_residuals(sY, sZ, R, dssum, b, head, q0, t0, res16);
+        tcore::cp_commit();
+      }
+    }
+    wait_all_but(kAsync ? nkc - 1 : 0);
+    __syncthreads();   // every thread's residuals have landed
+    // p^T into m's tile, each thread over its own elements (4 keys a
+    // float4); zeros past S.
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int qr = tx + 16 * j;
+      float4* y = reinterpret_cast<float4*>(sY + qr * kDkvResLd + ty * 4);
+      const float4 mv = *y;
+      const float l = sY[qr * kDkvResLd + kSQ];
+      const bool live_q = q0 + qr < S;
+      float p[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        p[i] = live_q && t0 + ty * 4 + i < S
+                   ? expf(s[i][j] * R.scale + lane_of(mv, i) - l)
+                   : 0.f;
+      *y = Wk > 0 ? make_float4(p[0], p[1], p[2], p[3])
+                  : make_float4(rnd<T>(p[0]), rnd<T>(p[1]), rnd<T>(p[2]),
+                                rnd<T>(p[3]));
     }
     if (Wk > 0) {
-      __syncthreads();  // every warp is done with g
-      load_cols<T>(sX, ldx, qh, D, q0, S, c0, Wk);
-      __syncthreads();
-      mm_nn<CJ>(acc_k, sD, kLdP, sX, ldx, Wk);   // dk += ds^T q
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+      for (int c = 0; c < nvc; ++c) score_chunk<KC, NV == 1>(s, ring.next());
+      // ds^T into dssum's tile, round(p)^T into m's.
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int qr = tx + 16 * j;
+        float4* y = reinterpret_cast<float4*>(sY + qr * kDkvResLd + ty * 4);
+        float4* zz = reinterpret_cast<float4*>(sZ + qr * kDkvResLd + ty * 4);
+        const float4 p4 = *y, d4 = *zz;
+        const float de = sY[qr * kDkvResLd + kSQ + 1];
+        float ds[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float p = lane_of(p4, i);
+          ds[i] = rnd<T>(p * (s[i][j] - de) * R.scale + lane_of(d4, i));
+        }
+        *zz = make_float4(ds[0], ds[1], ds[2], ds[3]);
+        *y = make_float4(rnd<T>(p4.x), rnd<T>(p4.y), rnd<T>(p4.z),
+                         rnd<T>(p4.w));
+      }
+    }
+    // (the first output chunk's barrier: round(p) and ds are in place)
+    const int nqc = out_chunks(S, t);
+    for (int c = 0; c < nqc; ++c) {
+      const float* X = ring.next();
+      if (Wv > 0) out_chunk_t<NV>(acc_v, sY, c * kVK, X);
+      if (Wk > 0) out_chunk_t<NV>(acc_k, sZ, c * kVK, X + kVK * out_ld(NV));
     }
   }
+  ring.finish();
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int t = t0 + ty + 16 * i;
+    const int t = t0 + ty * 4 + i;
     if (t >= S) continue;
 #pragma unroll
-    for (int j = 0; j < CJ; ++j) {
-      const int c = tx + 16 * j;
-      if (c < Wk) dk[(head + t) * D + c0 + c] = from_f<T>(acc_k[i][j]);
-      if (c < Wv) dv[(head + t) * Dv + c0 + c] = from_f<T>(acc_v[i][j]);
-    }
+    for (int u = 0; u < NV; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = tx * 4 + 64 * u + e;
+        if (c < Wk) dk[(head + t) * D + c0 + c] = from_f<T>(acc_k[i][4 * u + e]);
+        if (c < Wv) dv[(head + t) * Dv + c0 + c] = from_f<T>(acc_v[i][4 * u + e]);
+      }
   }
 }
 
-// Dynamic shared memory of the CUDA-core dk/dv kernel: the two contraction
-// chunks, a slice-wide row tile and the score tiles (n_score_tiles 2;
-// 132,352 bytes at D or Dv >= 256). The dm/ssum kernel's CTA holds its ring
-// (82,944 bytes), the dq kernel's as the forward's (cc_smem,
-// hires_common.cuh).
+// The dm/ssum kernel's CTA holds its ring (82,944 bytes), the dq kernel's
+// as the forward's (cc_smem, hires_common.cuh).
 constexpr size_t kDmSsumCcSmem = sizeof(float) * kRing * kScoreChunk;
-
-size_t tiled_smem(int width, int n_score_tiles) {
-  return sizeof(float) * kTile *
-         ((size_t)2 * kLdC + slice_ld(width) + (size_t)n_score_tiles * kLdP);
-}
 
 template <typename Kern>
 cudaError_t allow_smem(Kern kern, size_t smem) {
@@ -1496,18 +1706,54 @@ cudaError_t dq_pass(const T* q, const T* k, const T* v, const T* g,
                                  rep);
 }
 
-template <typename T, int CJ>
+template <typename T, int NV, bool kAsync>
 cudaError_t launch_dkv(const T* q, const T* k, const T* v, const T* g,
                        const Residuals& R, const float* dssum, int B, int D,
-                       int Dv, T* dk, T* dv, cudaStream_t st, Report& rep) {
-  auto kern = hires_dkv_kernel<T, CJ>;
-  const int wide = D > Dv ? D : Dv;
-  const size_t smem = tiled_smem(wide, 2);
+                       int Dv, int ns, int cols, T* dk, T* dv,
+                       cudaStream_t st, Report& rep) {
+  auto kern = hires_dkv_kernel<T, NV, kAsync>;
+  constexpr size_t smem = dkv_cc_smem(NV);
   cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return err;
-  kern<<<dim3((R.S + kTile - 1) / kTile, B * R.H, slices_of(wide)), kThreads,
-         smem, st>>>(q, k, v, g, R, dssum, D, Dv, dk, dv);
+  auto a16 = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  const bool res16 = R.S % 4 == 0 && a16(R.m) && a16(dssum);
+  kern<<<dim3(R.H * ns, (R.S + kSQ - 1) / kSQ, B), kThreads, smem, st>>>(
+      q, k, v, g, R, dssum, D, Dv, ns, cols, res16, dk, dv);
   return rep.done(smem);
+}
+
+// The CUDA-core dk/dv kernel: ns = slices_of(the wider of D and Dv) slices
+// of cols columns of each (the wider's split in equal parts, a multiple of
+// 4), NV = the 64-column groups of a slice: 1-4 with cp.async staging, 1, 2
+// or 4 on the register path, which keeps the library's build short.
+template <typename T, bool kAsync>
+cudaError_t dkv_cuda_cores(const T* q, const T* k, const T* v, const T* g,
+                           const Residuals& R, const float* dssum, int B,
+                           int D, int Dv, T* dk, T* dv, cudaStream_t st,
+                           Report& rep) {
+  static_assert(kDkvMaxNV == 4, "one case per NV");
+  using std::integral_constant;
+  const int wide = D > Dv ? D : Dv, ns = slices_of(wide);
+  const int cols = ((wide + ns - 1) / ns + 3) / 4 * 4;
+  const int nv = (cols + 63) / 64;
+  auto run = [&](auto n) {
+    return launch_dkv<T, decltype(n)::value, kAsync>(
+        q, k, v, g, R, dssum, B, D, Dv, ns, cols, dk, dv, st, rep);
+  };
+  if constexpr (kAsync) {
+    switch (nv) {
+      case 1: return run(integral_constant<int, 1>{});
+      case 2: return run(integral_constant<int, 2>{});
+      case 3: return run(integral_constant<int, 3>{});
+      default: return run(integral_constant<int, 4>{});
+    }
+  } else {
+    if (nv == 1) return run(integral_constant<int, 1>{});
+    if (nv == 2) return run(integral_constant<int, 2>{});
+    return run(integral_constant<int, 4>{});
+  }
 }
 
 // The mask MLP's backward over the rows = B*S rows, from dm (rows, S) and
@@ -1592,17 +1838,12 @@ cudaError_t run_dkv(const void* q, const void* k, const void* v,
       }
     }
   }
-  switch (cols_per_thread(slice_width(D > Dv ? D : Dv))) {
-    case 4:
-      return launch_dkv<T, 4>(qt, kt, vt, gt, R, dssum, B, D, Dv, dkt, dvt,
-                              st, rep);
-    case 8:
-      return launch_dkv<T, 8>(qt, kt, vt, gt, R, dssum, B, D, Dv, dkt, dvt,
-                              st, rep);
-    default:
-      return launch_dkv<T, 16>(qt, kt, vt, gt, R, dssum, B, D, Dv, dkt, dvt,
-                               st, rep);
-  }
+  if (rows16<T>(q, D, D, D, D) && rows16<T>(k, D, D, D, D) &&
+      rows16<T>(v, Dv, Dv, Dv, Dv) && rows16<T>(g, Dv, Dv, Dv, Dv))
+    return dkv_cuda_cores<T, std::is_same<T, float>::value>(
+        qt, kt, vt, gt, R, dssum, B, D, Dv, dkt, dvt, st, rep);
+  return dkv_cuda_cores<T, false>(qt, kt, vt, gt, R, dssum, B, D, Dv, dkt,
+                                  dvt, st, rep);
 }
 
 // Whether the weight grads' products split over the rows: fp32 always (on
@@ -1795,12 +2036,13 @@ extern "C" int hires_dq_wide_occupancy(int D, int Dv, int* out) {
   return 0;
 }
 
-// What the card makes of the fp32 CUDA-core dq kernel with cp.async staging
-// (NQ = 1-8: kernel k, NQ = k + 1) and of the fp32 dm/ssum kernel (kernel
-// 8): out[4k..4k+3] as occupancy() fills them (hires_common.cuh). Returns a
+// What the card makes of the fp32 CUDA-core backward kernels with cp.async
+// staging: the dq kernel (NQ = 1-8: kernel k, NQ = k + 1), the dm/ssum
+// kernel (kernel 8) and the dk/dv kernel (NV = 1-4: kernel 8 + NV);
+// out[4k..4k+3] as occupancy() fills them (hires_common.cuh). Returns a
 // cudaError_t.
-extern "C" int hires_dq_cc_occupancy(int* out) {
-  const void* fns[9] = {
+extern "C" int hires_bwd_cc_occupancy(int* out) {
+  const void* fns[13] = {
       reinterpret_cast<const void*>(hires_dq_kernel<float, 1, true>),
       reinterpret_cast<const void*>(hires_dq_kernel<float, 2, true>),
       reinterpret_cast<const void*>(hires_dq_kernel<float, 3, true>),
@@ -1809,10 +2051,16 @@ extern "C" int hires_dq_cc_occupancy(int* out) {
       reinterpret_cast<const void*>(hires_dq_kernel<float, 6, true>),
       reinterpret_cast<const void*>(hires_dq_kernel<float, 7, true>),
       reinterpret_cast<const void*>(hires_dq_kernel<float, 8, true>),
-      reinterpret_cast<const void*>(hires_dm_ssum_kernel<float, true>)};
-  for (int k = 0; k < 9; ++k) {
-    const cudaError_t err = occupancy(
-        fns[k], kThreads, k < 8 ? cc_smem(k + 1) : kDmSsumCcSmem, out + 4 * k);
+      reinterpret_cast<const void*>(hires_dm_ssum_kernel<float, true>),
+      reinterpret_cast<const void*>(hires_dkv_kernel<float, 1, true>),
+      reinterpret_cast<const void*>(hires_dkv_kernel<float, 2, true>),
+      reinterpret_cast<const void*>(hires_dkv_kernel<float, 3, true>),
+      reinterpret_cast<const void*>(hires_dkv_kernel<float, 4, true>)};
+  for (int k = 0; k < 13; ++k) {
+    const size_t smem = k < 8 ? cc_smem(k + 1)
+                        : k == 8 ? kDmSsumCcSmem
+                                 : dkv_cc_smem(k - 8);
+    const cudaError_t err = occupancy(fns[k], kThreads, smem, out + 4 * k);
     if (err != cudaSuccess) return (int)err;
   }
   return 0;
@@ -1909,9 +2157,9 @@ extern "C" int rope_attention_bwd_f32(void* const* p, int B, int H, int S,
 // cp.async staging, each staging (kAK, kBK) = (0, 0), (0, 1), (1, 0), (1,
 // 1) at 128 x 128 tiles, then at 64 x 64 tiles, then at 64 x 64 tiles with
 // four groups (gemm_cc_staged; hires_attention.cu compiles the same
-// template with the same flags); k = 15-17 the dk/dv kernel at CJ = 4, 8,
-// 16 with the shared memory of its widest slice (64, 128, 256 columns).
-// Returns a cudaError_t.
+// template with the same flags). The hires CUDA-core kernels it runs are
+// hires_attention_cc_occupancy's and hires_bwd_cc_occupancy's. Returns a
+// cudaError_t.
 extern "C" int rope_f32_occupancy(int* out) {
   cudaError_t err = f32_route_occupancy(out);
   out += 4 * kF32RouteKernels;
@@ -1935,11 +2183,5 @@ extern "C" int rope_f32_occupancy(int* out) {
   gemm_at(gemm_kernel<float, false, true, true, 64, 4>, 64, 4, small);
   gemm_at(gemm_kernel<float, true, false, true, 64, 4>, 64, 4, small);
   gemm_at(gemm_kernel<float, true, true, true, 64, 4>, 64, 4, small);
-  const void* dkv[3] = {
-      reinterpret_cast<const void*>(hires_dkv_kernel<float, 4>),
-      reinterpret_cast<const void*>(hires_dkv_kernel<float, 8>),
-      reinterpret_cast<const void*>(hires_dkv_kernel<float, 16>)};
-  for (int k = 0; k < 3 && err == cudaSuccess; ++k)
-    err = occupancy(dkv[k], kThreads, tiled_smem(64 << k, 2), out + 4 * k);
   return (int)err;
 }

@@ -6,11 +6,9 @@
 //     bodies hand to the MXU inside the kernel runs here, not in a library;
 //   * the CUDA-core product core (a ring of fp32 stages in shared memory,
 //     cp.async or register staging, float4 fragments, register tiles of at
-//     least 4 x 8 a thread) that the strided product, the CUDA-core forward,
-//     dm/ssum and dq kernels are built from, and its attention tiles;
-//   * the 4 x 4 register-tile products over 64-row tiles (mm_nt, mm_nn,
-//     scores_chunked), which the CUDA-core dk/dv kernel is built from, and
-//     the row reductions.
+//     least 4 x 8 a thread) that the strided product and the CUDA-core
+//     forward, dm/ssum, dq and dk/dv kernels are built from, its attention
+//     tiles and the row reductions.
 // Every product reads the compute type T (float or bf16) and accumulates in
 // fp32 as fp32 FMAs: the fp32 route. The bf16 route's products run on the
 // tensor cores (hires_mma.cuh). Nothing is
@@ -25,7 +23,6 @@
 namespace {
 
 constexpr int kTile = 64;    // rows and columns of a product tile
-constexpr int kLdP = kTile + 1;
 constexpr int kSMs = 132;    // the H100 SXM's streaming multiprocessors
 
 __device__ __forceinline__ float dgelu(float x) {
@@ -182,13 +179,81 @@ __device__ __forceinline__ void store_regs(const float (&v)[kPf],
   }
 }
 
+// The register path four columns at a time (kUnits): unit w = threadIdx.x
+// + u kNT of the pair (a's units first) is four consecutive columns of one
+// row, loaded as one 8-byte (bf16) or 16-byte (fp32) vector where all four
+// are live and the address is aligned, else element by element, and stored
+// as one float4: one index computation per four elements. v holds kPf / 4
+// units; nc and lds are multiples of 4.
+template <typename T>
+__device__ __forceinline__ float4 load4(const T* p, int live) {
+  const uintptr_t at = reinterpret_cast<uintptr_t>(p);
+  if (live >= 4 && at % (4 * sizeof(T)) == 0) {
+    if constexpr (std::is_same<T, float>::value) {
+      return *reinterpret_cast<const float4*>(p);
+    } else {
+      const uint2 x = *reinterpret_cast<const uint2*>(p);
+      return make_float4(__uint_as_float(x.x << 16),
+                         __uint_as_float(x.x & 0xffff0000u),
+                         __uint_as_float(x.y << 16),
+                         __uint_as_float(x.y & 0xffff0000u));
+    }
+  }
+  return make_float4(live > 0 ? to_f(p[0]) : 0.f, live > 1 ? to_f(p[1]) : 0.f,
+                     live > 2 ? to_f(p[2]) : 0.f, live > 3 ? to_f(p[3]) : 0.f);
+}
+
+template <typename T, int kNT, int kPf>
+__device__ __forceinline__ void load_units(float (&v)[kPf], const Block<T>& a,
+                                           const Block<T>& b) {
+  const int qa = a.nc >> 2, qb = b.nc >> 2;
+  const int ua = a.nr * qa, n = ua + b.nr * qb;
+#pragma unroll
+  for (int u = 0; u < kPf / 4; ++u) {
+    const int w = threadIdx.x + u * kNT;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (w < n) {
+      const bool in_a = w < ua;
+      const int f = in_a ? w : w - ua, q = in_a ? qa : qb;
+      const int r = f / q, c = (f - r * q) << 2;
+      if (r < (in_a ? a.live_r : b.live_r))
+        x = load4((in_a ? a.src : b.src) + r * (in_a ? a.ld : b.ld) + c,
+                  (in_a ? a.live_c : b.live_c) - c);
+    }
+    v[4 * u] = x.x, v[4 * u + 1] = x.y, v[4 * u + 2] = x.z,
+    v[4 * u + 3] = x.w;
+  }
+}
+
+template <typename T, int kNT, int kPf>
+__device__ __forceinline__ void store_units(const float (&v)[kPf],
+                                            const Block<T>& a,
+                                            const Block<T>& b) {
+  const int qa = a.nc >> 2, qb = b.nc >> 2;
+  const int ua = a.nr * qa, n = ua + b.nr * qb;
+#pragma unroll
+  for (int u = 0; u < kPf / 4; ++u) {
+    const int w = threadIdx.x + u * kNT;
+    if (w < n) {
+      const bool in_a = w < ua;
+      const int f = in_a ? w : w - ua, q = in_a ? qa : qb;
+      const int r = f / q, c = (f - r * q) << 2;
+      *reinterpret_cast<float4*>((in_a ? a.dst : b.dst) +
+                                 r * (in_a ? a.lds : b.lds) + c) =
+          make_float4(v[4 * u], v[4 * u + 1], v[4 * u + 2], v[4 * u + 3]);
+    }
+  }
+}
+
 // The ring of kRing stages of `stage` floats at `base`, over n chunks;
 // plan(at, stage, a, b) names chunk at's one or two blocks (b left empty:
 // one) at its stage. Construction begins chunks 0 and 1; each next() waits
 // for chunk i (a barrier: every thread is done with chunk i - 1), starts
 // chunk i + 2 and returns chunk i's stage. kNT threads call every step; kPf
-// bounds a thread's elements of one chunk on the register path.
-template <typename T, bool kAsync, int kNT, int kPf, typename Plan>
+// bounds a thread's elements of one chunk on the register path, which with
+// kUnits moves four columns at a time (load_units: kPf a multiple of 4).
+template <typename T, bool kAsync, int kNT, int kPf, typename Plan,
+          bool kUnits = false>
 struct Ring {
   static_assert(!kAsync || std::is_same<T, float>::value,
                 "cp.async copies fp32 rows");
@@ -211,6 +276,8 @@ struct Ring {
       if constexpr (kAsync) {
         copy_async<kNT>(a);
         if (b.nr) copy_async<kNT>(b);
+      } else if constexpr (kUnits) {
+        load_units<T, kNT, kPf>(v, a, b);
       } else {
         load_regs<T, kNT, kPf>(v, a, b);
       }
@@ -221,7 +288,10 @@ struct Ring {
     if (c < n) {
       Block<T> a{}, b{};
       plan(c, at(c), a, b);
-      store_regs<T, kNT, kPf>(v, a, b);
+      if constexpr (kUnits)
+        store_units<T, kNT, kPf>(v, a, b);
+      else
+        store_regs<T, kNT, kPf>(v, a, b);
     }
   }
   __device__ const float* next() {
@@ -507,54 +577,8 @@ cudaError_t colsum(const T* X, long long R, int N, float* part, float* out,
   return rep.done(0);
 }
 
-// ---------------------------------------------------------------------------
-// Register tiles of the attention kernels: 256 threads as 16 x 16 (tx =
-// threadIdx % 16, ty = threadIdx / 16); a thread owns rows ty + 16i (i < 4)
-// of a 64-row tile and columns tx + 16j (j < CJ). The 16 threads that share
-// rows are one half-warp, so row reductions are shuffles over lane bits 0-3.
-
-// acc[i][j] += sum_{k < K} A[r_i][k] * B[c_j][k]  (both row-major over k;
-// odd strides keep the 16 rows a half-warp reads on different banks).
-template <int CJ>
-__device__ __forceinline__ void mm_nt(float (&acc)[4][CJ], const float* A,
-                                      int lda, const float* B, int ldb,
-                                      int K) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  for (int k = 0; k < K; ++k) {
-    float a[4], b[CJ];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = A[(ty + 16 * i) * lda + k];
-#pragma unroll
-    for (int j = 0; j < CJ; ++j) b[j] = B[(tx + 16 * j) * ldb + k];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-}
-
-// acc[i][j] += sum_{k < 64} P[r_i][k] * X[k][c_j] for columns c_j < ncols.
-template <int CJ>
-__device__ __forceinline__ void mm_nn(float (&acc)[4][CJ], const float* P,
-                                      int ldp, const float* X, int ldx,
-                                      int ncols) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  for (int k = 0; k < kTile; ++k) {
-    float p[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) p[i] = P[(ty + 16 * i) * ldp + k];
-#pragma unroll
-    for (int j = 0; j < CJ; ++j) {
-      const int c = tx + 16 * j;
-      if (c < ncols) {
-        const float x = X[k * ldx + c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(p[i], x, acc[i][j]);
-      }
-    }
-  }
-}
-
+// Row reductions of the attention kernels' register tiles: the 16 threads
+// that share a tile's rows are one half-warp (lane bits 0-3).
 __device__ __forceinline__ float row_max16(float x) {
 #pragma unroll
   for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
@@ -567,37 +591,15 @@ __device__ __forceinline__ float row_sum16(float x) {
   return x;
 }
 
-template <int CJ>
-__device__ __forceinline__ void zero(float (&acc)[4][CJ]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < CJ; ++j) acc[i][j] = 0.f;
-}
-
-// Output columns per thread for head dims up to `d`: 16 * CJ >= d.
-inline int cols_per_thread(int d) { return d <= 64 ? 4 : d <= 128 ? 8 : 16; }
-
 // ---------------------------------------------------------------------------
-// No head dim is bounded on the CUDA-core kernels: a CTA's register tile
-// holds at most kSlice output columns (CJ = 16 a thread), so wider outputs
-// are split over the grid (blockIdx.z: columns [z kSlice, (z + 1) kSlice)),
-// and every contraction over D or Dv streams through shared memory kChunk
-// columns at a time, in the order of a whole-row product (the same sums).
+// No head dim is bounded on the CUDA-core kernels: every contraction over D
+// or Dv streams through shared memory, and an output wider than one CTA's
+// register tile is split over the grid (the attention and dq kernels past
+// kOutSlice columns, the dk/dv kernel past kSlice columns of dk or dv;
+// each CTA recomputing the scores for its slice).
 constexpr int kSlice = 256;
-constexpr int kChunk = 64;
-constexpr int kLdC = kChunk + 1;
 
 inline int slices_of(int width) { return (width + kSlice - 1) / kSlice; }
-
-// Columns of the widest slice of a `width`-wide output, and the row
-// stride of a [64][slice] tile of it (odd).
-__host__ __device__ inline int slice_width(int width) {
-  return width < kSlice ? width : kSlice;
-}
-__host__ __device__ inline int slice_ld(int width) {
-  return slice_width(width) | 1;
-}
 
 // The most dynamic shared memory a CTA may have on the H100.
 constexpr int kMaxCtaSmem = 232448;
@@ -630,41 +632,6 @@ inline Family family_of(int is_bf16, int S, int D, int Dv) {
   const bool aligned = is_bf16 && !(S % 8 || D % 8 || Dv % 8);
   return {aligned, aligned && D <= kTcFwdMaxD,
           aligned && D <= kTcDqMaxD && Dv <= kTcDqMaxD, aligned};
-}
-
-// Rows [row0, row0 + 64) x columns [c0, c0 + cols) of a row-major matrix
-// with row stride src_ld into dst (row stride ld, fp32); rows past n_rows
-// become zeros.
-template <typename T>
-__device__ void load_cols(float* dst, int ld, const T* __restrict__ src,
-                          int src_ld, int row0, int n_rows, int c0,
-                          int cols) {
-  for (int idx = threadIdx.x; idx < kTile * cols; idx += kThreads) {
-    const int r = idx / cols, c = idx - r * cols;
-    dst[r * ld + c] = row0 + r < n_rows
-                          ? to_f(src[(size_t)(row0 + r) * src_ld + c0 + c])
-                          : 0.f;
-  }
-}
-
-// acc[i][j] += sum_{k < width} A[a0 + r_i][k] * B[b0 + c_j][k] for two
-// row-major (n x width) matrices, the contraction staged kChunk columns at
-// a time in sA and sB ([64][kLdC] each). Begins with a barrier, so the
-// caller's last reads of sA, sB and of any tile it refills after the call
-// are done before the first copy.
-template <typename T>
-__device__ void scores_chunked(float (&acc)[4][4], float* sA, float* sB,
-                               const T* __restrict__ A, int a0,
-                               const T* __restrict__ B, int b0, int n,
-                               int width) {
-  for (int c0 = 0; c0 < width; c0 += kChunk) {
-    const int w = min(kChunk, width - c0);
-    __syncthreads();
-    load_cols<T>(sA, kLdC, A, width, a0, n, c0, w);
-    load_cols<T>(sB, kLdC, B, width, b0, n, c0, w);
-    __syncthreads();
-    mm_nt<4>(acc, sA, kLdC, sB, kLdC, w);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -737,30 +704,46 @@ cudaError_t with_nv(int nv, F&& f) {
   return f(integral_constant<int, 8>{});
 }
 
-// s[i][j] += sum_{k < kKC} A[ty * 4 + i][k] * B[tx + 16 j][k] for the score
-// chunk at st: A (64 rows) then B (128 rows), row-major, row stride kLdK.
+// One 4-deep step of score_chunk: s[i][j] += sum_{k0 <= k < k0 + 4} A[ty *
+// 4 + i][k] * B[tx + 16 j][k], rows ld floats apart.
+template <int ld>
+__device__ __forceinline__ void score_step(float (&s)[4][8], const float* A,
+                                           const float* B, int k0) {
+  float4 a[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    a[i] = *reinterpret_cast<const float4*>(A + i * ld + k0);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float4 b = *reinterpret_cast<const float4*>(B + 16 * j * ld + k0);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      s[i][j] = fmaf(a[i].x, b.x, s[i][j]);
+      s[i][j] = fmaf(a[i].y, b.y, s[i][j]);
+      s[i][j] = fmaf(a[i].z, b.z, s[i][j]);
+      s[i][j] = fmaf(a[i].w, b.w, s[i][j]);
+    }
+  }
+}
+
+// s[i][j] += sum_{k < KC} A[ty * 4 + i][k] * B[tx + 16 j][k] for the score
+// chunk at st: A (64 rows) then B (128 rows), row-major, row stride KC + 4
+// (kLdK for the default KC = kKC). kRolled keeps the steps in a loop, so
+// that no step's fragments are loaded ahead: fewer registers live (the
+// dk/dv kernel at two CTAs an SM).
+template <int KC = kKC, bool kRolled = false>
 __device__ __forceinline__ void score_chunk(float (&s)[4][8],
                                             const float* st) {
+  constexpr int ld = KC + 4;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const float* A = st + ty * 4 * kLdK;
-  const float* B = st + (kSQ + tx) * kLdK;
+  const float* A = st + ty * 4 * ld;
+  const float* B = st + (kSQ + tx) * ld;
+  if constexpr (kRolled) {
+#pragma unroll 1
+    for (int k = 0; k < KC; k += 4) score_step<ld>(s, A, B, k);
+  } else {
 #pragma unroll
-  for (int k = 0; k < kKC; k += 4) {
-    float4 a[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      a[i] = *reinterpret_cast<const float4*>(A + i * kLdK + k);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float4 b = *reinterpret_cast<const float4*>(B + 16 * j * kLdK + k);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        s[i][j] = fmaf(a[i].x, b.x, s[i][j]);
-        s[i][j] = fmaf(a[i].y, b.y, s[i][j]);
-        s[i][j] = fmaf(a[i].z, b.z, s[i][j]);
-        s[i][j] = fmaf(a[i].w, b.w, s[i][j]);
-      }
-    }
+    for (int k = 0; k < KC; k += 4) score_step<ld>(s, A, B, k);
   }
 }
 

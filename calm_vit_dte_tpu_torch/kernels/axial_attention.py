@@ -335,19 +335,41 @@ def _nv_of(width: int) -> int:
     return (min(width, 512) + 63) // 64
 
 
+def dkv_split(d: int, dv: int) -> tuple[int, int, int]:
+    """How the hires CUDA-core dk/dv kernel splits dk (D columns) and dv (Dv)
+    over the grid (`dkv_cuda_cores` in csrc/hires_attention_bwd.cu): (ns,
+    cols, NV) = the slices of the wider past 256 columns, the columns of
+    each output a slice holds (the wider's equal part, a multiple of 4),
+    and their 64-column groups."""
+    wide = max(d, dv)
+    ns = -(-wide // 256)
+    cols = _pad4(-(-wide // ns))
+    return ns, cols, -(-cols // 64)
+
+
+def dkv_smem(nv: int) -> int:
+    """Dynamic shared memory of a hires CUDA-core dk/dv CTA (`dkv_cc_smem`
+    in csrc/hires_attention_bwd.cu): m's and dssum's [128][68] tiles and
+    three ring stages, each a (64 + 128) x (KC + 4) score chunk (KC 16 at
+    NV 1, else 32) or 16 rows of g and of q of NV 64-column groups."""
+    kc = 16 if nv == 1 else 32
+    stage = max((64 + 128) * (kc + 4), 2 * 16 * (64 * nv + 4))
+    return 4 * (2 * 128 * 68 + 3 * stage)
+
+
 def f32_smem_bytes(s: int, d: int, dv: int) -> dict:
     """The largest dynamic shared memory a CTA asks for in each fp32 C entry
     call, as the entries report it: "forward" (the attention kernel's
     `cc_smem`; the strided products' 64 x 64 or 128 x 128 tiles ask for
-    55,296 or 61,440 bytes) and "backward" (the dq kernel's `cc_smem`, above
-    the dm/ssum kernel's three score-chunk stages, 82,944 bytes, and the
-    dk/dv kernel's two [64][65] chunks, [64][pad4(D) | 1] row tile and two
-    [64][65] score tiles, `tiled_smem` in csrc/hires_attention_bwd.cu).
-    Heads are padded to pad4(D); none of these depends on S."""
+    55,296 or 61,440 bytes) and "backward" (the dq kernel's `cc_smem`, the
+    dm/ssum kernel's three score-chunk stages, 82,944 bytes, and the dk/dv
+    kernel's `dkv_smem`: the largest of the three). Heads are padded to
+    pad4(D); none of these depends on S."""
     dp = _pad4(d)
-    dkv = 4 * 64 * (2 * 65 + (min(max(dp, dv), 256) | 1) + 2 * 65)
     return {"forward": _cc_smem(_nv_of(dv)),
-            "backward": max(_cc_smem(_nv_of(dp)), dkv, 4 * 3 * 192 * 36)}
+            "backward": max(_cc_smem(_nv_of(dp)),
+                            dkv_smem(dkv_split(dp, dv)[2]),
+                            4 * 3 * 192 * 36)}
 
 
 _F32_INDEX = {name: i for i, name in enumerate(_F32_SLOTS)}
@@ -474,22 +496,21 @@ def _launch_bwd_f32(dims, g, qc, qr, kc, kr, v, cos_q, sin_q, cos_k, sin_k,
 
 
 # The kernels `rope_f32_occupancy` (csrc/hires_attention_bwd.cu) reports,
-# in its order: the route's own (csrc/rope_f32.cuh), the strided product
+# in its order: the route's own (csrc/rope_f32.cuh) and the strided product
 # with cp.async staging at each staging (A, B: "k" where the contraction
 # axis is unit-stride, else "r") at 128 x 128, 64 x 64 and 64 x 64 (four
-# groups) tiles, and the dk/dv kernel at its three column counts a thread.
+# groups) tiles.
 F32_OCCUPANCY_KERNELS = (
     ("rope_prep_f32_kernel", "rope_delta_kernel", "rope_unrotate_f32_kernel")
     + tuple(f"gemm_kernel<float, {a}{b}, {bm}x{bm}{groups}>"
             for bm, groups in ((128, ""), (64, ""), (64, ", 4 groups"))
-            for a in "rk" for b in "rk")
-    + tuple(f"hires_dkv_kernel<float, {cj}>" for cj in (4, 8, 16)))
+            for a in "rk" for b in "rk"))
 
 
 def f32_occupancy() -> dict:
-    """What the card makes of the fp32 route's kernels: its own, the strided
-    product and the dk/dv kernel (`F32_OCCUPANCY_KERNELS`), and the hires
-    CUDA-core attention, dq and dm/ssum kernels it runs with cp.async
+    """What the card makes of the fp32 route's kernels: its own and the
+    strided product (`F32_OCCUPANCY_KERNELS`), and the hires CUDA-core
+    attention, dm/ssum, dq and dk/dv kernels it runs with cp.async
     staging (`hires_attention.cuda_core_occupancy`): {name: {"registers",
     "spill_bytes", "smem_bytes" (static + dynamic, a CTA),
     "ctas_per_sm"}}."""

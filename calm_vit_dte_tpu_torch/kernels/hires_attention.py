@@ -20,9 +20,10 @@ mask-MLP weight grads, the dk/dv pass). On rotated q, k (B,H,S,D) and v
 
 The residuals keep the port's own layouts: m and dssum are (B, S_query,
 S_key) fp32 and lse and delta = rowsum(g * o) are (B, H, S) fp32; the dk/dv
-pass reads m and dssum transposed (bf16: from [64 query][64 key] tiles
-staged in shared memory; fp32: by its indexing), so the TPU's (B, S, H) lse
-layout and the XLA transposes before its dk/dv pass have no counterpart.
+pass reads m and dssum transposed from [query][64 key] tiles staged in
+shared memory (bf16 tensor cores: 64 queries; CUDA cores: 128), so the
+TPU's (B, S, H) lse layout and the XLA transposes before its dk/dv pass
+have no counterpart.
 Rounding in bf16 follows the Pallas bodies (`_mask_fwd`,
 `_fwd_res_kernel`, `_hires_dq_kernel`, `_hires_dkv_kernel`), not
 `_bwd_core`: ssum, the mask weights, a = gelu(h1), p, dm, dh1 and the score
@@ -41,12 +42,12 @@ columns (the forward's o and the dk/dv pass's dk, dv split over the grid,
 the scores recomputed by each slice; the dq pass's dq split between two
 warp groups of one CTA, which share the scores). Every other pass, and
 every fp32 call (the card-vs-CPU checks), runs the CUDA-core kernels (fp32
-FMAs): the forward, dm/ssum and dq kernels and the strided product on a
-register-tiled product core whose operands stream through a ring of
-shared-memory stages, each key tile's scores formed once for up to 512
-output columns (past that the grid splits the output); the dk/dv kernel
-streams its contractions 64 columns at a time and splits dk, dv wider than
-256 columns over the grid. Each wrapper counts its calls in `.launches`, and of them the calls
+FMAs): the forward, dm/ssum, dq and dk/dv kernels and the strided product
+on a register-tiled product core whose operands stream through a ring of
+shared-memory stages, each key tile's scores (each 128-query tile's, in
+the dk/dv pass) formed once for up to 512 output columns of the forward
+and dq, and up to 256 of dk and of dv (past that the grid splits the
+outputs, each slice recomputing the scores). Each wrapper counts its calls in `.launches`, and of them the calls
 on the CUDA-core kernels in `.cuda_core_launches` and those on the wide
 tensor-core kernels in `.wide_launches`; the C entries report the kernels
 each call launched and the largest dynamic shared memory a CTA of them
@@ -448,16 +449,18 @@ def wide_occupancy(d: int) -> dict:
 def cuda_core_occupancy() -> dict:
     """What the card makes of the fp32 CUDA-core kernels with cp.async
     staging, the fp32 route's: the attention kernel and the dq kernel at NV
-    (or NQ) = 1-8 64-column groups of their output slice, and the dm/ssum
-    kernel, as `wide_occupancy` reports them."""
+    (or NQ) = 1-8 64-column groups of their output slice, the dm/ssum
+    kernel, and the dk/dv kernel at NV = 1-4 (the 64-column groups of its
+    slice of dk and of dv), as `wide_occupancy` reports them."""
     keys = ("registers", "spill_bytes", "smem_bytes", "ctas_per_sm")
     out = {}
     for lib, entry, names in (
             ("hires_attention", "hires_attention_cc_occupancy",
              [f"hires_attention_kernel<float, {nv}>" for nv in range(1, 9)]),
-            ("hires_attention_bwd", "hires_dq_cc_occupancy",
+            ("hires_attention_bwd", "hires_bwd_cc_occupancy",
              [f"hires_dq_kernel<float, {nq}>" for nq in range(1, 9)]
-             + ["hires_dm_ssum_kernel<float>"])):
+             + ["hires_dm_ssum_kernel<float>"]
+             + [f"hires_dkv_kernel<float, {nv}>" for nv in range(1, 5)])):
         fn = getattr(library(lib), entry)
         if fn.argtypes is None:
             fn.argtypes = [ctypes.c_void_p]

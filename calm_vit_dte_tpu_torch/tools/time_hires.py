@@ -28,7 +28,8 @@ with the card's name and power limit.
 
     python -m calm_vit_dte_tpu_torch.tools.time_hires [--batch 8] \\
         [--heads 12] [--dtype bfloat16|float32] [--plain] [--reps 5] \\
-        [--step] [--no-yardsticks] [--trace-dir DIR] [--config NAME]
+        [--step] [--no-yardsticks] [--trace-dir DIR] [--config NAME] \\
+        [--shape S D DV ...]
 
 --config times the hires kernels at another config's attention shapes
 (D = Dc + Dr, q and k as if rotated), e.g. imagenet-cls-224's, where the
@@ -42,13 +43,17 @@ It times the package found first on `sys.path`: to compare two versions of
 the kernels on one card in one run, start it from each checkout's root in
 turn (each builds its own kernels under its own `build/`), for example old,
 new, new, old. Kernel families are matched by name, old and new; the
-script uses no name the older packages lack.
+script uses no name the older packages lack. Each call's row carries a
+digest of its outputs (`digest`), equal where two versions agree bit for
+bit. --shape S D DV (repeatable) times those shapes, one launch each,
+instead of the config's.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import pathlib
 import subprocess
@@ -299,7 +304,8 @@ def time_shape(b: int, s: int, d: int, dv: int, seed: int, reps: int,
         for name, (kern, ref) in calls.items():
             parts, traces = parts_ms(kern, 3)
             row[name] = {"ms": median_ms(kern, reps), "parts_ms": parts,
-                         "traces": traces, "bound_ms": bounds[name]}
+                         "traces": traces, "bound_ms": bounds[name],
+                         "digest": digest(kern())}
             if plain:
                 row[name]["plain_ms"] = median_ms(ref, max(2, reps // 2))
             if trace_dir is not None:
@@ -314,6 +320,16 @@ def time_shape(b: int, s: int, d: int, dv: int, seed: int, reps: int,
         if with_yardsticks:
             row["yardsticks_ms"] = yardsticks(args, reps)
     return row
+
+
+def digest(outputs) -> str:
+    """sha256 of a call's output tensors' bytes, in order: equal where two
+    versions of the kernels agree bit for bit on the same inputs."""
+    h = hashlib.sha256()
+    for t in outputs if isinstance(outputs, (tuple, list)) else (outputs,):
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()[:16]
 
 
 def trace_step(batch: int, heads: int = H) -> dict:
@@ -375,6 +391,10 @@ def main(argv=None) -> int:
                     help="trace each call at the widest shape into DIR")
     ap.add_argument("--config", default="hires-cls-1024",
                     help="the config whose attention shapes to time")
+    ap.add_argument("--shape", type=int, nargs=3, action="append",
+                    metavar=("S", "D", "DV"), default=None,
+                    help="time this (S, D, Dv) once instead of the "
+                         "config's shapes (repeatable)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("time_hires needs a CUDA card")
@@ -383,8 +403,9 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
-    shapes = kernel_shapes(dataclasses.replace(
-        get_config(args.config).model, heads=args.heads))
+    shapes = ({tuple(x): 1 for x in args.shape} if args.shape else
+              kernel_shapes(dataclasses.replace(
+                  get_config(args.config).model, heads=args.heads)))
     widest = max(shapes, key=lambda k: (k[1], k[2]))
     sums = {k: 0.0 for k in ("fwd_res", "fwd_only", "dq", "dkv")}
     bound_sums, plain_sums = dict.fromkeys(sums, 0.0), dict.fromkeys(sums, 0.0)

@@ -8,14 +8,16 @@ runs the CUDA-core kernels) on random inputs from a seed, with CUDA events
 bytes over the HBM rate and its operations over the compute type's peak,
 as chip_smoke.py counts them), and prints one JSON line per shape, then
 one per config with the sums weighted by the launches per forward (per
-training step for the backward), the card's name and its power limit.
+training step for the backward; with --parts also of each part and its
+bound), the card's name and its power limit.
 With --plain it also times the plain versions on the card
 (`fused_rope_attention_plain`, `fused_rope_attention_bwd_plain`: torch
 ops, cuBLAS products in `dtype`) beside each kernel. With --parts it traces
 3 calls of each under torch.profiler and splits each call's device time by
 kernel family (`PARTS`: the fp32 route's prologue, strided products,
 attention, dm/ssum, dq, dk/dv passes and its own kernels; the bf16 route's
-kernels under "other"), beside `device_ms`, the call's whole device time.
+kernels under "other"), beside `device_ms`, the call's whole device time,
+and the bound of each attention part it ran (`part_bounds_ms`).
 
     python -m calm_vit_dte_tpu_torch.tools.time_rope \\
         [--config imagenet-cls-224 ...] [--batch 128] [--reps 20] \\
@@ -73,6 +75,28 @@ def bounds_ms(b, h, s, dc, dr, dv, dtype) -> tuple[float, float]:
                + b * h * s * (d + dv) * 4 + 2 * small) / PEAK_BYTES,
               3 * flops / PEAK_FLOPS[dtype])
     return fwd * 1e3, bwd * 1e3
+
+
+def part_bounds_ms(b, h, s, dc, dr, dv, dtype) -> dict[str, float]:
+    """Least ms of each attention part of the fp32 route (`PARTS`) at one
+    shape, D = Dc + Dr: the larger of its bytes (each input read once, each
+    output written once) over the HBM rate and its products' operations
+    over `dtype`'s peak. The dk/dv pass's is tools/time_hires.py's
+    (4 B H S^2 (D + Dv) operations)."""
+    from calm_vit_dte_tpu_torch.tools import time_hires
+
+    d, item = dc + dr, torch.finfo(dtype).bits // 8
+    qkvg = b * h * s * (2 * d + 2 * dv) * item
+    sq, vec = b * s * s * 4, b * h * s * 4
+    attn = 2 * b * h * s * s * (d + dv)
+    work = {"attention forward": (qkvg + sq + vec, attn),
+            "dm/ssum": (qkvg + sq + 2 * vec + 2 * b * s * s * item, attn),
+            "dq": (qkvg + 2 * sq + 2 * vec + b * h * s * d * item,
+                   2 * b * h * s * s * (2 * d + dv))}
+    out = {k: max(nb / PEAK_BYTES, fl / PEAK_FLOPS[dtype]) * 1e3
+           for k, (nb, fl) in work.items()}
+    out["dk/dv"] = time_hires.bound_ms(b, h, s, d, dv, dtype)["dkv"]
+    return out
 
 
 def _inputs(b, h, s, dc, dr, dv, seed, dt=torch.bfloat16):
@@ -176,6 +200,7 @@ def main(argv=None) -> int:
                 "forward_bound_ms": 0.0, "backward_bound_ms": 0.0,
                 "forward_plain_ms": 0.0, "backward_plain_ms": 0.0,
                 "forward_device_ms": 0.0, "backward_device_ms": 0.0}
+        part_sums: dict = {}
         for i, ((s, dc, dr, dv), launches) in enumerate(
                 sorted(attention_shapes(mcfg).items(), reverse=True)):
             x, g = _inputs(args.batch, mcfg.heads, s, dc, dr, dv, seed=i,
@@ -207,11 +232,19 @@ def main(argv=None) -> int:
                                 *x, **kw)),
                             ("backward", lambda: ka.fused_rope_attention_bwd(
                                 g, *x, **kw))):
-                        row[f"{key}_parts_ms"] = parts_ms(fn)
-                        row[f"{key}_device_ms"] = \
-                            row[f"{key}_parts_ms"]["device_ms"]
+                        parts = row[f"{key}_parts_ms"] = parts_ms(fn)
+                        row[f"{key}_device_ms"] = parts["device_ms"]
+                        bounds = part_bounds_ms(args.batch, mcfg.heads, s,
+                                                dc, dr, dv, dtype)
+                        row[f"{key}_parts_bound_ms"] = {
+                            p: bounds[p] for p in parts if p in bounds}
             for key in sums:
                 sums[key] += launches * row.get(key, 0.0)
+            for key in ("forward", "backward"):
+                for what in ("parts_ms", "parts_bound_ms"):
+                    acc = part_sums.setdefault(f"{key}_{what}", {})
+                    for p, ms in row.get(f"{key}_{what}", {}).items():
+                        acc[p] = acc.get(p, 0.0) + launches * ms
             print(json.dumps(row), flush=True)
             del x, g
         print(json.dumps({"config": name, "batch": args.batch,
@@ -228,7 +261,15 @@ def main(argv=None) -> int:
                           **({"device_per_forward":
                                   sums["forward_device_ms"],
                               "device_per_step_backward":
-                                  sums["backward_device_ms"]}
+                                  sums["backward_device_ms"],
+                              "parts_per_forward":
+                                  part_sums["forward_parts_ms"],
+                              "parts_per_step_backward":
+                                  part_sums["backward_parts_ms"],
+                              "parts_bound_per_forward":
+                                  part_sums["forward_parts_bound_ms"],
+                              "parts_bound_per_step_backward":
+                                  part_sums["backward_parts_bound_ms"]}
                              if args.parts else {}),
                           "card": smi}), flush=True)
     return 0

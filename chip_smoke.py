@@ -51,7 +51,11 @@ Phases, each fatal on failure (any exception exits non-zero):
              largest value, each call's stage launches exactly
              `ka.f32_stage_launches`, its hires calls' shared memory a CTA
              `ka.f32_smem_bytes`, and at B = 8 two backward launches bit
-             for bit;
+             for bit; the CUDA-core dk/dv kernel alone at the same shapes
+             (B = 2, D = Dc + Dr, mask on and off) against
+             hires_dkv_plain within 1e-4 of each output's largest value,
+             two launches bit for bit, one kernel a call whose CTA asks for
+             `ka.dkv_smem`;
   4. serve   the flagship through the user's entry points:
              Predictor.fresh("imagenet-cls-224").classify on 128 uint8
              256x256 images in bf16, with exactly 24 attention and 8 conv
@@ -251,9 +255,14 @@ Phases, each fatal on failure (any exception exits non-zero):
              versions as phase 8 holds the tensor-core ones, bf16 twice
              bit for bit, and timed at B=8 (the wide kernels in bf16, the
              CUDA-core kernels in fp32), with the wide kernels' and the
-             fp32 CUDA-core forward, dq and dm/ssum kernels' registers,
-             spills, shared memory and CTAs per SM from the runtime (a
-             spill fails the run); (b) 'chunked' (chunk
+             fp32 CUDA-core forward, dm/ssum, dq and dk/dv kernels'
+             registers, spills, shared memory and CTAs per SM from the
+             runtime (a spill fails the run, as does the dk/dv kernel at
+             NV 1 short of two CTAs an SM); the CUDA-core dk/dv kernel at
+             its edges (DKV_EDGE_CHECKS: S 200, D 264 / Dv 56 both ways, D =
+             Dv 512 and 520, bf16 D 44 and S 1020) against hires_dkv_plain
+             as phase 3 holds it, bf16 at most twice the plain bf16
+             error; (b) 'chunked' (chunk
              2) against 'xla' forced at B 16, H 6,
              S 1024, D = Dv 512 in bf16, forward and backward, each within
              twice the other's error of the fp32 route, each one's device
@@ -763,6 +772,81 @@ def check_hires_shape(torch, ka, kh, s, d, dv, seed, zero_mask=False,
     r32 = hires_bwd(kh, a32, g16.float(), p16, scale, f32, plain=True)
     for name, x, y, r in zip(HIRES_OUT_NAMES, k16, b16, r32):
         bf16_ok(name, x, y, r, "dkv" if name in ("dk", "dv") else "dq")
+    return worst
+
+
+# The CUDA-core dk/dv kernel at its edges past the rope shapes (phase 3
+# holds it at those, mask on and off): (dtype, H, S, D, Dv, mask): S a
+# multiple of neither 64 nor 128; D != Dv with one output's second slice
+# empty (each way); two and three slices; bf16 off the multiple of 8 (the
+# register path: D 44, S 1020).
+DKV_EDGE_CHECKS = (("float32", 4, 200, 72, 40, True),
+                   ("float32", 2, 192, 264, 56, True),
+                   ("float32", 2, 192, 56, 264, True),
+                   ("float32", 2, 256, 512, 512, True),
+                   ("float32", 2, 136, 520, 520, True),
+                   ("bfloat16", 4, 200, 44, 44, True),
+                   ("bfloat16", 2, 1020, 64, 64, True))
+
+
+def check_dkv_shape(torch, ka, kh, dtype, h, s, d, dv, use_mask, seed):
+    """The dk/dv pass alone at B=HIRES_CHECK_BATCH against hires_dkv_plain
+    on the same residuals (the plain forward's m, lse, the plain dq pass's
+    dssum): fp32 within BWD_FP32_LIMIT of each output's largest value, bf16
+    at most twice the plain bf16 version's error against fp32; two launches
+    the same bits; one kernel a call, on the CUDA cores, its CTA
+    `ka.dkv_smem` of its slice's NV (`ka.dkv_split`; 4 for 3 on the
+    register path). Returns the worst error: fp32 normalised, bf16 over
+    plain."""
+    f32, dt = torch.float32, getattr(torch, dtype)
+    dev = torch.device("cuda")
+    args = hires_inputs(torch, HIRES_CHECK_BATCH, s, d, dv, dev, dt, seed,
+                        zero_mask=not use_mask, h=h)
+    g = grad_like(torch, HIRES_CHECK_BATCH, s, dv, dev, dt, seed + 1, h=h)
+    kw = dict(scale=1.0 / d ** 0.5, dtype=dt)
+    o, m, lse = kh.hires_fwd_res_plain(*args, **kw)
+    delta = (g.float() * o.float()).sum(-1)
+    q, k, v, w1, b1, w2, _ = args
+    res = (m, lse, delta,
+           kh.hires_dq_plain(q, k, v, g, m, lse, delta, w1, b1, w2, **kw)[1])
+    what = f"dk/dv {dtype} H={h} S={s} D={d} Dv={dv} mask={use_mask}"
+    before = (kh.hires_dkv.launches, kh.hires_dkv.cuda_core_launches,
+              kh.hires_dkv.stage_launches)
+    got = kh.hires_dkv(q, k, v, g, *res, **kw)
+    again = kh.hires_dkv(q, k, v, g, *res, **kw)
+    torch.cuda.synchronize()
+    after = (kh.hires_dkv.launches, kh.hires_dkv.cuda_core_launches,
+             kh.hires_dkv.stage_launches)
+    if [a - b for a, b in zip(after, before)] != [2, 2, 0]:
+        raise AssertionError(f"{what}: launches, CUDA-core launches, stage "
+                             f"launches {before} -> {after}")
+    nv = ka.dkv_split(d, dv)[2]
+    if (dt != f32 or d % 4 or dv % 4) and nv == 3:   # the register path
+        nv = 4
+    if kh.hires_dkv.smem_bytes != ka.dkv_smem(nv):
+        raise AssertionError(f"{what}: {kh.hires_dkv.smem_bytes} bytes of "
+                             f"shared memory a CTA, the helper "
+                             f"{ka.dkv_smem(nv)}")
+    want = kh.hires_dkv_plain(q, k, v, g, *res, **kw)
+    ref = kh.hires_dkv_plain(q.float(), k.float(), v.float(), g.float(),
+                             *res, scale=kw["scale"], dtype=f32)
+    worst = 0.0
+    for name, x, y, r, z in zip(("dk", "dv"), got, want, ref, again):
+        if not torch.equal(x, z):
+            raise AssertionError(f"{what}: {name} differs between two "
+                                 "launches")
+        if dt == f32:
+            e = norm_err(x, y)
+            if not e <= BWD_FP32_LIMIT:
+                raise AssertionError(f"{what}: {name} error {e:.3e} of its "
+                                     "largest value")
+        else:
+            e_k, e_p = norm_err(x, r), norm_err(y, r)
+            if not e_k <= 2 * e_p + 1e-6:
+                raise AssertionError(f"{what}: {name} bf16 error {e_k:.3e} "
+                                     f"> 2 x plain {e_p:.3e}")
+            e = e_k / max(e_p, 1e-12)
+        worst = max(worst, e)
     return worst
 
 
@@ -3513,6 +3597,19 @@ def routes_phase(torch, name, smi):
             f"{w['bf16_over_plain']['dq']:.3f}, dkv "
             f"{w['bf16_over_plain']['dkv']:.3f}), two bf16 launches the "
             "same bits")
+    # The CUDA-core dk/dv kernel at its edges (DKV_EDGE_CHECKS).
+    metrics["dkv_edges"] = []
+    for i, (dt_name, h, s, d, dv, use_mask) in enumerate(DKV_EDGE_CHECKS):
+        w = check_dkv_shape(torch, ka, kh, dt_name, h, s, d, dv, use_mask,
+                            seed=1700 + 2 * i)
+        metrics["dkv_edges"].append({"dtype": dt_name, "H": h, "S": s,
+                                     "D": d, "Dv": dv, "use_mask": use_mask,
+                                     "worst": w})
+        log(f"[routes check] CUDA-core dk/dv {dt_name} H={h} S={s} D={d} "
+            f"Dv={dv} (slices, columns, NV {ka.dkv_split(d, dv)}): "
+            + (f"fp32 worst {w:.3e} of the largest value" if dt_name ==
+               "float32" else f"bf16 worst {w:.3f} x the plain bf16 error")
+            + ", two launches the same bits")
     metrics["limits_seconds"] = time.time() - t0
 
     # The hires kernels' times at the six-head shapes past D 256, B=8,
@@ -3621,18 +3718,20 @@ def routes_phase(torch, name, smi):
             if o["spill_bytes"] or o["ctas_per_sm"] < 1:
                 raise AssertionError(f"routes: {kname} at D={d}: {o}")
     # The fp32 CUDA-core kernels (the fp32 route's, cp.async staging) as
-    # the card makes them; one that spills fails the run.
+    # the card makes them; one that spills fails the run, and so does the
+    # dk/dv kernel at NV 1 short of the two CTAs an SM it is cut for.
     cc_occupancy = kh.cuda_core_occupancy()
     for kname, o in cc_occupancy.items():
         log(f"[routes] {kname}: {o['registers']} registers, spill "
             f"{o['spill_bytes']} bytes, {o['smem_bytes']} bytes of shared "
             f"memory a CTA, {o['ctas_per_sm']} CTAs per SM")
-        if o["spill_bytes"] or o["ctas_per_sm"] < 1:
+        want = 2 if kname == "hires_dkv_kernel<float, 1>" else 1
+        if o["spill_bytes"] or o["ctas_per_sm"] < want:
             raise AssertionError(f"routes: {kname}: {o}")
     for k in wide_kernels:
         if k["name"].endswith("_cuda_core"):
             stem = {"dq": ("hires_dq_kernel", "hires_dm_ssum_kernel"),
-                    "dkv": ()}.get(k["name"].split("_")[2],
+                    "dkv": ("hires_dkv_kernel",)}.get(k["name"].split("_")[2],
                                    ("hires_attention_kernel",))
             k["occupancy"] = {n: o for n, o in cc_occupancy.items()
                               if n.startswith(stem)}
@@ -4294,6 +4393,22 @@ def main() -> int:
             "a CTA the helpers'"
             + ("; the backward twice bit-identical" if b == CHECK_BATCH
                else ""))
+
+    # The CUDA-core dk/dv kernel alone at the same shapes (D = Dc + Dr, not
+    # padded: the odd shape takes the register path), B=2, mask on and off,
+    # against hires_dkv_plain; two launches bit for bit.
+    from calm_vit_dte_tpu_torch.kernels import hires_attention as kh
+
+    worst_dkv = 0.0
+    for i, (s, dc, dr, dv) in enumerate(f32_shapes):
+        for use_mask in (True, False):
+            worst_dkv = max(worst_dkv, check_dkv_shape(
+                torch, ka, kh, "float32", H, s, dc + dr, dv, use_mask,
+                seed=1000 + 2 * i))
+    log(f"[check] CUDA-core dk/dv kernel at the {len(f32_shapes)} fp32 "
+        f"shapes, B={HIRES_CHECK_BATCH}, mask on and off: worst {worst_dkv:.3e}"
+        f" of the largest value (limit {BWD_FP32_LIMIT}), two launches the "
+        "same bits")
 
     # 4. the main path through the user's entry points
     rng = np.random.default_rng(0)

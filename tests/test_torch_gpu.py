@@ -700,6 +700,92 @@ def test_hires_backward_kernels_match_plain(cuda_device, s, d):
         assert torch.equal(x, z), f"bf16 {name} differs between two runs"
 
 
+# The CUDA-core dk/dv kernel at its edges, (dtype, H, S, D, Dv, mask):
+# the rope route's shapes (D = pad4(Dc + Dr), S 80-256, NV 1), mask on and
+# off; S a multiple of neither 64 nor 128; D != Dv with one output's second
+# slice empty (each way); two and three slices; bf16 off the multiple of 8
+# (the register path: D 44, S 1020).
+DKV_EDGES = [("float32", 12, 80, 20, 20, True),
+             ("float32", 12, 80, 20, 20, False),
+             ("float32", 12, 224, 56, 56, True),
+             ("float32", 12, 256, 64, 64, False),
+             ("float32", 4, 200, 72, 40, True),
+             ("float32", 2, 192, 264, 56, True),
+             ("float32", 2, 192, 56, 264, True),
+             ("float32", 2, 256, 512, 512, True),
+             ("float32", 2, 136, 520, 520, True),
+             ("bfloat16", 4, 200, 44, 44, True),
+             ("bfloat16", 2, 1020, 64, 64, True)]
+
+
+@pytest.mark.gpu
+def test_hires_dkv_cuda_cores_occupancy(cuda_device):
+    """The CUDA-core dk/dv kernel (cp.async staging) as the runtime reports
+    it: `dkv_smem` of shared memory a CTA and no spill at NV 1-4, and two
+    CTAs an SM at NV 1, the rope route's widths."""
+    from calm_vit_dte_tpu_torch.kernels import hires_attention as kh
+
+    occ = kh.cuda_core_occupancy()
+    for nv in range(1, 5):
+        o = occ[f"hires_dkv_kernel<float, {nv}>"]
+        assert o["smem_bytes"] == ka.dkv_smem(nv), (nv, o)
+        assert o["spill_bytes"] == 0, (nv, o)
+        assert o["ctas_per_sm"] >= (2 if nv == 1 else 1), (nv, o)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,h,s,d,dv,use_mask", DKV_EDGES)
+def test_hires_dkv_cuda_cores_edges(cuda_device, dtype, h, s, d, dv,
+                                    use_mask):
+    """The CUDA-core dk/dv kernel against `hires_dkv_plain`: fp32 within
+    1e-4 of each output's largest value, bf16 at most twice the plain bf16
+    error; two launches the same bits; one kernel a call on the CUDA cores,
+    whose CTA asks for `dkv_smem` of its slice's NV (`dkv_split`)."""
+    from calm_vit_dte_tpu_torch.kernels import hires_attention as kh
+
+    dt, f32 = getattr(torch, dtype), torch.float32
+    rng = np.random.default_rng(s + d + 3 * dv)
+
+    def n(*shape, scale):
+        return _normal(rng, cuda_device, *shape, scale=scale)
+
+    w = [n(2 * s, s, scale=0.2 / math.sqrt(s)), n(2 * s, scale=0.1),
+         n(s, 2 * s, scale=1 / math.sqrt(2 * s)), n(s, scale=0.1)]
+    if not use_mask:
+        w = [torch.zeros_like(t) for t in w]
+    args = [n(2, h, s, d, scale=0.3).to(dt), n(2, h, s, d, scale=0.3).to(dt),
+            n(2, h, s, dv, scale=0.3).to(dt), *w]
+    g = n(2, h, s, dv, scale=0.3).to(dt)
+    scale = 1.0 / math.sqrt(d)
+    o, m, lse = kh.hires_fwd_res_plain(*args, scale=scale, dtype=dt)
+    delta = (g.float() * o.float()).sum(-1)
+    q, k, v, w1, b1, w2, _ = args
+    dssum = kh.hires_dq_plain(q, k, v, g, m, lse, delta, w1, b1, w2,
+                              scale=scale, dtype=dt)[1]
+    res = (m, lse, delta, dssum)
+    n3, s3 = kh.hires_dkv.launches, kh.hires_dkv.stage_launches
+    cc = kh.hires_dkv.cuda_core_launches
+    got = kh.hires_dkv(q, k, v, g, *res, scale=scale, dtype=dt)
+    again = kh.hires_dkv(q, k, v, g, *res, scale=scale, dtype=dt)
+    torch.cuda.synchronize()
+    _assert_dkv_launches(kh, n3, s3, 2)
+    assert kh.hires_dkv.cuda_core_launches == cc + 2
+    nv = ka.dkv_split(d, dv)[2]
+    if (dt != f32 or d % 4 or dv % 4) and nv == 3:   # the register path
+        nv = 4
+    assert kh.hires_dkv.smem_bytes == ka.dkv_smem(nv)
+    want = kh.hires_dkv_plain(q, k, v, g, *res, scale=scale, dtype=dt)
+    ref = kh.hires_dkv_plain(q.float(), k.float(), v.float(), g.float(),
+                             *res, scale=scale, dtype=f32)
+    for name, x, y, r, z in zip(("dk", "dv"), got, want, ref, again):
+        assert x.shape == y.shape and x.dtype == y.dtype, name
+        assert torch.equal(x, z), f"{name} differs between two runs"
+        if dt == f32:
+            assert _norm_err(x, y) <= 1e-4, name
+        else:
+            assert _norm_err(x, r) <= 2 * _norm_err(y, r) + 1e-6, name
+
+
 @pytest.mark.gpu
 def test_hires_kernels_ragged_shape_match_plain(cuda_device):
     """S = 520 and D = Dv = 120, multiples of none of the bf16 kernels'

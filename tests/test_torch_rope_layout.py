@@ -20,9 +20,13 @@ backward's stages, on the CPU.
   (2**-8) of the largest value, since a rounding point may fall on the
   other side.
 * tools/time_rope.py's bounds are chip_smoke.py's, at one fp32 and one bf16
-  shape.
+  shape, and its parts' dk/dv bound is tools/time_hires.py's.
+* The hires CUDA-core dk/dv kernel's shared memory (`dkv_smem` at the NV
+  `dkv_split` gives) is the size its source's note states, at every rope
+  and hires attention shape of every config, and fits a CTA.
 """
 
+import dataclasses
 import importlib.util
 import math
 import pathlib
@@ -35,7 +39,7 @@ import torch
 from calm_vit_dte_tpu_torch.kernels import axial_attention as ka
 from calm_vit_dte_tpu_torch.ops.attention import pick_route
 from calm_vit_dte_tpu_torch.ops.rope import rope_tables
-from calm_vit_dte_tpu_torch.tools import time_rope
+from calm_vit_dte_tpu_torch.tools import time_hires, time_rope
 from calm_vit_dte_tpu_torch.utils.configs import CONFIGS
 
 torch.set_num_threads(1)
@@ -284,3 +288,50 @@ def test_time_rope_parts_name_every_f32_route_kernel():
         hits = [p for p, needles in time_rope.PARTS.items()
                 if any(n in name for n in needles)]
         assert len(hits) == 1, (name, hits)
+
+
+def test_time_rope_parts_dkv_bound_is_time_hires():
+    """`time_rope.part_bounds_ms`' dk/dv bound is `time_hires.bound_ms`'s
+    dk/dv pass at the same shape (D = Dc + Dr), fp32."""
+    b, h, s, dc, dr, dv = 8, 12, 224, 28, 28, 56
+    got = time_rope.part_bounds_ms(b, h, s, dc, dr, dv, torch.float32)
+    want = time_hires.bound_ms(b, h, s, dc + dr, dv, torch.float32)["dkv"]
+    assert got["dk/dv"] == pytest.approx(want, rel=1e-12)
+    assert set(got) <= set(time_rope.PARTS)
+
+
+def _dkv_stated() -> dict:
+    """The dk/dv CTA's note in csrc/hires_attention_bwd.cu: NV -> (bytes,
+    CTAs per SM)."""
+    text = (CSRC / "hires_attention_bwd.cu").read_text()
+    return {int(m.group(1)): (int(m.group(2)), int(m.group(3)))
+            for m in re.finditer(r"//\s+dkv_cc_smem at NV = (\d): (\d+) "
+                                 r"bytes, (\d+) CTAs? per SM", text)}
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_dkv_smem_agrees_with_the_source_note(name):
+    """At every attention shape of the config, as the rope route's fp32
+    backward (D padded to pad4(Dc + Dr)) and the hires kernels (D = Dc +
+    Dr; hires-cls-1024 also at heads=6) call the CUDA-core dk/dv kernel:
+    its CTA's shared memory at the slice's NV (4 for 3 on the register
+    path) is the source note's, fits 232,448 bytes and leaves the CTAs
+    per SM the note states."""
+    stated = _dkv_stated()
+    assert sorted(stated) == [1, 2, 3, 4]
+    mcfg = CONFIGS[name].model
+    models = [mcfg] + ([dataclasses.replace(mcfg, heads=6)]
+                       if name == "hires-cls-1024" else [])
+    shapes = {(ka._pad4(dc + dr), dv)
+              for s, dc, dr, dv in time_rope.attention_shapes(mcfg)}
+    for m in models:
+        shapes |= {(d, dv) for _, d, dv in time_hires.kernel_shapes(m)}
+    assert shapes
+    for d, dv in sorted(shapes):
+        ns, cols, nv = ka.dkv_split(d, dv)
+        assert ns == -(-max(d, dv) // 256) and cols <= 256 and cols % 4 == 0
+        assert ns * cols >= max(d, dv) > (ns - 1) * cols
+        for n in {nv, 4 if nv == 3 else nv}:
+            nbytes, ctas = stated[n]
+            assert ka.dkv_smem(n) == nbytes, (d, dv, n)
+            assert 0 < nbytes <= LIMIT and ka.ctas_per_sm(nbytes) == ctas
