@@ -1,11 +1,12 @@
 // Helpers shared by the conv residual's kernels: csrc/conv_residual.cu (the
 // forward, and the forward that saves h and acc) and csrc/conv_residual_bwd.cu
-// (the backward). The fp32 route's GELUs are exact (erff), and its backward
-// differentiates exactly that function. The bf16 route evaluates both GELUs
-// and their derivatives through `half_erfc` below (one exp and one
-// reciprocal on the SFU for a GELU and its derivative together), and its
-// backward differentiates that function's exact counterpart, as the fp32
-// route does.
+// (the backward), each one design instantiated for two compute types. The
+// fp32 route's GELUs are exact (erff), and its backward differentiates
+// exactly that function; a GELU and its derivative share one erff (Phi)
+// and take one expf (phi) more. The bf16 route evaluates both GELUs and
+// their derivatives through `half_erfc` below (one exp and one reciprocal
+// on the SFU for a GELU and its derivative together), and its backward
+// differentiates that function's exact counterpart, as the fp32 route does.
 
 #pragma once
 
@@ -14,18 +15,25 @@
 #include <math.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace conv_residual {
 
 constexpr int kHidden = 32;
-// The fp32 route's tile: 8 rows x 32 columns, one thread a pixel.
-constexpr int kTileR = 8;
-constexpr int kTileC = 32;
-constexpr int kThreads = kTileR * kTileC;
+constexpr float kInvSqrt2Pi = 0.39894228040143268f;
+
+template <typename T>
+constexpr bool kIsBf16 = std::is_same<T, __nv_bfloat16>::value;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+
+// v stored in the compute type.
+__device__ __forceinline__ void store_f(float* dst, float v) { *dst = v; }
+__device__ __forceinline__ void store_f(__nv_bfloat16* dst, float v) {
+  *dst = __float2bfloat16(v);
 }
 
 // x rounded to bf16, returned as fp32.
@@ -33,22 +41,19 @@ __device__ __forceinline__ float rnd_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
-// Eight consecutive fp32 channels stored at once (32 bytes); dst is aligned
-// because the channel count is 32.
-__device__ __forceinline__ void store8(float* dst, const float (&v)[8]) {
-  reinterpret_cast<float4*>(dst)[0] = make_float4(v[0], v[1], v[2], v[3]);
-  reinterpret_cast<float4*>(dst)[1] = make_float4(v[4], v[5], v[6], v[7]);
+// ---- The fp32 route's GELU -------------------------------------------------
+// Phi(x), the normal CDF, from one erff.
+__device__ __forceinline__ float cdf_exact(float x) {
+  return 0.5f * (1.0f + erff(x * 0.70710678118654752f));
 }
 
-// Exact GELU (the fp32 route).
-__device__ __forceinline__ float gelu(float x) {
-  return 0.5f * x * (1.0f + erff(x * 0.70710678118654752f));
-}
+// Exact GELU: x Phi(x), the bits of 0.5 x (1 + erf(x / sqrt 2)) (the
+// factor 0.5 is exact wherever it is applied).
+__device__ __forceinline__ float gelu(float x) { return x * cdf_exact(x); }
 
-// d/dx of gelu: Phi(x) + x * phi(x).
-__device__ __forceinline__ float dgelu(float x) {
-  return 0.5f * (1.0f + erff(x * 0.70710678118654752f)) +
-         x * expf(-0.5f * x * x) * 0.39894228040143268f;
+// GELU'(x) = Phi(x) + x phi(x) from cdf = Phi(x): one expf.
+__device__ __forceinline__ float dgelu_from(float x, float cdf) {
+  return fmaf(x * kInvSqrt2Pi, expf(-0.5f * x * x), cdf);
 }
 
 // ---- The bf16 route's GELU ------------------------------------------------

@@ -28,13 +28,17 @@ Under activation checkpointing (utils/remat.py) the Function records its
 forward's outputs, y or (y, h, acc), so the Block replay launches no conv
 kernel again (the JAX step's saved "conv_out").
 
-The bf16 kernels' launch geometry is mirrored here (`FWD_BF16_TILE`,
-`BWD_BF16_TILE`, the grids, `fwd_bf16_smem`, `bwd_bf16_smem`,
-`ctas_per_sm`); the CPU tests hold it to the sources' notes, and
-chip_smoke.py and the GPU tests to the C launches (`card_geometry`).
+Each kernel is one design instantiated for both compute types (fp32
+holds h as fp32 in the forward's shared memory, computes its GELUs
+exactly, and saves h and acc from 32 x 16 tiles). Its launch geometry is
+mirrored here (`FWD_TILE`, `fwd_tile`, `BWD_TILE`, `fwd_grid`,
+`bwd_grid`, `fwd_smem`, `bwd_smem`, `MIN_CTAS`, `ctas_per_sm`); the CPU
+tests hold it to the sources' notes, and chip_smoke.py and the GPU tests
+to the C launches (`card_geometry`, `card_occupancy`). `gelu_f32_probe`
+runs the fp32 kernels' GELU and its derivative alone.
 `conv_residual_bwd_partials_plain` is the backward's staged plain version:
-its per-CTA partial weight-grad rows, in the bf16 kernel's tiling, which
-the GPU tests hold the kernel's rows (`launch_bwd`) to.
+its per-CTA partial weight-grad rows, in the kernels' tiling, which the GPU
+tests hold the kernel's rows (`launch_bwd`) to.
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches the kernel or raises.
@@ -68,42 +72,62 @@ _SQRT_HALF = 0.7071067811865476
 # against erff over [-10, 10].
 ERF_BF16_MAX_ERR = 6e-7
 
-# The bf16 kernels' launch geometry, as csrc/conv_residual{,_bwd}.cu set it.
-THREADS_BF16 = 256
-FWD_BF16_TILE = (64, 16)     # output rows, columns of a forward CTA
-BWD_BF16_TILE = (16, 32)     # ... of a backward CTA
+# The kernels' launch geometry, as csrc/conv_residual{,_bwd}.cu set it, the
+# same for both compute types but for the forward's shared memory and CTAs
+# an SM and the fp32 forward with residuals' tile.
+THREADS = 256
+FWD_TILE = (64, 16)     # output rows, columns of a forward CTA
+FWD_TILE_F32_SAVE = (32, 16)   # ... of the fp32 forward with residuals
+BWD_TILE = (16, 32)     # ... of a backward CTA
 _FWD_WEIGHTS_SMEM = 4 * (3 * 32 + 32 + 9 * 32 + 32 + 3 * 32 + 4)  # static
 _SM_SMEM = 233472            # shared memory of one SM; each CTA also
 #                              reserves 1 KB
 _SM_REGS = 65536
-# The CTAs an SM each bf16 kernel's __launch_bounds__ asks for (kMinCtas,
-# kMinCtasSave of the sources).
-MIN_CTAS_BF16 = {"forward": 3, "forward with residuals": 2, "backward": 2}
+# The CTAs an SM each kernel's __launch_bounds__ asks for (kMinCtas* of the
+# sources' fwd and bwd namespaces), by compute type.
+MIN_CTAS = {
+    torch.bfloat16: {"forward": 3, "forward with residuals": 2,
+                     "backward": 2},
+    torch.float32: {"forward": 2, "forward with residuals": 2,
+                    "backward": 2},
+}
 
 
-def fwd_bf16_smem() -> int:
-    """Shared memory of a bf16 forward CTA: h on the tile's one-pixel halo
-    for a pass of 16 channels, bf16 (dynamic), and the weights (static)."""
-    rows, cols = FWD_BF16_TILE
-    return (rows + 2) * (cols + 2) * 16 * 2 + _FWD_WEIGHTS_SMEM
+def fwd_tile(dtype, save: bool = False) -> tuple[int, int]:
+    """(rows, columns) of the output tile of a forward CTA in `dtype`, with
+    residuals if `save`."""
+    return FWD_TILE_F32_SAVE if save and dtype == torch.float32 else FWD_TILE
 
 
-def bwd_bf16_smem() -> int:
-    """Dynamic shared memory of a bf16 backward CTA: x on the tile's
-    two-pixel halo and g on its one-pixel halo as float4, and each of the 8
-    warps' planes (h on the tile + 2, dacc on the tile + 1, gelu'(a1) on the
-    tile), fp32."""
-    rows, cols = BWD_BF16_TILE
+def fwd_smem(dtype, save: bool = False) -> int:
+    """Shared memory of a forward CTA: h on the tile's one-pixel halo for a
+    pass of 16 channels in `dtype` (dynamic: 32 bytes a pixel in bf16, 80
+    in fp32, four 16-byte chunks and one of padding), and the weights
+    (static); in fp32 with residuals (`save`) also a stash of 16 bytes a
+    row a thread (dynamic)."""
+    rows, cols = fwd_tile(dtype, save)
+    fp32 = dtype == torch.float32
+    stash = 16 * rows * cols if save and fp32 else 0
+    return ((rows + 2) * (cols + 2) * (80 if fp32 else 32) + stash
+            + _FWD_WEIGHTS_SMEM)
+
+
+def bwd_smem() -> int:
+    """Dynamic shared memory of a backward CTA, the same in both compute
+    types: x on the tile's two-pixel halo and g on its one-pixel halo as
+    float4, and each of the 8 warps' planes (h on the tile + 2, dacc on the
+    tile + 1, gelu'(a1) on the tile), fp32."""
+    rows, cols = BWD_TILE
     hn, an = (rows + 4) * (cols + 4), (rows + 2) * (cols + 2)
     return 16 * (hn + an) + 4 * 8 * (hn + an + rows * cols)
 
 
 def ctas_per_sm(smem: int, min_ctas: int) -> int:
-    """CTAs of THREADS_BF16 threads that fit on one SM by shared memory and
-    by registers, for a kernel whose __launch_bounds__ asks for `min_ctas`
+    """CTAs of THREADS threads that fit on one SM by shared memory and by
+    registers, for a kernel whose __launch_bounds__ asks for `min_ctas`
     (which caps its registers a thread, allocated in eights)."""
-    regs = _SM_REGS // (min_ctas * THREADS_BF16) // 8 * 8
-    return min(_SM_SMEM // (smem + 1024), _SM_REGS // (regs * THREADS_BF16))
+    regs = _SM_REGS // (min_ctas * THREADS) // 8 * 8
+    return min(_SM_SMEM // (smem + 1024), _SM_REGS // (regs * THREADS))
 
 
 def _grid(tile: tuple[int, int], b: int, s: int) -> tuple[int, int, int]:
@@ -111,16 +135,17 @@ def _grid(tile: tuple[int, int], b: int, s: int) -> tuple[int, int, int]:
     return (-(-s // cols), -(-s // rows), b)
 
 
-def fwd_bf16_grid(b: int, s: int) -> tuple[int, int, int]:
-    """(x, y, z) CTAs of a bf16 forward launch: column tiles, row tiles,
-    images."""
-    return _grid(FWD_BF16_TILE, b, s)
+def fwd_grid(b: int, s: int, dtype=torch.bfloat16,
+             save: bool = False) -> tuple[int, int, int]:
+    """(x, y, z) CTAs of a forward launch in `dtype` (with residuals if
+    `save`): column tiles, row tiles, images."""
+    return _grid(fwd_tile(dtype, save), b, s)
 
 
-def bwd_bf16_grid(b: int, s: int) -> tuple[int, int, int]:
-    """... of a bf16 backward launch, which writes one partial weight-grad
-    row a CTA."""
-    return _grid(BWD_BF16_TILE, b, s)
+def bwd_grid(b: int, s: int) -> tuple[int, int, int]:
+    """... of a backward launch, which writes one partial weight-grad row a
+    CTA."""
+    return _grid(BWD_TILE, b, s)
 
 
 def fused_conv_residual_plain(x, w1, b1, wd, bd, w2, b2, *,
@@ -205,9 +230,9 @@ def conv_residual_bwd_plain(x, g, w1, b1, wd, bd, w2, *, dtype) -> tuple:
 
 def conv_residual_bwd_partials_plain(x, g, w1, b1, wd, bd, w2, *,
                                      dtype) -> tuple:
-    """The backward's first stage as the bf16 kernel stages it: dx, and one
+    """The backward's first stage as the kernels stage it: dx, and one
     partial row a CTA (in the grid's order: image, row tile, column tile of
-    BWD_BF16_TILE) of the 32 x 17 weight-grad sums over the tile's own
+    BWD_TILE) of the 32 x 17 weight-grad sums over the tile's own
     pixels, (n, 544) fp32. `conv_weight_grad_sum_plain` of the rows gives
     `conv_residual_bwd_plain`'s packed weight grads. For small inputs: it
     holds all 17 products of every pixel and channel."""
@@ -218,8 +243,8 @@ def conv_residual_bwd_partials_plain(x, g, w1, b1, wd, bd, w2, *,
              for a in range(3) for b in range(3)]
     terms += [dacc, *(da1 * x32[..., i:i + 1] for i in range(3)), da1,
               *(g2 * gy[..., o:o + 1] for o in range(3))]
-    rows, cols = BWD_BF16_TILE
-    gx, gyt, _ = bwd_bf16_grid(n, s)
+    rows, cols = BWD_TILE
+    gx, gyt, _ = bwd_grid(n, s)
     t = F.pad(torch.stack(terms, dim=-1),
               (0, 0, 0, 0, 0, gx * cols - s, 0, gyt * rows - s))
     t = t.view(n, gyt, rows, gx, cols, HIDDEN, _WG_SUMS).sum((2, 4))
@@ -241,6 +266,24 @@ def erf_bf16_probe(x: torch.Tensor) -> tuple:
         fn.restype = ctypes.c_int
     err = fn(x.data_ptr(), x.numel(), *_ptrs(*outs), _stream(x))
     _raise_on(err, "conv_residual_erf_bf16_probe", 0, 0, torch.float32)
+    return tuple(outs)
+
+
+def gelu_f32_probe(x: torch.Tensor) -> tuple:
+    """GELU(x) and GELU'(x) of fp32 `x` as the fp32 kernels compute them
+    (exact erf; csrc/conv_residual_common.cuh), on the card; on a CPU
+    tensor the exact functions."""
+    if _on(x) == "cpu":
+        return (F.gelu(x), _dgelu(x))
+    if x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError("the probe takes contiguous fp32")
+    outs = [torch.empty_like(x) for _ in range(2)]
+    fn = library("conv_residual").conv_residual_gelu_f32_probe
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
+        fn.restype = ctypes.c_int
+    err = fn(x.data_ptr(), x.numel(), *_ptrs(*outs), _stream(x))
+    _raise_on(err, "conv_residual_gelu_f32_probe", 0, 0, torch.float32)
     return tuple(outs)
 
 
@@ -382,36 +425,52 @@ def _bwd_rows(dtype, b: int, s: int) -> int:
     return fn(int(dtype == torch.bfloat16), b, s)
 
 
-# The C entries that report the bf16 kernels' geometry and what the card
-# makes of every conv kernel, by library.
-_GEOMETRY = {"forward": ("conv_residual", "conv_residual_fwd_bf16_geometry"),
-             "backward": ("conv_residual_bwd",
-                          "conv_residual_bwd_bf16_geometry")}
+# What the card makes of every conv kernel, by library.
 _OCCUPANCY = {
     ("conv_residual", "conv_residual_fwd_occupancy"): (
-        "conv_residual_fwd_kernel<fp32>",
-        "conv_residual_fwd_kernel<fp32, save>", "conv_fwd_bf16_kernel<0>",
-        "conv_fwd_bf16_kernel<1> (save)"),
+        "conv_fwd_kernel<float, 0>", "conv_fwd_kernel<float, 1> (save)",
+        "conv_fwd_kernel<bf16, 0>", "conv_fwd_kernel<bf16, 1> (save)"),
     ("conv_residual_bwd", "conv_residual_bwd_occupancy"): (
-        "conv_residual_bwd_kernel<fp32>", "conv_bwd_bf16_kernel<31>",
+        "conv_bwd_kernel<float, 31>", "conv_bwd_kernel<bf16, 31>",
         "conv_wgrad_sum_kernel"),
+}
+# The instantiation of each (compute type, kernel), as card_occupancy names
+# it.
+KERNEL_NAMES = {
+    (torch.float32, "forward"): "conv_fwd_kernel<float, 0>",
+    (torch.float32, "forward with residuals"):
+        "conv_fwd_kernel<float, 1> (save)",
+    (torch.float32, "backward"): "conv_bwd_kernel<float, 31>",
+    (torch.bfloat16, "forward"): "conv_fwd_kernel<bf16, 0>",
+    (torch.bfloat16, "forward with residuals"):
+        "conv_fwd_kernel<bf16, 1> (save)",
+    (torch.bfloat16, "backward"): "conv_bwd_kernel<bf16, 31>",
 }
 
 
-def card_geometry(b: int, s: int) -> dict:
-    """The bf16 kernels' launch geometry for (B, S) as the C entries set
-    it: {"forward": ..., "backward": ...}, each (grid x, y, z, threads a
-    CTA, dynamic shared memory a CTA); and the backward's partial rows."""
+def card_geometry(b: int, s: int, dtype=torch.bfloat16) -> dict:
+    """The kernels' launch geometry for (B, S) in `dtype` as the C entries
+    set it: {"forward": ..., "forward with residuals": ..., "backward":
+    ...}, each (grid x, y, z, threads a CTA, dynamic shared memory a CTA);
+    and the backward's partial rows."""
+    bf16 = int(dtype == torch.bfloat16)
+    fwd = library("conv_residual").conv_residual_fwd_geometry
+    bwd = library("conv_residual_bwd").conv_residual_bwd_geometry
+    if fwd.argtypes is None:
+        fwd.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fwd.restype = None
+    if bwd.argtypes is None:
+        bwd.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        bwd.restype = None
     out = {}
-    for what, (lib, entry) in _GEOMETRY.items():
-        fn = getattr(library(lib), entry)
-        if fn.argtypes is None:
-            fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-            fn.restype = None
+    for what, call in (("forward", lambda buf: fwd(bf16, 0, b, s, buf)),
+                       ("forward with residuals",
+                        lambda buf: fwd(bf16, 1, b, s, buf)),
+                       ("backward", lambda buf: bwd(b, s, buf))):
         buf = (ctypes.c_int * 5)()
-        fn(b, s, buf)
+        call(buf)
         out[what] = tuple(buf)
-    out["bwd_rows"] = _bwd_rows(torch.bfloat16, b, s)
+    out["bwd_rows"] = _bwd_rows(dtype, b, s)
     return out
 
 

@@ -20,14 +20,15 @@ Phases, each fatal on failure (any exception exits non-zero):
              and the CUDA-core hires kernels it runs) as the runtime
              reports them, a spill failing the run; every conv
              kernel instantiation's registers, spills, shared memory a CTA
-             and CTAs per SM as the CUDA runtime reports them (the bf16
-             ones must keep the CTAs an SM their launch bounds ask for,
+             and CTAs per SM as the CUDA runtime reports them (each, fp32
+             and bf16, must keep the CTAs an SM its launch bound asks for,
              with no spill);
   3. check   the rope kernels' shared-memory helpers against the sizes the
              C launches use, at every shape below, mask on and off; the
-             bf16 conv kernels' grids, threads, shared memory and partial
-             rows against the wrapper's helpers at every conv S, and their
-             erf within its stated bound of erff over [-10, 10]; then
+             conv kernels' grids, threads, shared memory and partial rows
+             in fp32 and bf16 against the wrapper's helpers at every conv
+             S, and the bf16 erf within its stated bound of erff over
+             [-10, 10]; then
              every kernel against its plain PyTorch version at every shape
              the flagship and imagenet-cls-256 give it (B=8; the rope
              attention kernels' bf16 route on the tensor cores, with the
@@ -35,8 +36,9 @@ Phases, each fatal on failure (any exception exits non-zero):
              / atol 2e-5 (the per-layer eval limit of
              tests/test_parity_torch.py), and in bf16 the kernel's max-abs
              error against the fp32 plain version must be at most twice the
-             plain bf16 version's (the conv forward's two bf16 launches
-             bit-identical); the attention forward also with no rope
+             plain bf16 version's (the conv forward's two launches
+             bit-identical, fp32 and bf16); the attention forward also with
+             no rope
              half (Dr = 0), with and without the mask. Attention backward:
              all 13 gradients, fp32 within 1e-4 of each gradient's largest
              value (tighter than the 5e-3 of bench.py's kernel-vs-oracle
@@ -88,7 +90,11 @@ Phases, each fatal on failure (any exception exits non-zero):
              sums of the rope attention kernels against their plain
              versions'; the fp32 rope route at B=8 at every flagship shape,
              forward and backward, plain, kernel, kernel, plain, beside its
-             fp32 bound, summed per forward and per step;
+             fp32 bound, summed per forward and per step; the fp32 conv
+             forward, forward with residuals and backward at B=8 at every
+             flagship conv S, plain, kernel, kernel, plain (the kernels
+             as CUDA-graph replays, the plain versions with events), beside
+             the fp32 bound and CUDA-core floor, summed per forward or step;
              classify images/s and peak memory at B=128 bf16; ms per
              training step, images/s and peak memory;
   7. trace   one classify forward and one training step under
@@ -132,8 +138,9 @@ Phases, each fatal on failure (any exception exits non-zero):
              every conv S of the flagship and imagenet-cls-256 at B=8 (fp32
              forward rtol 2e-4 / atol 2e-5, fp32 backward within 1e-4 of
              each output's largest value, bf16 at most twice the plain bf16
-             error, two bf16 launches of each kernel bit-identical, the
-             ablation's FULL bit-identical to the production backward; the
+             error, two bf16 launches of each kernel and two fp32 backward
+             launches bit-identical, the ablation's FULL bit-identical to
+             the production backward; the
              Function on both routes against torch autograd of
              the plain forward); then train_cls.main in process on
              imagenet-cls-224 at full width and depth, B=128, synthetic
@@ -302,7 +309,11 @@ strided products and sums), whose per-shape rows also carry the parts'
 device times, the parts' library times and the shared memory per CTA.
 The rope entries also carry `fp32_b8` (the fp32 route's times at B=8, per
 flagship forward and per step's backward, beside its plain version and
-fp32 bound) and `fp32_checks` (phase 3's fp32 errors by shape).
+fp32 bound) and `fp32_checks` (phase 3's fp32 errors by shape). The conv
+forward, the forward with residuals and the backward carry `fp32_b8` too
+(phase 6's reads at each flagship conv S and their sums per forward or
+step: the kernels' graph-replay times, the plain versions' event times
+and the fp32 bound).
 """
 
 from __future__ import annotations
@@ -337,10 +348,13 @@ def log(*args) -> None:
 CARD: dict = {}
 
 
-def conv_floor_ms(kind, b, s):
+def conv_floor_ms(kind, b, s, fp32=False):
+    import torch
+
     from calm_vit_dte_tpu_torch.tools import time_conv as tconv
 
-    return tconv.floor_ms(kind, b, s, CARD["sms"], CARD["clock_hz"])
+    return tconv.floor_ms(kind, b, s, CARD["sms"], CARD["clock_hz"],
+                          torch.float32 if fp32 else torch.bfloat16)
 
 
 def flagship_shapes(model_cfg):
@@ -440,10 +454,10 @@ def attn_bwd_bound(b, s, dc, dr, dv, itemsize, peak=PEAK_BF16_FLOPS):
     return nbytes / PEAK_BYTES * 1e3, flops / peak * 1e3
 
 
-def conv_bound(b, s, itemsize):
+def conv_bound(b, s, itemsize, peak=PEAK_BF16_FLOPS):
     nbytes = 2 * b * s * s * 3 * itemsize + (96 + 32 + 288 + 32 + 96 + 3) * 4
     flops = 2 * b * s * s * 32 * 15
-    return nbytes / PEAK_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+    return nbytes / PEAK_BYTES * 1e3, flops / peak * 1e3
 
 
 # The tensor-core kernels whose registers and spills phase 2 prints.
@@ -1404,21 +1418,21 @@ TRAINER_STEPS = 6
 CONV_BWD_NAMES = ("dx",) + tuple(f"wg[:, {j}]" for j in range(24))
 
 
-def conv_resid_bound(b, s, itemsize):
+def conv_resid_bound(b, s, itemsize, peak=PEAK_BF16_FLOPS):
     """The forward with residuals: reads x, writes y, h and acc (3 + 3 + 32
     + 32 values per pixel); the forward's operations."""
     nbytes = b * s * s * 70 * itemsize + (96 + 32 + 288 + 32 + 96 + 3) * 4
     flops = 2 * b * s * s * 32 * 15
-    return nbytes / PEAK_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+    return nbytes / PEAK_BYTES * 1e3, flops / peak * 1e3
 
 
-def conv_bwd_bound(b, s, itemsize):
+def conv_bwd_bound(b, s, itemsize, peak=PEAK_BF16_FLOPS):
     """The backward: reads x and g, writes dx (3 values per pixel each) and
     the (32, 24) fp32 weight grads; three times the forward's operations."""
     nbytes = (b * s * s * 9 * itemsize + (96 + 32 + 288 + 32 + 96) * 4
               + 32 * 24 * 4)
     flops = 3 * 2 * b * s * s * 32 * 15
-    return nbytes / PEAK_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+    return nbytes / PEAK_BYTES * 1e3, flops / peak * 1e3
 
 
 def check_conv_training_kernels(torch, kc, abl, s, seed):
@@ -1426,8 +1440,9 @@ def check_conv_training_kernels(torch, kc, abl, s, seed):
     versions at B=CHECK_BATCH: fp32 forward outputs at rtol 2e-4 / atol
     2e-5, fp32 backward outputs within BWD_FP32_LIMIT of each one's largest
     value, bf16 at most twice the plain bf16 error against the fp32 plain
-    version; two bf16 launches of each kernel, and the ablation's FULL and
-    the production backward, bit-identical. Returns the worst errors."""
+    version; two bf16 launches of each kernel, two fp32 backward launches,
+    and the ablation's FULL and the production backward, bit-identical.
+    Returns the worst errors."""
     bf16, f32 = torch.bfloat16, torch.float32
     dev = torch.device("cuda")
     args = conv_inputs(torch, CHECK_BATCH, s, dev, f32, seed)
@@ -1453,6 +1468,11 @@ def check_conv_training_kernels(torch, kc, abl, s, seed):
         torch.testing.assert_close(x, y, rtol=2e-4, atol=2e-5)
         worst["fwd_resid"] = max(worst["fwd_resid"], max_err(x, y))
     got = kc.conv_residual_bwd(args[0], g, *w, dtype=f32)
+    again = kc.conv_residual_bwd(args[0], g, *w, dtype=f32)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])):
+        raise AssertionError(f"conv backward S={s}: two fp32 launches "
+                             "differ")
     want = kc.conv_residual_bwd_plain(args[0], g, *w, dtype=f32)
     outs = [got[0]] + [got[1][:, j] for j in range(24)]
     refs = [want[0]] + [want[1][:, j] for j in range(24)]
@@ -4077,7 +4097,8 @@ def main() -> int:
     log(f"[probe] {CARD['sms']} SMs, SM clock at most "
         f"{CARD['clock_hz'] / 1e6:.0f} MHz: the conv kernels' CUDA-core "
         f"floor is lane-ops per pixel x pixels / (SMs x 128 x clock), with "
-        f"lane-ops per pixel {tconv.LANE_OPS} (tools/time_conv.py)")
+        f"lane-ops per pixel {tconv.LANE_OPS} in bf16 and "
+        f"{tconv.LANE_OPS_F32} in fp32 (tools/time_conv.py)")
 
     # 2. build
     t0 = time.time()
@@ -4112,14 +4133,12 @@ def main() -> int:
             raise AssertionError(f"fp32 rope route: {kname} spills "
                                  f"{o['spill_bytes']} bytes, "
                                  f"{o['ctas_per_sm']} CTAs per SM")
-    # Every conv kernel instantiation as the card reports it; the bf16 ones
-    # must keep the CTAs an SM their launch bounds ask for, with no spill
-    # (csrc/conv_residual{,_bwd}.cu notes).
-    want_ctas = {
-        "conv_fwd_bf16_kernel<0>": kc.MIN_CTAS_BF16["forward"],
-        "conv_fwd_bf16_kernel<1> (save)":
-            kc.MIN_CTAS_BF16["forward with residuals"],
-        "conv_bwd_bf16_kernel<31>": kc.MIN_CTAS_BF16["backward"]}
+    # Every conv kernel instantiation as the card reports it; each, fp32
+    # and bf16, must keep the CTAs an SM its launch bound asks for, with no
+    # spill (csrc/conv_residual{,_bwd}.cu notes).
+    want_ctas = {kc.KERNEL_NAMES[(dt, what)]: n
+                 for dt, by_kernel in kc.MIN_CTAS.items()
+                 for what, n in by_kernel.items()}
     for kname, o in kc.card_occupancy().items():
         log(f"[build] conv: {kname}: {o['registers']} registers, spill "
             f"{o['spill_bytes']} bytes, {o['smem_bytes']} bytes of shared "
@@ -4190,28 +4209,32 @@ def main() -> int:
             f"err {max_err(out, ref):.3e}; bf16 err kernel "
             f"{errs[True][0]:.3e} vs plain {errs[True][1]:.3e} (mask off "
             f"{errs[False][0]:.3e} vs {errs[False][1]:.3e})")
-    # The bf16 conv kernels' launches against the wrapper's helpers (which
-    # the CPU tests hold to the sources' notes), and their GELU's error.
+    # The conv kernels' launches in both compute types against the
+    # wrapper's helpers (which the CPU tests hold to the sources' notes),
+    # and the bf16 GELU's error.
     for s in sorted(set(conv_sizes) | set(conv256), reverse=True):
-        want = {"forward": (*kc.fwd_bf16_grid(CHECK_BATCH, s),
-                            kc.THREADS_BF16,
-                            kc.fwd_bf16_smem() - kc._FWD_WEIGHTS_SMEM),
-                "backward": (*kc.bwd_bf16_grid(CHECK_BATCH, s),
-                             kc.THREADS_BF16, kc.bwd_bf16_smem()),
-                "bwd_rows": math.prod(kc.bwd_bf16_grid(CHECK_BATCH, s))}
-        got = kc.card_geometry(CHECK_BATCH, s)
-        if got != want:
-            raise AssertionError(f"conv geometry at S={s}: the C launches "
-                                 f"{got}, the wrapper {want}")
+        for dt in (f32, bf16):
+            want = {what: (*kc.fwd_grid(CHECK_BATCH, s, dt, save),
+                           kc.THREADS,
+                           kc.fwd_smem(dt, save) - kc._FWD_WEIGHTS_SMEM)
+                    for what, save in (("forward", False),
+                                       ("forward with residuals", True))}
+            want["backward"] = (*kc.bwd_grid(CHECK_BATCH, s), kc.THREADS,
+                                kc.bwd_smem())
+            want["bwd_rows"] = math.prod(kc.bwd_grid(CHECK_BATCH, s))
+            got = kc.card_geometry(CHECK_BATCH, s, dt)
+            if got != want:
+                raise AssertionError(f"conv geometry at S={s}, {dt}: the C "
+                                     f"launches {got}, the wrapper {want}")
     grid = torch.linspace(-10.0, 10.0, 2**20 + 1, device=dev)
     erf_err = max_err(kc.erf_bf16_probe(grid)[0],
                       torch.erf(grid * 0.7071067811865476))
     if not erf_err <= kc.ERF_BF16_MAX_ERR:
         raise AssertionError(f"bf16 conv erf error {erf_err:.3e} > "
                              f"{kc.ERF_BF16_MAX_ERR}")
-    log(f"[check] bf16 conv kernels' grids, threads, shared memory and "
-        f"partial rows equal the wrapper's helpers at every conv S; their "
-        f"erf within {erf_err:.3e} of erff over [-10, 10] (bound "
+    log(f"[check] conv kernels' grids, threads, shared memory and partial "
+        f"rows, fp32 and bf16, equal the wrapper's helpers at every conv S; "
+        f"the bf16 erf within {erf_err:.3e} of erff over [-10, 10] (bound "
         f"{kc.ERF_BF16_MAX_ERR})")
     del grid
     per_conv: dict[int, dict] = {}
@@ -4219,6 +4242,8 @@ def main() -> int:
                                  reverse=True)):
         args = conv_inputs(torch, CHECK_BATCH, s, dev, f32, seed=100 + i)
         out = kc.fused_conv_residual(*args, dtype=f32)
+        if not torch.equal(out, kc.fused_conv_residual(*args, dtype=f32)):
+            raise AssertionError(f"conv S={s}: two fp32 launches differ")
         ref = kc.fused_conv_residual_plain(*args, dtype=f32)
         torch.cuda.synchronize()
         torch.testing.assert_close(out, ref, rtol=2e-4, atol=2e-5)
@@ -4237,7 +4262,7 @@ def main() -> int:
                        "plain_bf16_err": e_p}
         log(f"[check] conv S={s}: fp32 max err {max_err(out, ref):.3e}; "
             f"bf16 err kernel {e_k:.3e} vs plain {e_p:.3e}, two launches "
-            "bit-identical")
+            "bit-identical in each type")
 
     # The attention kernels with no rope half (Dr = 0: the function of the
     # JAX package's `_make_fused`), which `ops.attention.masked_attention`
@@ -4854,6 +4879,72 @@ def main() -> int:
         f"{sum(r['launches'] * r['plain_ms'] for r in conv_rows):.3f} ms, "
         f"bound {sum(r['launches'] * r['bound_ms'] for r in conv_rows):.4f} "
         f"ms, CUDA-core floor {conv_floor:.4f} ms; on {name} ({smi})")
+    # The fp32 conv kernels at B = 8, where the card-vs-CPU checks and the
+    # fp32 eval forwards run them: at every flagship conv S the forward,
+    # the forward with residuals and the backward against their plain
+    # versions (plain, kernel, kernel, plain). The kernels are timed as
+    # CUDA-graph replays (tools/time_conv.py's graph_ms: at B=8 a launch's
+    # host work lasts about as long as its kernel), the plain versions with
+    # events. Each S's row and the sums per forward or per step (the
+    # stages of one flagship forward) go to the kernels line with the fp32
+    # bound; the CUDA-core floor (tools/time_conv.py's LANE_OPS_F32) is
+    # logged beside them.
+    f32_conv = {"fwd": [], "fwd_resid": [], "bwd": []}
+    for s in sorted(conv_sizes, reverse=True):
+        args = conv_inputs(torch, CHECK_BATCH, s, dev, f32, seed=1300 + s)
+        g = torch.from_numpy((np.random.default_rng(1300 + s).standard_normal(
+            (CHECK_BATCH, s, s, 3)) * 0.5).astype(np.float32)).to(dev)
+        w = args[1:6]
+        for key, kern, plain_fn, bound_fn in (
+                ("fwd", lambda: kc.fused_conv_residual(*args, dtype=f32),
+                 lambda: kc.fused_conv_residual_plain(*args, dtype=f32),
+                 conv_bound),
+                ("fwd_resid",
+                 lambda: kc.conv_residual_fwd_resid(*args, dtype=f32),
+                 lambda: kc.conv_residual_fwd_resid_plain(*args, dtype=f32),
+                 conv_resid_bound),
+                ("bwd", lambda: kc.conv_residual_bwd(args[0], g, *w,
+                                                     dtype=f32),
+                 lambda: kc.conv_residual_bwd_plain(args[0], g, *w,
+                                                    dtype=f32),
+                 conv_bwd_bound)):
+            plain_a = cuda_ms(torch, plain_fn, 3, warmup=1)
+            ms_a = tconv.graph_ms(kern, 5)
+            ms_b = tconv.graph_ms(kern, 5)
+            plain_b = cuda_ms(torch, plain_fn, 3, warmup=0)
+            t_bytes, t_ops = bound_fn(CHECK_BATCH, s, 4, PEAK_FP32_FLOPS)
+            row = dict(S=s, ms=min(ms_a, ms_b),
+                       plain_ms=min(plain_a, plain_b),
+                       bound_ms=max(t_bytes, t_ops),
+                       bound_by="bytes" if t_bytes >= t_ops
+                       else "operations",
+                       ms_reads=[ms_a, ms_b],
+                       plain_ms_reads=[plain_a, plain_b])
+            f32_conv[key].append(row)
+            floor = conv_floor_ms(key, CHECK_BATCH, s, fp32=True)
+            log(f"[time] fp32 conv {key} B={CHECK_BATCH} S={s}: kernel "
+                f"{row['ms']:.4f} ms ({ms_a:.4f}, {ms_b:.4f}; graph "
+                f"replays), plain {row['plain_ms']:.4f} ms, bound "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
+                f"{row['bound_ms'] / row['ms']:.1%} of bound; CUDA-core "
+                f"floor {floor:.4f} ms, {floor / row['ms']:.1%} of it")
+        del args, g, w
+    f32_conv_sums = {}
+    for key, rows_ in f32_conv.items():
+        x = f32_conv_sums[key] = {
+            "batch": CHECK_BATCH, "dtype": "float32",
+            **{k: sum(conv_sizes[r["S"]] * r[k] for r in rows_)
+               for k in ("ms", "plain_ms", "bound_ms")},
+            "per_shape": rows_}
+        floor = sum(conv_sizes[r["S"]] * conv_floor_ms(key, CHECK_BATCH,
+                                                       r["S"], fp32=True)
+                    for r in rows_)
+        log(f"[time] fp32 conv {key} B={CHECK_BATCH}, flagship sum over one "
+            f"{'forward' if key == 'fwd' else 'step'} "
+            f"({sum(conv_sizes.values())} stages): kernel {x['ms']:.4f} ms, "
+            f"plain {x['plain_ms']:.4f} ms, bound {x['bound_ms']:.4f} ms "
+            f"({x['bound_ms'] / x['ms']:.2%} of bound), CUDA-core floor "
+            f"{floor:.4f} ms ({floor / x['ms']:.2%}); on {name} ({smi})")
 
     pred.classify(images)   # warm
     torch.cuda.synchronize()
@@ -5061,6 +5152,12 @@ def main() -> int:
     kernels += (hires_kernels + routes_kernels + trainer_kernels
                 + [relayout_kernel])
     by_name = {k["name"]: k for k in kernels}
+    # The fp32 conv kernels' times at B = 8 (per flagship forward, or per
+    # step for the forward with residuals and the backward).
+    for kname, key in (("fused_conv_residual_fwd", "fwd"),
+                       ("conv_residual_fwd_resid", "fwd_resid"),
+                       ("conv_residual_bwd", "bwd")):
+        by_name[kname]["fp32_b8"] = f32_conv_sums[key]
     for path, got in {**tools_launches, **routes_launches}.items():
         for wrapper, n in got["launches"].items():
             k = by_name.get(TOOLS_KERNEL_NAMES.get(wrapper))

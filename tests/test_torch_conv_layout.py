@@ -1,15 +1,16 @@
-"""The bf16 conv residual kernels' launch geometry and their backward's
-stages, on the CPU.
+"""The conv residual kernels' launch geometry and their backward's stages,
+on the CPU, for both compute types (one design each, instantiated for
+bf16 and fp32).
 
 * At every conv S of every config in `utils/configs.py`, the forward's and
   the backward's CTAs fit the H100's shared memory (232,448 bytes a CTA)
-  with the CTAs an SM that the sources' notes claim, and the grids
-  cover the image; the helpers that size them (`kernels/conv_residual.py`)
-  state what the sources' notes and constants state. On the card,
-  tests/test_torch_gpu.py and chip_smoke.py hold the helpers to the C
-  launches.
+  with the CTAs an SM that the sources' notes claim for each compute type,
+  and the grids cover the image; the helpers that size them
+  (`kernels/conv_residual.py`) state what the sources' notes and constants
+  state. On the card, tests/test_torch_gpu.py and chip_smoke.py hold the
+  helpers to the C launches.
 * The backward's staged plain version (dx and one partial row a CTA of
-  the bf16 kernel's grid: the rows the weight-grad buffer needs; then
+  the kernels' grid: the rows the weight-grad buffer needs; then
   `conv_weight_grad_sum_plain`) gives `conv_residual_bwd_plain`'s dx and
   packed weight grads: rtol 1e-5 /
   atol 1e-6 of each column's largest value in fp32 (the sums are taken
@@ -25,6 +26,7 @@ import pytest
 import torch
 
 from calm_vit_dte_tpu_torch.kernels import conv_residual as kc
+from calm_vit_dte_tpu_torch.tools import time_conv as tconv
 from calm_vit_dte_tpu_torch.utils.configs import CONFIGS
 
 torch.set_num_threads(1)
@@ -44,27 +46,38 @@ def test_published_conv_sizes_are_known():
     assert sizes["hires-cls-1024"] == {1024, 832, 640, 448}
 
 
-@pytest.mark.parametrize("name", sorted(CONFIGS))
-def test_every_conv_size_fits(name):
+DTYPES = {torch.bfloat16: "bf16", torch.float32: "fp32"}
+
+
+# bf16 cases keep their ids (the config's name); fp32 ones add "-float32".
+@pytest.mark.parametrize("name,dtype", [
+    pytest.param(name, dtype, id=name if dtype == torch.bfloat16
+                 else f"{name}-float32")
+    for dtype in DTYPES for name in sorted(CONFIGS)])
+def test_every_conv_size_fits(name, dtype):
     for s in sorted(_conv_sizes(CONFIGS[name])):
-        for what, smem in (("forward", kc.fwd_bf16_smem()),
-                           ("forward with residuals", kc.fwd_bf16_smem()),
-                           ("backward", kc.bwd_bf16_smem())):
+        for what, smem in (("forward", kc.fwd_smem(dtype)),
+                           ("forward with residuals",
+                            kc.fwd_smem(dtype, save=True)),
+                           ("backward", kc.bwd_smem())):
             assert 0 < smem <= LIMIT
-            ctas = kc.MIN_CTAS_BF16[what]
+            ctas = kc.MIN_CTAS[dtype][what]
+            assert ctas >= 2, (what, dtype)
             assert kc.ctas_per_sm(smem, ctas) == ctas, (name, s, what)
-        for tile, grid in ((kc.FWD_BF16_TILE, kc.fwd_bf16_grid(3, s)),
-                           (kc.BWD_BF16_TILE, kc.bwd_bf16_grid(3, s))):
+        for tile, grid in ((kc.FWD_TILE, kc.fwd_grid(3, s, dtype)),
+                           (kc.fwd_tile(dtype, True),
+                            kc.fwd_grid(3, s, dtype, True)),
+                           (kc.BWD_TILE, kc.bwd_grid(3, s))):
             rows, cols = tile
             gx, gy, gz = grid
             assert (gx - 1) * cols < s <= gx * cols, (name, s, tile)
             assert (gy - 1) * rows < s <= gy * rows, (name, s, tile)
             assert gz == 3
-            assert kc.THREADS_BF16 == 256
+            assert kc.THREADS == 256
         # The forward's 16-column tiles leave no column idle at a
         # published width that is a multiple of 16.
         if name != "tiny-cls" and name != "tiny-reg":
-            assert s % kc.FWD_BF16_TILE[1] == 0, (name, s)
+            assert s % kc.FWD_TILE[1] == 0, (name, s)
 
 
 def _constants(text: str, namespace: str) -> dict:
@@ -73,29 +86,43 @@ def _constants(text: str, namespace: str) -> dict:
     return {k: int(v) for k, v in re.findall(r"\b(k\w+) = (\d+)\b", block)}
 
 
-@pytest.mark.parametrize("source,namespace,what,const,tile,smem", [
-    ("conv_residual.cu", "fwd16", "forward", "kMinCtas", kc.FWD_BF16_TILE,
-     kc.fwd_bf16_smem),
-    ("conv_residual.cu", "fwd16", "forward with residuals", "kMinCtasSave",
-     kc.FWD_BF16_TILE, kc.fwd_bf16_smem),
-    ("conv_residual_bwd.cu", "bwd16", "backward", "kMinCtas",
-     kc.BWD_BF16_TILE, kc.bwd_bf16_smem),
-])
-def test_helpers_agree_with_the_source_notes(source, namespace, what, const,
-                                             tile, smem):
+@pytest.mark.parametrize(
+    "source,namespace,dtype,what,const,rows,tile,smem", [
+        ("conv_residual.cu", "fwd", torch.bfloat16, "forward",
+         "kMinCtasBf16", "kR", kc.FWD_TILE, kc.fwd_smem),
+        ("conv_residual.cu", "fwd", torch.bfloat16, "forward with residuals",
+         "kMinCtasSaveBf16", "kR", kc.fwd_tile(torch.bfloat16, True),
+         lambda dt: kc.fwd_smem(dt, True)),
+        ("conv_residual.cu", "fwd", torch.float32, "forward", "kMinCtasF32",
+         "kR", kc.fwd_tile(torch.float32), kc.fwd_smem),
+        ("conv_residual.cu", "fwd", torch.float32, "forward with residuals",
+         "kMinCtasSaveF32", "kRSaveF32", kc.fwd_tile(torch.float32, True),
+         lambda dt: kc.fwd_smem(dt, True)),
+        ("conv_residual_bwd.cu", "bwd", torch.bfloat16, "backward",
+         "kMinCtasBf16", "kR", kc.BWD_TILE, lambda dt: kc.bwd_smem()),
+        ("conv_residual_bwd.cu", "bwd", torch.float32, "backward",
+         "kMinCtasF32", "kR", kc.BWD_TILE, lambda dt: kc.bwd_smem()),
+    ], ids=["forward-bf16", "forward_with_residuals-bf16", "forward-fp32",
+            "forward_with_residuals-fp32", "backward-bf16", "backward-fp32"])
+def test_helpers_agree_with_the_source_notes(source, namespace, dtype, what,
+                                             const, rows, tile, smem):
     text = (CSRC / source).read_text()
     consts = _constants(text, namespace)
-    assert (consts["kR"], consts["kC"]) == tile
-    stated = re.findall(rf"//\s+bf16 {what}: (\d+) bytes, (\d+) CTAs per SM",
-                        text)
+    assert (consts[rows], consts["kC"]) == tile
+    stated = re.findall(
+        rf"//\s+{DTYPES[dtype]} {what}: (\d+) bytes, (\d+) CTAs per SM", text)
     assert len(stated) == 1, stated
     nbytes, ctas = (int(v) for v in stated[0])
-    assert nbytes == smem()
-    assert ctas == consts[const] == kc.MIN_CTAS_BF16[what]
+    assert nbytes == smem(dtype)
+    assert ctas == consts[const] == kc.MIN_CTAS[dtype][what]
     assert ctas == kc.ctas_per_sm(nbytes, ctas)
-    bounds = re.findall(rf"__launch_bounds__\({namespace}::kThreads,([^)]*)\)",
-                        text)
-    assert len(bounds) == 1 and f"{namespace}::{const}" in bounds[0], bounds
+    # Every instantiation's launch bound asks for its type's constant.
+    bounds = re.findall(
+        rf"__launch_bounds__\({namespace}::kThreads,\s*([^)]*\))\)", text)
+    assert len(bounds) == 1 and f"{namespace}::min_ctas(" in bounds[0], bounds
+    block = text[text.index(f"namespace {namespace} {{"):]
+    rule = block[block.index("constexpr int min_ctas("):]
+    assert const in rule[:rule.index("}")], const
     common = (CSRC / "conv_residual_common.cuh").read_text()
     bound = re.search(r"kErfBf16MaxErr = ([0-9.e-]+)f;", common).group(1)
     assert float(bound) == kc.ERF_BF16_MAX_ERR
@@ -116,7 +143,7 @@ def _inputs(rng, b, s, dtype):
 def test_backward_stages_compose_to_the_plain_backward(s, dtype):
     x, g, *w = _inputs(np.random.default_rng(s), 2, s, dtype)
     dx, rows = kc.conv_residual_bwd_partials_plain(x, g, *w, dtype=dtype)
-    assert rows.shape == (math.prod(kc.bwd_bf16_grid(2, s)), 32 * 17)
+    assert rows.shape == (math.prod(kc.bwd_grid(2, s)), 32 * 17)
     assert rows.dtype == torch.float32
     want_dx, want_wg = kc.conv_residual_bwd_plain(x, g, *w, dtype=dtype)
     assert torch.equal(dx, want_dx)
@@ -136,3 +163,17 @@ def test_backward_stages_compose_to_the_plain_backward(s, dtype):
         torch.testing.assert_close(
             per_image[i].view(32, 17), wg_i[:, :17], rtol=1e-4,
             atol=1e-5 * float(wg_i.abs().max()), msg=f"image {i}")
+
+
+@pytest.mark.parametrize("kind", ["fwd", "fwd_resid", "bwd"])
+def test_fp32_floor_counts_the_exact_gelu(kind):
+    """The fp32 CUDA-core floor counts the exact GELU's recorded lane-ops
+    (tools/time_conv.py), more than the bf16 GELU's, and scales with them
+    at equal work."""
+    assert tconv.LANE_OPS_F32 == tconv.lane_ops(tconv.GELU_OPS_F32,
+                                                tconv.DGELU_OPS_F32)
+    assert tconv.LANE_OPS_F32[kind] > tconv.LANE_OPS[kind]
+    ratio = (tconv.floor_ms(kind, 8, 224, 132, 1.98e9, torch.float32)
+             / tconv.floor_ms(kind, 8, 224, 132, 1.98e9))
+    assert ratio == pytest.approx(tconv.LANE_OPS_F32[kind]
+                                  / tconv.LANE_OPS[kind], rel=1e-12)

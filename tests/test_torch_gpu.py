@@ -319,8 +319,8 @@ def test_rope_attention_function_matches_autograd(cuda_device, s, dc, dr):
 
 
 # Conv shapes (S, B): flagship sizes, ragged S that no tile divides (the
-# bf16 forward's 64 x 16 and backward's 16 x 32 tiles, the fp32 kernels'
-# 8 x 32), B = 1, and a hires-cls-1024 conv S at B = 1.
+# forward's 64 x 16 and the backward's 16 x 32 tiles, in both compute
+# types), B = 1, and a hires-cls-1024 conv S at B = 1.
 CONV_SHAPES = [(80, 2), (224, 2), (83, 2), (20, 2), (176, 1), (1024, 1)]
 
 
@@ -337,8 +337,10 @@ def test_conv_residual_kernel_matches_plain(cuda_device, s, b):
             _normal(rng, cuda_device, 3, scale=0.1)]
     n0 = kc.fused_conv_residual.launches
     out = kc.fused_conv_residual(*args, dtype=torch.float32)
+    again = kc.fused_conv_residual(*args, dtype=torch.float32)
     torch.cuda.synchronize()
-    assert kc.fused_conv_residual.launches == n0 + 1
+    assert kc.fused_conv_residual.launches == n0 + 2
+    assert torch.equal(out, again)   # two fp32 launches, the same bits
     ref = kc.fused_conv_residual_plain(*args, dtype=torch.float32)
     torch.testing.assert_close(out, ref, rtol=2e-4, atol=2e-5)
 
@@ -466,6 +468,26 @@ def test_conv_bwd_bf16_partial_rows_match_staged_plain(cuda_device, s, b):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("s,b", [(83, 2), (20, 1), (224, 1)])
+def test_conv_bwd_f32_partial_rows_match_staged_plain(cuda_device, s, b):
+    """The fp32 backward's first launch, on the bf16 kernel's grid: each of
+    its partial weight-grad rows (one a CTA, in the grid's order) and dx
+    within 1e-4 of the staged plain version's largest value (the sums are
+    taken in another order)."""
+    args, g = _conv_args(np.random.default_rng(s + 6), cuda_device, b, s)
+    w = args[1:6]
+    dx, part = kc.launch_bwd(args[0], g, *w, dtype=torch.float32)
+    torch.cuda.synchronize()
+    want_dx, want = kc.conv_residual_bwd_partials_plain(
+        args[0], g, *w, dtype=torch.float32)
+    assert part.shape == want.shape == (math.prod(kc.bwd_grid(b, s)),
+                                        32 * 17)
+    assert _norm_err(dx, want_dx) <= 1e-4
+    for k in range(17):
+        assert _norm_err(part[:, k::17], want[:, k::17]) <= 1e-4, k
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_conv_bwd_kernel_deterministic(cuda_device, dtype):
     """No atomics: two launches give the same bits."""
@@ -500,28 +522,58 @@ def test_conv_bf16_gelu_error_bound(cuda_device):
         assert float(over.max()) <= 1.0, (name, float(over.max()))
 
 
+def _conv_geometry_matches_helpers(s, dtype):
+    """The C launches' grid, threads, shared memory and partial rows in
+    `dtype` are the Python helpers' (which the CPU tests hold to the
+    sources' notes); every kernel of `dtype` keeps the CTAs an SM its
+    launch bound asks for and spills nothing."""
+    got = kc.card_geometry(3, s, dtype)
+    for what, save in (("forward", False), ("forward with residuals", True)):
+        assert got[what] == (*kc.fwd_grid(3, s, dtype, save), kc.THREADS,
+                             kc.fwd_smem(dtype, save) - kc._FWD_WEIGHTS_SMEM)
+    assert got["backward"] == (*kc.bwd_grid(3, s), kc.THREADS,
+                               kc.bwd_smem())
+    assert got["bwd_rows"] == math.prod(kc.bwd_grid(3, s))
+    occ = kc.card_occupancy()
+    for what, want in kc.MIN_CTAS[dtype].items():
+        name = kc.KERNEL_NAMES[(dtype, what)]
+        smem = (kc.bwd_smem() if what == "backward" else
+                kc.fwd_smem(dtype, what == "forward with residuals"))
+        assert occ[name]["smem_bytes"] == smem, name
+        assert occ[name]["ctas_per_sm"] >= want, name
+        assert occ[name]["spill_bytes"] == 0, name
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("s", [224, 83, 1024])
 def test_conv_bf16_geometry_matches_helpers(cuda_device, s):
-    """The C launches' grid, threads, shared memory and partial rows are
-    the Python helpers' (which the CPU tests hold to the sources' notes);
-    every bf16 kernel keeps the CTAs an SM its launch bound asks for and
-    spills nothing."""
-    got = kc.card_geometry(3, s)
-    assert got["forward"] == (*kc.fwd_bf16_grid(3, s), kc.THREADS_BF16,
-                              kc.fwd_bf16_smem() - kc._FWD_WEIGHTS_SMEM)
-    assert got["backward"] == (*kc.bwd_bf16_grid(3, s), kc.THREADS_BF16,
-                               kc.bwd_bf16_smem())
-    assert got["bwd_rows"] == math.prod(kc.bwd_bf16_grid(3, s))
-    occ = kc.card_occupancy()
-    for name, smem, what in (
-            ("conv_fwd_bf16_kernel<0>", kc.fwd_bf16_smem(), "forward"),
-            ("conv_fwd_bf16_kernel<1> (save)", kc.fwd_bf16_smem(),
-             "forward with residuals"),
-            ("conv_bwd_bf16_kernel<31>", kc.bwd_bf16_smem(), "backward")):
-        assert occ[name]["smem_bytes"] == smem, name
-        assert occ[name]["ctas_per_sm"] >= kc.MIN_CTAS_BF16[what], name
-        assert occ[name]["spill_bytes"] == 0, name
+    _conv_geometry_matches_helpers(s, torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [224, 83, 1024])
+def test_conv_f32_geometry_matches_helpers(cuda_device, s):
+    _conv_geometry_matches_helpers(s, torch.float32)
+
+
+@pytest.mark.gpu
+def test_conv_f32_gelu_matches_exact(cuda_device):
+    """The fp32 kernels' GELU and GELU' (one erff, one expf) against the
+    exact functions in float64, over 2^20 + 1 points of [-10, 10]: within a
+    few fp32 ulps of each value plus erff's own error scaled by |x|."""
+    x = torch.linspace(-10.0, 10.0, 2**20 + 1, device=cuda_device)
+    gelu, dgelu = kc.gelu_f32_probe(x)
+    torch.cuda.synchronize()
+    x64 = x.double().cpu()
+    want = kc.gelu_f32_probe(x64)
+    ulp = 2.0 ** -23
+    # erff is within 2 ulps (<= 1.2e-7 near +-1): Phi within 6e-8.
+    tols = (4 * ulp * want[0].abs() + 2e-7 * x64.abs() + 1e-30,
+            8 * ulp * want[1].abs() + 2e-7 * (1 + x64.abs()))
+    for name, got, w, tol in zip(("gelu", "dgelu"), (gelu, dgelu), want,
+                                 tols):
+        over = (got.cpu().double() - w).abs() / tol
+        assert float(over.max()) <= 1.0, (name, float(over.max()))
 
 
 @pytest.mark.gpu
